@@ -1,4 +1,5 @@
-"""Channel layer: BPSK, AWGN (generator-drawn and keyed), LLR conversion."""
+"""Channel layer: BPSK, AWGN (generator-drawn and keyed), LLR conversion,
+saturation and the reference's quantizers."""
 
 from .awgn import (
     MAXLLR,
@@ -10,6 +11,12 @@ from .awgn import (
     snr_to_n0,
     snr_to_sigma,
 )
+from .quantize import (
+    quantize_no_zero,
+    quantize_round,
+    quantize_threshold_table,
+    saturate,
+)
 
 __all__ = [
     "MAXLLR",
@@ -20,4 +27,8 @@ __all__ = [
     "n0_to_sigma",
     "snr_to_n0",
     "snr_to_sigma",
+    "quantize_no_zero",
+    "quantize_round",
+    "quantize_threshold_table",
+    "saturate",
 ]

@@ -18,10 +18,12 @@ import torch
 
 __all__ = [
     "DecodeResult",
+    "NoiseKey",
     "sgn_pos",
     "sgn_neg",
     "storage_cast",
     "run_flooding_soft",
+    "syndrome_from_hard",
 ]
 
 
@@ -39,6 +41,17 @@ class DecodeResult:
     hard: torch.Tensor
     iterations: torch.Tensor
     satisfied: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseKey:
+    """Noise coordinates of one batch: the run seed and the global index
+    of the batch's first frame.  A decoder that draws noise keys row ``i``
+    of the batch by (seed, frame0 + i, step), so a frame decodes the same
+    in any batch (kernels B3/B4 of :mod:`..kernels.channel`)."""
+
+    seed: int
+    frame0: int
 
 
 def storage_cast(x: torch.Tensor, sdt: torch.dtype) -> torch.Tensor:
@@ -62,6 +75,19 @@ def sgn_pos(x: torch.Tensor) -> torch.Tensor:
 def sgn_neg(x: torch.Tensor) -> torch.Tensor:
     """sgn(0) = -1 convention (GDBF family)."""
     return torch.where(x > 0, 1.0, -1.0).to(x.dtype)
+
+
+def syndrome_from_hard(code, d: torch.Tensor) -> torch.Tensor:
+    """Bipolar syndrome per check from hard decisions (the bit-flip
+    decoders' CN update).
+
+    d: [N, B] ±1.  Returns [M, B] in d's dtype, +1 satisfied and −1
+    unsatisfied; padding slots contribute +1.
+    """
+    m, dc = code.cn_vn.shape
+    vals = d[code.cn_vn.reshape(-1).long()].reshape(m, dc, -1)
+    vals = torch.where(code.cn_mask[:, :, None], vals, torch.ones_like(vals))
+    return torch.prod(vals, dim=1).to(d.dtype)
 
 
 def _decide(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -12,9 +12,16 @@ error counting, adaptive stopping, statistics, incremental reports.
     coordinates, whatever the batch size.
   * Codeword fixtures are cycled by index; with codeword x ∈ {±1} the
     channel output is x · y₊₁ (exact), so one keyed channel serves both.
+  * The decoder gets the batch's noise coordinates
+    (:class:`..decoders.base.NoiseKey`: the run seed and the batch's first
+    frame), so a decoder that draws noise keys it per (seed, frame, step)
+    and any frame's decode replays too.
+  * The bit-flip extras of the JAX ``simulate`` are surfaced when the
+    result has them: the total of ``smoothing_used`` and the ``phase_hist``
+    of the redecode phases, in ``MCStats.extra``.
 
-The decoder-state carry (``decode_carry0``) and the bit-flip extras of the
-JAX ``simulate`` are not here: they come with their decoders (ROADMAP A11).
+The decoder-state carry (``decode_carry0``) is not here: it comes with
+NGDBFhw (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 
 from ..channel.awgn import awgn_all_zero, bpsk, n0_to_sigma, snr_to_n0
 from ..codes.code import Code
-from ..decoders.base import DecodeResult
+from ..decoders.base import DecodeResult, NoiseKey
 from .fixtures import cycle_indices
 
 __all__ = [
@@ -38,6 +45,10 @@ __all__ = [
     "itdist_biased_sequence",
     "simulate",
 ]
+
+
+#: decoder-family fields surfaced per frame when the result has them
+_EXTRA_FIELDS = ("smoothing_used", "phases")
 
 
 def default_min_word_errors(n: int) -> int:
@@ -161,12 +172,13 @@ def itdist_biased_sequence(ls, length: int) -> np.ndarray:
 
 def simulate(
     code: Code,
-    decode_fn: Callable[[torch.Tensor], DecodeResult],
+    decode_fn: Callable[[torch.Tensor, NoiseKey], DecodeResult],
     snr_db: float,
     rate: Optional[float] = None,
     stop: Optional[StopRule] = None,
     batch_size: int = 512,
     seed: int = 0,
+    preprocess: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     codewords: Optional[np.ndarray] = None,
     device="cpu",
     verbose: bool = False,
@@ -174,11 +186,13 @@ def simulate(
 ) -> MCStats:
     """Run the Monte-Carlo loop for one operating point.
 
-    decode_fn(samples [B, N] f32 on ``device``) -> DecodeResult.
+    decode_fn(inp [B, N] on ``device``, key) -> DecodeResult, with ``inp``
+    the channel samples mapped by ``preprocess`` (a quantizer and/or LLR;
+    identity if None) and ``key`` the batch's :class:`NoiseKey`.
     ``codewords``: optional [L, N] bit matrix cycled frame by frame, else
     all-zero codewords.  ``rate`` defaults to the design rate k/n.
     Counting happens on the device; each batch brings four [B] vectors to
-    the host.
+    the host (six with the bit-flip extras).
     """
     device = torch.device(device)
     rate = code.rate if rate is None else rate
@@ -209,13 +223,18 @@ def simulate(
             y = c * y
         else:
             c = 1
-        res = decode_fn(y)
+        inp = preprocess(y) if preprocess is not None else y
+        res = decode_fn(inp, NoiseKey(seed, frame_offset))
         frame_errs = (res.hard != c).sum(dim=1)
         uncoded = ((y > 0) != (c > 0)).sum(dim=1)
         frame_errs, uncoded, iters, satisfied = (
             t.cpu().numpy()
             for t in (frame_errs, uncoded, res.iterations, res.satisfied)
         )
+        extras = {
+            k: getattr(res, k).cpu().numpy()
+            for k in _EXTRA_FIELDS if hasattr(res, k)
+        }
 
         stats.total_words += b
         stats.total_bits += b * code.n
@@ -234,6 +253,21 @@ def simulate(
             grown[: stats.iteration_hist.size] = stats.iteration_hist
             stats.iteration_hist = grown
         np.add.at(stats.iteration_hist, iters, 1)
+
+        # bit-flip extras: totals + phase histogram (RNGDBF phase_hist)
+        if "smoothing_used" in extras:
+            stats.extra["smoothing_used"] = stats.extra.get(
+                "smoothing_used", 0
+            ) + int(extras["smoothing_used"].sum())
+        if "phases" in extras:
+            ph = extras["phases"]
+            hist = stats.extra.get("phase_hist")
+            width = max(int(ph.max()), len(hist) if hist is not None else 0)
+            grown = np.zeros(width, np.int64)
+            if hist is not None:
+                grown[: len(hist)] += hist
+            np.add.at(grown, ph - 1, 1)
+            stats.extra["phase_hist"] = grown
 
         batch_idx += 1
         frame_offset += b

@@ -3,13 +3,26 @@
   * B1 :func:`.minsum.minsum_cn_scan` — min-sum check-node update, routing
     inside (replaces ``minsum_pallas.minsum_cn_scan_pallas``);
   * B2 :func:`.channel.awgn_philox` — keyed Philox + Box–Muller AWGN of the
-    all-(+1) word (replaces ``channel_pallas.awgn_all_zero_pallas``).
+    all-(+1) word (replaces ``channel_pallas.awgn_all_zero_pallas``);
+  * B3 :func:`.channel.uniform_philox` — keyed Philox uniforms (replaces
+    ``channel_pallas.uniform_pallas``);
+  * B4 :func:`.channel.gauss_philox` — keyed erfinv Gaussians on B3's
+    uniforms (replaces ``channel_pallas.awgn_all_zero_hybrid``).
 
 ``build.LAUNCHES`` counts the launches of each.
 """
 
 from .build import LAUNCHES
-from .channel import awgn_philox, awgn_philox_plain, philox4x32_10
+from .channel import (
+    awgn_philox,
+    awgn_philox_plain,
+    gauss_philox,
+    gauss_philox_plain,
+    noise_stream,
+    philox4x32_10,
+    uniform_philox,
+    uniform_philox_plain,
+)
 from .minsum import VARIANTS, minsum_cn_scan, minsum_cn_scan_plain
 
 __all__ = [
@@ -17,6 +30,11 @@ __all__ = [
     "awgn_philox",
     "awgn_philox_plain",
     "philox4x32_10",
+    "noise_stream",
+    "uniform_philox",
+    "uniform_philox_plain",
+    "gauss_philox",
+    "gauss_philox_plain",
     "VARIANTS",
     "minsum_cn_scan",
     "minsum_cn_scan_plain",

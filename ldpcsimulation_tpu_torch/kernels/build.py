@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
-The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
-(seconds, no PyTorch headers) compiles them for Hopper into a shared library
-under ``build/torch_kernels/`` at the checkout root.  The library's name
+The sources under ``csrc/`` have a plain C interface, so ``nvcc`` compiles
+them for Hopper in seconds (no PyTorch headers): one compiler process per
+source, all started together, then one link into a shared library under
+``build/torch_kernels/`` at the checkout root.  The library's name
 carries a hash of the sources and flags, so an edited source is never
 served by a stale build.  Nothing is built when this module is imported:
 the first kernel launch builds, and CPU tensors never reach this module.
@@ -27,10 +28,10 @@ __all__ = ["LAUNCHES", "BUILD_DIR", "build", "library", "check", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("awgn_philox.cu", "minsum_cn_scan.cu")
+SOURCES = ("awgn_philox.cu", "minsum_cn_scan.cu", "uniform_philox.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: launches per kernel name, counted by each wrapper where it launches
@@ -70,15 +71,32 @@ def build() -> tuple[Path, str, float]:
         return out, log_path.read_text() if log_path.exists() else "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
-    cmd += [str(CSRC / s) for s in SOURCES]
+    objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+             str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, o in zip(SOURCES, objs)
+    ]
+    log = "".join(p.communicate()[0] for p in procs)
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        link = subprocess.run(
+            [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        rcs.append(link.returncode)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    for o in objs:
+        o.unlink(missing_ok=True)
     log_path.write_text(log)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed (exit codes {rcs}):\n{log}")
     os.replace(tmp, out)
     return out, log, seconds
 
@@ -102,6 +120,14 @@ def library() -> ctypes.CDLL:
             _P, ctypes.c_int, _P,
         ]
         lib.ldpc_minsum_cn_scan.restype = ctypes.c_int
+        draw = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_uint32, ctypes.c_int]
+        lib.ldpc_uniform_philox.argtypes = draw + [_P, _P, ctypes.c_int, _P]
+        lib.ldpc_uniform_philox.restype = ctypes.c_int
+        lib.ldpc_gauss_philox.argtypes = draw + [
+            ctypes.c_float, ctypes.c_float, _P, _P, ctypes.c_int, _P,
+        ]
+        lib.ldpc_gauss_philox.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -1,4 +1,8 @@
-"""Kernel B2: keyed AWGN samples of the all-(+1) word (``csrc/awgn_philox.cu``).
+"""Keyed Philox draws on the card: kernel B2, the AWGN samples of the
+all-(+1) word (``csrc/awgn_philox.cu``), and kernels B3 and B4, the
+decoders' uniforms and erfinv Gaussians (``csrc/uniform_philox.cu``).
+
+B2.
 
 Port of ``ldpcsimulation_tpu.kernels.channel_pallas.awgn_all_zero_pallas``.
 Frame ``f`` of seed ``s`` draws its noise from Philox4x32-10 with key ``s``
@@ -11,6 +15,21 @@ plain twin :func:`awgn_philox_plain` for the CPU.  The twin computes the
 same Philox integers (int64 tensor arithmetic, 16-bit limbs for the 32×32
 products) and the same f32 operations in the same order; only ``log`` and
 ``cos`` come from another math library, so y agrees to a few ulps.
+
+B3 and B4.  Ports of ``channel_pallas.uniform_pallas`` and
+``channel_pallas.awgn_all_zero_hybrid``.  The same key, with the counter
+``(quad j, f lo, f hi, stream)``: each call gives four words, for columns
+4j … 4j+3, and each word becomes ``u = (k + 0.5)·2⁻²⁴`` with ``k = word >>
+8``, as B2 forms its uniforms.  :func:`uniform_philox` writes u (exact, so
+kernel and twin are equal); :func:`gauss_philox` writes ``offset + scale·
+(√2·erfinv(2u − 1))`` in the TPU function's f32 operation order, with
+``erfinv`` from libdevice on the card and from PyTorch in the twin (they
+differ by a few ulps).  Above k = 2²³ the f32 sum ``k + 0.5`` rounds to
+even, so k = 2²⁴ − 1 gives u = 1.0 and a Gaussian of +inf, once in 2²⁴
+draws — as the TPU functions do.  The decoders key their draws with
+:func:`noise_stream`; stream 0 is B2's, so no decoder draw repeats a
+channel draw.  Both layouts are written directly: ``"nb"`` is the
+decoders' ``[n, batch]``, ``"bn"`` the TPU functions' ``[batch, n]``.
 """
 
 from __future__ import annotations
@@ -21,13 +40,26 @@ import torch
 
 from . import build
 
-__all__ = ["philox4x32_10", "awgn_philox", "awgn_philox_plain"]
+__all__ = [
+    "philox4x32_10",
+    "awgn_philox",
+    "awgn_philox_plain",
+    "LAYOUTS",
+    "noise_stream",
+    "uniform_philox",
+    "uniform_philox_plain",
+    "gauss_philox",
+    "gauss_philox_plain",
+]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _TWO_PI = 2.0 * math.pi  # rounded to f32 where it meets an f32 tensor
 _U64 = 1 << 64
+_SQRT2 = math.sqrt(2.0)  # rounded to f32 where it meets an f32 tensor
+#: layout name -> id passed to the B3/B4 kernels
+LAYOUTS = {"bn": 0, "nb": 1}
 
 
 def _mulhilo(m: int, a: torch.Tensor):
@@ -67,17 +99,22 @@ def _check_args(seed, frame0, batch, n):
         raise ValueError(f"frames {frame0}..{frame0 + batch} outside [0, 2^64)")
 
 
+def _frame_words(frame0: int, batch: int, device):
+    """Counter words (f lo, f hi) of frames frame0 … frame0+batch−1 as
+    [batch, 1] int64 tensors (frame0 + row may pass 2^63)."""
+    f = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    f_lo = (f + (frame0 & _MASK32)) & _MASK32
+    carry = (f + (frame0 & _MASK32)) >> 32
+    return f_lo, (carry + (frame0 >> 32)) & _MASK32
+
+
 def awgn_philox_plain(seed: int, frame0: int, batch: int, n: int,
                       sigma: float, device="cpu", with_bits: bool = False):
     """Plain PyTorch twin of the kernel (same integers, same f32 steps)."""
     _check_args(seed, frame0, batch, n)
     npairs = (n + 1) // 2
     j = torch.arange(npairs, dtype=torch.int64, device=device)[None, :]
-    f = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
-    # frame0 + row may pass 2^63: form the two counter words exactly
-    f_lo = (f + (frame0 & _MASK32)) & _MASK32
-    carry = (f + (frame0 & _MASK32)) >> 32
-    f_hi = (carry + (frame0 >> 32)) & _MASK32
+    f_lo, f_hi = _frame_words(frame0, batch, device)
     x0, x1, x2, x3 = philox4x32_10(
         (j, f_lo, f_hi, 0), (seed & _MASK32, seed >> 32)
     )
@@ -122,3 +159,109 @@ def awgn_philox(seed: int, frame0: int, batch: int, n: int, sigma: float,
     build.check(rc, "awgn_philox")
     build.LAUNCHES["awgn_philox"] += 1
     return (y, bits) if with_bits else y
+
+
+def noise_stream(step: int, domain: int) -> int:
+    """Philox stream of a decoder draw: ``1 + 2·step + domain`` (domain 0
+    the perturbation, 1 the stochastic flips; stream 0 is the channel's)."""
+    if domain not in (0, 1) or not 0 <= step < (1 << 31) - 1:
+        raise ValueError(f"no noise stream for step {step}, domain {domain}")
+    return 1 + 2 * step + domain
+
+
+def _check_draw(seed, frame0, batch, n, stream, layout):
+    _check_args(seed, frame0, batch, n)
+    if not 0 <= stream <= _MASK32:
+        raise ValueError(f"stream {stream} outside [0, 2^32)")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r} (want one of "
+                         f"{sorted(LAYOUTS)})")
+
+
+def _plain_bits(seed, frame0, batch, n, stream, layout, device):
+    """[batch, n] (or [n, batch] for "nb") int64 24-bit integers k."""
+    nquads = (n + 3) // 4
+    j = torch.arange(nquads, dtype=torch.int64, device=device)[None, :]
+    f_lo, f_hi = _frame_words(frame0, batch, device)
+    words = philox4x32_10(
+        (j, f_lo, f_hi, stream), (seed & _MASK32, seed >> 32)
+    )
+    k = torch.stack(words, dim=-1).reshape(batch, 4 * nquads)[:, :n] >> 8
+    return k.t().contiguous() if layout == "nb" else k
+
+
+def _plain_uniform(k):
+    return (k.to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+def uniform_philox_plain(seed: int, frame0: int, batch: int, n: int,
+                         stream: int, layout: str = "nb", device="cpu",
+                         with_bits: bool = False):
+    """Plain PyTorch twin of kernel B3 (same integers, same f32 steps)."""
+    _check_draw(seed, frame0, batch, n, stream, layout)
+    k = _plain_bits(seed, frame0, batch, n, stream, layout, device)
+    u = _plain_uniform(k)
+    return (u, k.to(torch.int32)) if with_bits else u
+
+
+def gauss_philox_plain(seed: int, frame0: int, batch: int, n: int,
+                       stream: int, offset: float, scale: float,
+                       layout: str = "nb", device="cpu",
+                       with_bits: bool = False):
+    """Plain PyTorch twin of kernel B4: ``offset + scale·(√2·erfinv(2u −
+    1))`` on B3's uniforms, with PyTorch's ``erfinv``."""
+    _check_draw(seed, frame0, batch, n, stream, layout)
+    k = _plain_bits(seed, frame0, batch, n, stream, layout, device)
+    nrm = _SQRT2 * torch.erfinv(2.0 * _plain_uniform(k) - 1.0)
+    y = offset + scale * nrm
+    return (y, k.to(torch.int32)) if with_bits else y
+
+
+def _draw(entry, name, seed, frame0, batch, n, stream, layout, device,
+          with_bits, *scalars):
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    _check_draw(seed, frame0, batch, n, stream, layout)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    shape = (n, batch) if layout == "nb" else (batch, n)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    bits = (torch.empty(shape, dtype=torch.int32, device=device)
+            if with_bits else None)
+    rc = getattr(build.library(), entry)(
+        seed, frame0, batch, n, stream, LAYOUTS[layout], *scalars,
+        out.data_ptr(), bits.data_ptr() if with_bits else None,
+        device.index, build.stream_of(device),
+    )
+    build.check(rc, name)
+    build.LAUNCHES[name] += 1
+    return (out, bits) if with_bits else out
+
+
+def uniform_philox(seed: int, frame0: int, batch: int, n: int, stream: int,
+                   device, layout: str = "nb", with_bits: bool = False):
+    """Keyed uniforms of frames frame0 … frame0+batch−1 on ``stream``:
+    f32 ``[n, batch]`` (layout "nb") or ``[batch, n]`` ("bn").
+
+    ``with_bits`` also returns the int32 24-bit integers behind them.  CPU:
+    the plain twin.  CUDA: kernel B3, or an exception."""
+    if torch.device(device).type == "cpu":
+        return uniform_philox_plain(seed, frame0, batch, n, stream, layout,
+                                    device, with_bits)
+    return _draw("ldpc_uniform_philox", "uniform_philox", seed, frame0,
+                 batch, n, stream, layout, device, with_bits)
+
+
+def gauss_philox(seed: int, frame0: int, batch: int, n: int, stream: int,
+                 offset: float, scale: float, device, layout: str = "nb",
+                 with_bits: bool = False):
+    """Keyed Gaussians ``offset + scale·(√2·erfinv(2u − 1))`` on B3's
+    uniforms, in :func:`uniform_philox`'s layouts.  ``offset`` and
+    ``scale`` act as f32 values.  CPU: the plain twin.  CUDA: kernel B4, or
+    an exception."""
+    if torch.device(device).type == "cpu":
+        return gauss_philox_plain(seed, frame0, batch, n, stream, offset,
+                                  scale, layout, device, with_bits)
+    return _draw("ldpc_gauss_philox", "gauss_philox", seed, frame0, batch,
+                 n, stream, layout, device, with_bits, offset, scale)

@@ -1,35 +1,48 @@
-"""Sweep CLI — the min-sum route of ``ldpcsimulation_tpu.tools.sweep``.
+"""Sweep CLI — the min-sum and GDBF routes of
+``ldpcsimulation_tpu.tools.sweep``.
 
-One reference-format row per SNR point is appended to the log, with the
-JAX CLI's columns (``SNR BER avgIters WER T code``) and the same
-``<log>.done`` resume keys, so either CLI resumes the other's sweep.
+The CLI runs the JAX CLI's cartesian grid (SNR × ymax × nq × alpha × delta
+× theta × noise-scale × lam × w × theta0, each list defaulting to one unset
+value) and appends one reference-format row per grid point to the log, with
+the JAX CLI's columns and the same ``<log>.done`` resume keys, so either CLI
+resumes the other's sweep.
 
-Example (one H100):
+Examples (one H100):
     python -m ldpcsimulation_tpu_torch.tools.sweep minsum \\
         --code qc_1008_504 --snr 2.0 -T 10 --msg-dtype f16 \\
         --batch 32768 --log ms.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep gdbf --preset SMNGDBF \\
+        --code qc_1008_504 --snr 3.0:3.5:0.25 -T 300 --theta -0.9 \\
+        --noise-scale 0.975 --lam 0.988 --alpha 0.75 --window 64 \\
+        --ymax 2.5 --batch 32768 --log smngdbf.log
 
-Ported so far: plain min-sum on the named QC codes, flooding schedule.
-The other decoders, schedules and drivers exit with an error naming their
-ROADMAP item.
+Ported so far: plain min-sum on the named QC codes (flooding schedule),
+and the GDBF/NGDBF presets on every named code (QC codes take the
+row-gather graph operations).  The other decoders and drivers exit with
+an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..codes.library import NAMED_CODES, load_named_qc
+from ..channel import quantize_round, saturate, snr_to_sigma
+from ..codes.library import NAMED_CODES, load_named_code, load_named_qc
+from ..decoders.base import syndrome_from_hard
+from ..decoders.gdbf import PRESETS, decode_gdbf, preset
 from ..decoders.minsum_qc import decode_minsum_qc, qc_check_satisfied
 from ..harness import (
     StopRule,
     append_row,
     default_min_word_errors,
     fmt,
+    gdbf_log_row,
     minsum_log_row,
     simulate,
 )
@@ -42,14 +55,10 @@ _NOT_PORTED = {
     "bp": "A8",
     "offsetminsum": "S4 (quantized min-sum routes)",
     "normalizedminsum": "S4 (quantized min-sum routes)",
-    "gdbf": "A11",
     "ddbmp": "A11",
     "ngdbfhw": "A11",
     "nbqspa": "A12",
 }
-#: the JAX CLI keys a point by SNR and nine decoder parameters; min-sum
-#: leaves those unset, and the port writes the same keys
-_UNSET_PARAMS = (None,) * 9
 
 
 def _grid_key(point) -> str:
@@ -90,9 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="sweep", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("decoder", choices=["minsum", *sorted(_NOT_PORTED)])
+    p.add_argument("decoder",
+                   choices=["minsum", "gdbf", *sorted(_NOT_PORTED)])
     p.add_argument("--code", required=True, choices=sorted(NAMED_CODES),
-                   help="named code (QC codes take the min-sum route)")
+                   help="named code (min-sum takes the QC codes)")
     p.add_argument("--schedule", choices=["flooding", "layered"],
                    default="flooding")
     p.add_argument("--distributed", action="store_true",
@@ -118,10 +128,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; the CPU runs the "
                         "kernels' plain PyTorch twins)")
     p.add_argument("--verbose", action="store_true")
+    # grid parameters (each list is one axis of the grid)
+    p.add_argument("--ymax", type=float, nargs="+", default=[None],
+                   help="gdbf: saturate at ±Ymax")
+    p.add_argument("--nq", type=float, nargs="+", default=[None],
+                   help="gdbf: quantizer bits")
+    p.add_argument("--alpha", type=float, nargs="+", default=[None])
+    p.add_argument("--delta", type=float, nargs="+", default=[None])
+    p.add_argument("--theta", type=float, nargs="+", default=[None])
+    p.add_argument("--noise-scale", type=float, nargs="+", default=[None])
+    p.add_argument("--lam", type=float, nargs="+", default=[None])
+    p.add_argument("--w", type=float, nargs="+", default=[None],
+                   help="ngdbfhw (not ported; a grid axis all the same)")
+    p.add_argument("--theta0", type=float, nargs="+", default=[None],
+                   help="ngdbfhw (not ported; a grid axis all the same)")
+    # gdbf family
+    p.add_argument("--preset", choices=sorted(PRESETS), default="SMNGDBF")
+    p.add_argument("--window", type=int, default=64)
+    p.add_argument("--max-phases", type=int, default=None)
+    p.add_argument("--uniform-noise", action="store_true",
+                   help="variance-matched uniform perturbation noise")
     p.add_argument(
         "--resume", action="store_true",
-        help="skip SNR points already recorded in the '<log>.done' "
-             "sidecar (or, without one, in the log's SNR column)",
+        help="skip grid points already recorded in the '<log>.done' "
+             "sidecar (or, without one, in the log's SNR column for an "
+             "SNR-only grid)",
     )
     return p
 
@@ -134,7 +165,7 @@ def _refuse_unported(args) -> None:
 
     if args.decoder in _NOT_PORTED:
         no(f"decoder {args.decoder!r}", _NOT_PORTED[args.decoder])
-    if args.schedule == "layered":
+    if args.schedule == "layered" and args.decoder == "minsum":
         no("--schedule layered", "A9")
     if args.stream:
         no("--stream", "A10")
@@ -151,14 +182,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             "sweep: error: --device cuda, but no CUDA device is available "
             "(pass --device cpu to run the plain PyTorch path)"
         )
+    qc = None
     try:
         qc = load_named_qc(args.code)
     except KeyError:
-        raise SystemExit(
-            f"sweep: error: {args.code} has no QC structure; min-sum on "
-            "slot-array codes is not ported yet (ROADMAP A7)"
-        )
-    code = qc.to_code(device)
+        if args.decoder == "minsum":
+            raise SystemExit(
+                f"sweep: error: {args.code} has no QC structure; min-sum on "
+                "slot-array codes is not ported yet (ROADMAP A7)"
+            )
+    code = (qc.to_code(device) if qc is not None
+            else load_named_code(args.code, device))
     rate = args.rate if args.rate is not None else code.rate
     codewords = (
         load_codeword_file(args.codewords, n=code.n)
@@ -169,7 +203,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         # Fail fast if the fixture rows are not codewords of this H.
         probe = torch.as_tensor(np.asarray(codewords[:4], np.int32))
         d = (1 - 2 * probe).t().to(device)  # bit -> ±1, [N, B]
-        if not bool(qc_check_satisfied(qc, d).all()):
+        ok = (qc_check_satisfied(qc, d) if qc is not None
+              else (syndrome_from_hard(code, d) > 0).all(dim=0))
+        if not bool(ok.all()):
             raise SystemExit(
                 f"sweep: error: {args.codewords}: rows are not codewords "
                 f"of this H (column order mismatch?)"
@@ -186,55 +222,127 @@ def main(argv: Optional[List[str]] = None) -> int:
         min_word_errors=mwe,
         max_frames=args.max_frames,
     )
-    sdt = torch.float16 if args.msg_dtype == "f16" else None
 
-    def dec(y):
-        return decode_minsum_qc(
-            qc, y, T, early_termination=args.early_termination,
-            storage_dtype=sdt,
+    def run_point(snr, decode_fn, preprocess=None):
+        return simulate(
+            code, decode_fn, snr_db=snr, rate=rate, stop=stop,
+            batch_size=args.batch, seed=args.seed, preprocess=preprocess,
+            codewords=codewords, device=device, verbose=args.verbose,
         )
 
+    grid = list(itertools.product(
+        snrs, args.ymax, args.nq, args.alpha, args.delta, args.theta,
+        args.noise_scale, args.lam, args.w, args.theta0,
+    ))
     # --resume: keys from the '<log>.done' sidecar; a log without one
-    # resumes by its SNR column.
+    # resumes by its SNR column, for an SNR-only grid only (a wider grid
+    # would drop unexplored parameter points at a logged SNR).
     done_keys = set()
     if args.resume:
         try:
             with open(args.log + ".done") as f:
                 done_keys.update(line.rstrip("\n") for line in f)
         except FileNotFoundError:
-            by_snr = {fmt(s): _grid_key((s,) + _UNSET_PARAMS) for s in snrs}
-            try:
-                with open(args.log) as f:
-                    for line in f:
-                        cols = line.split("\t")
-                        if cols and cols[0] in by_snr:
-                            done_keys.add(by_snr[cols[0]])
-            except FileNotFoundError:
-                pass
+            if len({point[1:] for point in grid}) == 1:
+                by_snr = {fmt(point[0]): _grid_key(point) for point in grid}
+                try:
+                    with open(args.log) as f:
+                        for line in f:
+                            cols = line.split("\t")
+                            if cols and cols[0] in by_snr:
+                                done_keys.add(by_snr[cols[0]])
+                except FileNotFoundError:
+                    pass
+            else:
+                print(
+                    "sweep: --resume found no sidecar "
+                    f"{args.log}.done; multi-parameter grid will re-run "
+                    "all points",
+                    file=sys.stderr,
+                )
 
-    for rows, snr in enumerate(snrs, 1):
-        gkey = _grid_key((snr,) + _UNSET_PARAMS)
+    for rows, point in enumerate(grid, 1):
+        (snr, ymax, nq, alpha, delta, theta, nscale, lam, _w, _theta0) = point
+        gkey = _grid_key(point)
         if args.resume and gkey in done_keys:
             print(
-                f"[{rows}/{len(snrs)}] SNR={snr} point already logged, "
+                f"[{rows}/{len(grid)}] SNR={snr} point already logged, "
                 "skipping",
                 file=sys.stderr,
             )
             continue
-        stats = simulate(
-            code, dec, snr_db=snr, rate=rate, stop=stop,
-            batch_size=args.batch, seed=args.seed, codewords=codewords,
-            device=device, verbose=args.verbose,
-        )
-        append_row(args.log, minsum_log_row(snr, stats, T, args.code))
+        if args.decoder == "minsum":
+            sdt = torch.float16 if args.msg_dtype == "f16" else None
+            stats = run_point(snr, lambda y, key: decode_minsum_qc(
+                qc, y, T, early_termination=args.early_termination,
+                storage_dtype=sdt,
+            ))
+            row = minsum_log_row(snr, stats, T, args.code)
+        else:
+            stats, row = _gdbf_point(args, code, qc, rate, run_point, T,
+                                     point)
+        append_row(args.log, row)
         _mark_done(args.log, gkey)
         print(
-            f"[{rows}/{len(snrs)}] SNR={snr} BER={stats.ber:.4g} "
+            f"[{rows}/{len(grid)}] SNR={snr} BER={stats.ber:.4g} "
             f"FER={stats.fer:.4g} frames={stats.total_words} "
             f"({stats.wall_seconds:.1f}s)",
             file=sys.stderr,
         )
     return 0
+
+
+def _gdbf_point(args, code, qc, rate, run_point, T, point):
+    """One grid point of the GDBF route: the JAX CLI's defaults (theta
+    −0.9, quantizer Ymax 2.25 when only --nq is given), preprocessing
+    (saturate, then quantize) and row fields."""
+    (snr, ymax, nq, alpha, _delta, theta, nscale, lam, _w, _theta0) = point
+    cfg = preset(
+        args.preset,
+        num_iterations=T,
+        theta=theta if theta is not None else -0.9,
+        **{
+            k: v
+            for k, v in dict(
+                noise_scale=nscale,
+                lam=lam,
+                alpha=alpha,
+                window_size=args.window,
+                max_phases=args.max_phases,
+                uniform_noise=args.uniform_noise or None,
+            ).items()
+            if v is not None
+        },
+    )
+
+    def pre(y):
+        out = y
+        if ymax is not None:
+            out = saturate(out, ymax)
+        if nq is not None:
+            out = quantize_round(out, ymax or 2.25, int(nq))
+        return out
+
+    sigma = snr_to_sigma(snr, rate)
+    stats = run_point(
+        snr,
+        lambda yq, key: decode_gdbf(code, yq, sigma, cfg, key=key, qc=qc),
+        preprocess=pre,
+    )
+    row = gdbf_log_row(
+        snr, stats, T, cfg.theta, args.code,
+        noise_scale=(cfg.noise_scale
+                     if cfg.add_noise or cfg.quantize_probabilities
+                     else None),
+        nq=int(nq) if nq is not None else None,
+        lam=cfg.lam if cfg.threshold_adaptation else None,
+        alpha=cfg.alpha if cfg.weight_syndromes else None,
+        smoothing_used=(int(stats.extra.get("smoothing_used", 0))
+                        if cfg.output_smoothing else None),
+        window_size=cfg.window_size if cfg.output_smoothing else None,
+        ymax=ymax,
+    )
+    return stats, row
 
 
 if __name__ == "__main__":

@@ -1,6 +1,9 @@
-"""The port's channel layer: scalars against the JAX package, and the plain
-twin of kernel B2 (keyed Philox AWGN) for moments, determinism, seed and
-frame decorrelation, replay and the Philox known answers.
+"""The port's channel layer: scalars and quantizers against the JAX
+package, the plain twin of kernel B2 (keyed Philox AWGN) for moments,
+determinism, seed and frame decorrelation, replay and the Philox known
+answers, and the plain twins of kernels B3 and B4 (the decoders' keyed
+uniforms and erfinv Gaussians) for their grid, streams, moments and the
+JAX formula.
 
 Kernel B2 cannot be compared bit for bit with the JAX
 ``awgn_all_zero_pallas``: the TPU kernel draws from the chip's hardware
@@ -17,7 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 import ldpcsimulation_tpu.channel.awgn  # noqa: F401  (registers the module)
+from ldpcsimulation_tpu.channel import quantize as jq
 from ldpcsimulation_tpu_torch.channel import (
     MAXLLR,
     awgn,
@@ -25,12 +32,21 @@ from ldpcsimulation_tpu_torch.channel import (
     bpsk,
     llr_from_channel,
     n0_to_sigma,
+    quantize_no_zero,
+    quantize_round,
+    quantize_threshold_table,
+    saturate,
     snr_to_n0,
     snr_to_sigma,
 )
 from ldpcsimulation_tpu_torch.kernels.channel import (
     awgn_philox,
+    gauss_philox,
+    gauss_philox_plain,
+    noise_stream,
     philox4x32_10,
+    uniform_philox,
+    uniform_philox_plain,
 )
 from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
@@ -163,3 +179,166 @@ def test_awgn_rejects_bad_arguments():
         awgn_philox(0, 2**64 - 1, 2, 2, 0.5, "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         awgn_philox(0, 0, 2, 2, 0.5, "meta")
+
+
+# ------------------------------------------------------------ quantizers
+
+
+def _quantizer_inputs(ymax):
+    """Signed zeros, values on and around every rounding boundary and
+    threshold, and values beyond ±Ymax."""
+    rng = np.random.default_rng(12)
+    edges = np.linspace(-2 * ymax, 2 * ymax, 257)
+    x = np.concatenate([
+        [0.0, -0.0, ymax, -ymax, 1e-30, -1e-30],
+        edges, np.nextafter(edges, np.inf), np.nextafter(edges, -np.inf),
+        rng.normal(0, ymax, 2000),
+    ]).astype(np.float32)
+    return x
+
+
+def _same_bits(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("ymax,nq", [(2.5, 3), (2.25, 4), (1.5, 8),
+                                     (2.0, 5), (1.625, 6)])
+def test_quantizers_equal_jax(ymax, nq):
+    x = _quantizer_inputs(ymax)
+    t = torch.from_numpy(x)
+    _same_bits(saturate(t, ymax), jq.saturate(x, ymax))
+    _same_bits(quantize_round(t, ymax, nq), jq.quantize_round(x, ymax, nq))
+    _same_bits(quantize_no_zero(t, ymax, float(nq)),
+               jq.quantize_no_zero(x, ymax, float(nq)))
+    _same_bits(quantize_threshold_table(t, ymax, nq),
+               jq.quantize_threshold_table(x, ymax, nq))
+    # the round quantizer keeps the sign of a negative sample as −0.0
+    q = quantize_round(torch.tensor([-1e-3, 1e-3, -0.0]), ymax, nq)
+    assert torch.signbit(q).tolist() == [True, False, False]
+
+
+# --------------------------------------------- kernels B3/B4: plain twins
+
+
+def _u(seed, frame0, batch, n, stream, layout="bn"):
+    return uniform_philox_plain(seed, frame0, batch, n, stream, layout)
+
+
+def test_uniform_twin_grid_and_determinism():
+    u, k = uniform_philox_plain(5, 0, 512, 203, 3, "bn", with_bits=True)
+    assert u.dtype == torch.float32 and k.dtype == torch.int32
+    assert int(k.min()) >= 0 and int(k.max()) < 2**24
+    np.testing.assert_array_equal(
+        u.numpy(),
+        ((k.numpy().astype(np.float32) + np.float32(0.5))
+         * np.float32(2.0**-24)),
+    )
+    assert 0.0 < float(u.min()) and float(u.max()) <= 1.0
+    assert abs(float(u.mean()) - 0.5) < 0.005
+    assert abs(float(u.var()) - 1 / 12) < 0.002
+    assert torch.equal(u, _u(5, 0, 512, 203, 3))
+    # the two layouts hold the same samples
+    assert torch.equal(uniform_philox_plain(5, 0, 512, 203, 3, "nb"), u.t())
+    # a frame's draws do not depend on the batch around it
+    assert torch.equal(_u(5, 100, 40, 203, 3), u[100:140])
+    # odd widths: column c always takes word c % 4 of quad c // 4
+    assert torch.equal(_u(5, 0, 8, 6, 3), _u(5, 0, 8, 8, 3)[:, :6])
+
+
+def test_uniform_twin_top_of_grid_is_one():
+    """Above k = 2^23, k + 0.5 rounds to even in f32: k = 2^24 − 1 gives
+    u = 1.0 exactly, and the Gaussian formula +inf (as the TPU functions
+    do)."""
+    k = torch.tensor([0, 2**23 - 1, 2**23, 2**23 + 1, 2**24 - 1])
+    u = (k.to(torch.float32) + 0.5) * 2.0**-24
+    assert u[-1] == 1.0 and u[0] == 2.0**-25
+    assert torch.isinf(torch.erfinv(2.0 * u[-1:] - 1.0)).all()
+
+
+def test_uniform_twin_frame_seed_step_decorrelation():
+    base = _u(0, 0, 256, 64, noise_stream(3, 0))
+    others = [
+        _u(1, 0, 256, 64, noise_stream(3, 0)),  # seed
+        _u(0, 1, 256, 64, noise_stream(3, 0)),  # frame shift
+        _u(0, 0, 256, 64, noise_stream(4, 0)),  # step
+        _u(0, 0, 256, 64, noise_stream(3, 1)),  # domain
+    ]
+    for o in others:
+        assert not (base == o).all(dim=1).any()
+        c = np.corrcoef(base.numpy().ravel(), o.numpy().ravel())[0, 1]
+        assert abs(c) < 0.02
+    # seed s, frame f never repeats seed s+1, frame f−1
+    assert not (_u(1, 0, 256, 64, 9)[:-1] == _u(0, 1, 255, 64, 9)).all(
+        dim=1).any()
+
+
+def test_decoder_streams_are_disjoint_from_the_channel():
+    """Stream 0 is kernel B2's counter: quad j of stream 0 holds B2's pair
+    j words.  Every decoder draw takes a stream >= 1, one per (step,
+    domain)."""
+    _, bits = awgn_philox(4, 9, 16, 24, 0.5, "cpu", with_bits=True)
+    _, k = uniform_philox_plain(4, 9, 16, 24, 0, "bn", with_bits=True)
+    # B2 column 2j takes words (x0, x1), column 2j+1 (x2, x3) of pair j:
+    # its [frame, pair, 4] bits are pair j's words in order
+    assert torch.equal(k.reshape(16, 6, 4), bits.reshape(16, 12, 4)[:, :6])
+    streams = {noise_stream(t, dom) for t in range(500) for dom in (0, 1)}
+    assert len(streams) == 1000 and min(streams) == 1
+    with pytest.raises(ValueError):
+        noise_stream(-1, 0)
+    with pytest.raises(ValueError):
+        noise_stream(0, 2)
+
+
+@pytest.mark.parametrize("offset,scale", [(1.0, 0.5), (0.0, 0.7)])
+def test_gauss_twin_moments(offset, scale):
+    """Port of test_kernels.py::test_awgn_hybrid_statistics, in the channel
+    form (offset 1, scale σ) and the decoder form (offset 0)."""
+    y, k = gauss_philox_plain(3, 0, 2048, 256, 5, offset, scale, "bn",
+                              with_bits=True)
+    assert torch.equal(k, uniform_philox_plain(3, 0, 2048, 256, 5, "bn",
+                                               with_bits=True)[1])
+    y = y[torch.isfinite(y)].numpy()
+    assert y.size >= 2048 * 256 - 2
+    assert abs(y.mean() - offset) < 0.01
+    assert abs(y.std() - scale) < 0.01
+    assert torch.equal(
+        gauss_philox_plain(3, 0, 2048, 256, 5, offset, scale, "nb"),
+        gauss_philox_plain(3, 0, 2048, 256, 5, offset, scale, "bn").t(),
+    )
+
+
+@pytest.mark.parametrize("offset,scale", [(1.0, 0.5), (0.0, 0.6817)])
+def test_gauss_twin_equals_jax_formula(offset, scale):
+    """The twin against ``awgn_all_zero_hybrid``'s XLA formula on the same
+    uniforms, ``offset + f32(σ)·(f32(√2)·erfinv(2u − 1))``.  XLA's f32
+    erf_inv (Giles' polynomial) is up to 65 ulps from the correctly
+    rounded value where PyTorch's is within 0.6, so the two agree to a
+    relative 1e-5 of √2·erfinv, and exactly in about a third of samples."""
+    u = _u(8, 0, 1024, 512, 11)
+    got = gauss_philox_plain(8, 0, 1024, 512, 11, offset, scale, "bn")
+    nrm = jnp.float32(np.sqrt(2.0)) * jax.scipy.special.erfinv(
+        2.0 * jnp.asarray(u.numpy()) - 1.0)
+    want = np.asarray(offset + jnp.float32(scale) * nrm)
+    got = got.numpy()
+    tol = 1e-5 * scale * np.abs(np.asarray(nrm)) + 2.0**-22
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(got[~finite], want[~finite])
+    assert (np.abs(got[finite] - want[finite]) <= tol[finite]).all()
+    assert (got == want).mean() > 0.2
+
+
+def test_noise_wrappers_route_and_reject():
+    assert torch.equal(uniform_philox(1, 2, 8, 9, 3, "cpu"),
+                       uniform_philox_plain(1, 2, 8, 9, 3))
+    assert torch.equal(gauss_philox(1, 2, 8, 9, 3, 0.0, 0.5, "cpu", "bn"),
+                       gauss_philox_plain(1, 2, 8, 9, 3, 0.0, 0.5, "bn"))
+    for bad in (dict(stream=-1), dict(stream=2**32), dict(layout="xy")):
+        kw = dict(stream=3, layout="nb") | bad
+        with pytest.raises(ValueError):
+            uniform_philox_plain(1, 2, 8, 9, kw["stream"], kw["layout"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        uniform_philox(1, 2, 8, 9, 3, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gauss_philox(1, 2, 8, 9, 3, 0.0, 1.0, "meta")

@@ -105,7 +105,8 @@ def test_simulate_flagship_ber_within_mc_bounds():
     qc = load_named_qc("qc_1008_504")
     stats = mc.simulate(
         qc.to_code(),
-        lambda y: decode_minsum_qc(qc, y, 10, storage_dtype=torch.float16),
+        lambda y, key: decode_minsum_qc(qc, y, 10,
+                                        storage_dtype=torch.float16),
         snr_db=2.0, stop=mc.StopRule.fixed_frames(2048), batch_size=1024,
         seed=0,
     )
@@ -132,7 +133,7 @@ def small():
 def _run(qc, **kw):
     return mc.simulate(
         qc.to_code(),
-        lambda y: decode_minsum_qc(qc, y, 8, early_termination=True),
+        lambda y, key: decode_minsum_qc(qc, y, 8, early_termination=True),
         snr_db=2.5, **kw,
     )
 

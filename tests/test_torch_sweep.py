@@ -1,5 +1,6 @@
-"""The port's sweep CLI: the min-sum route writes the JAX CLI's row format
-and resume keys; everything not ported exits naming its ROADMAP item."""
+"""The port's sweep CLI: the min-sum and GDBF routes write the JAX CLI's
+row format and resume keys; everything not ported exits naming its ROADMAP
+item."""
 
 import numpy as np
 import pytest
@@ -97,13 +98,46 @@ def test_unported_options_name_roadmap_item(tmp_path, extra, item):
 
 
 @pytest.mark.parametrize("decoder,item", [
-    ("bp", "A8"), ("gdbf", "A11"), ("nbqspa", "A12"),
+    ("bp", "A8"), ("ddbmp", "A11"), ("nbqspa", "A12"),
     ("offsetminsum", "S4"),
 ])
 def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         main([decoder] + BASE[1:] + ["--snr", "2.0", "--log",
                                      str(tmp_path / "x")])
+
+
+@pytest.mark.parametrize("args,smoothing", [
+    (["--preset", "SMNGDBF", "--code", "peg_96_48", "--snr", "3.0",
+      "--theta", "-0.7", "-0.9", "--noise-scale", "0.8", "0.9",
+      "--alpha", "0.75", "--lam", "0.99", "--ymax", "2.5", "--window", "4"],
+     True),
+    (["--preset", "MNGDBF", "--uniform-noise", "--code", "qc_1008_504",
+      "--snr", "3.0,3.5", "--theta", "-0.9", "--alpha", "0.75"], False),
+    (["--preset", "StochasticNGDBF", "--code", "qc_1008_504", "--snr",
+      "3.5", "--nq", "3", "--ymax", "2.5", "--noise-scale", "0.9"], False),
+])
+def test_gdbf_rows_and_keys_equal_jax_cli(tmp_path, args, smoothing):
+    """Same grid through both CLIs: the same rows, column for column apart
+    from the Monte-Carlo statistics (other noise), the same resume keys,
+    and the port resumes the JAX CLI's sidecar."""
+    common = ["gdbf", "-T", "6", "--batch", "32", "--max-frames", "32"] + args
+    plog, jlog = tmp_path / "p.log", tmp_path / "j.log"
+    assert main(common + ["--device", "cpu", "--log", str(plog)]) == 0
+    assert jax_main(common + ["--log", str(jlog)]) == 0
+    prows, jrows = _rows(plog), _rows(jlog)
+    assert len(prows) == len(jrows) >= 1
+    stats = {1, 2, 3} | ({11, 12} if smoothing else set())
+    for p, j in zip(prows, jrows):
+        assert len(p) == len(j)
+        assert [v for i, v in enumerate(p) if i not in stats] == [
+            v for i, v in enumerate(j) if i not in stats]
+        assert 0.0 <= float(p[1]) <= 0.5 and float(p[2]) <= 6
+    assert (tmp_path / "p.log.done").read_text() == (
+        (tmp_path / "j.log.done").read_text())
+    assert main(common + ["--device", "cpu", "--log", str(jlog),
+                          "--resume"]) == 0
+    assert len(_rows(jlog)) == len(jrows)
 
 
 def test_non_qc_code_and_missing_cuda(tmp_path, monkeypatch):
