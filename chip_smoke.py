@@ -1,34 +1,36 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, checks each
-against its plain PyTorch twin on the card, and drives the min-sum main path
-and the SMNGDBF bit-flip path at full width.
+against its plain PyTorch twin on the card, drives the min-sum main path
+and the SMNGDBF bit-flip path at full width, and measures every kernel
+against its bounds.
 
     python3 chip_smoke.py
 
-Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or /usr/local/cuda) and this
-checkout.  Phases (any failed check raises and the exit code is non-zero):
+Needs one CUDA card, ``nvcc`` and ``cuobjdump`` (``CUDA_HOME`` or
+/usr/local/cuda) and this checkout.  Phases (any failed check raises and
+the exit code is non-zero):
 
-  1. the card (``nvidia-smi`` name and power limit);
+  1. the card (``nvidia-smi`` name, power limit and SM clocks);
   2. build the kernels from ``ldpcsimulation_tpu_torch/csrc`` (seconds, and
      the compiler's register report);
   3. kernel B1 (min-sum CN update) against its twin at the main path's
      shapes — qc_1008_504, B=32768, f16 and f32 storage, all three
      variants — equal under ``torch.equal``;
-  4. kernel B2 (Philox AWGN) against its twin: equal 24-bit integers, y
-     within 1e-5 (FMA-free arithmetic, but libdevice's logf/cosf against
-     PyTorch's), then the decode of that y with the kernels equal bit for
-     bit to the plain path's decode on the CPU;
+  4. kernel B2 (Philox AWGN) against its twin: samples and 24-bit integers
+     equal under ``torch.equal``, then the decode of those samples with the
+     kernels equal bit for bit to the plain path's decode on the CPU;
   5. the main path: ``simulate`` on qc_1008_504 at 2.0 dB, T=10, f16
      storage, 4 batches of 32768 frames, with the launch counters reset just
      before and read just after — BER in [2.2e-2, 2.6e-2], both kernels
-     launched; decoded info bits/s and a per-layer time breakdown;
+     launched (B2 by its float4 instance); bit errors, word errors and
+     iterations equal to the parent commit's run (the noise is keyed);
+     decoded info bits/s and a per-layer time breakdown;
   6. the sweep CLI in-process for one point, and its log row;
   7. kernel B3 (keyed Philox uniforms) against its twin at [1008 x 32768]
      in both layouts: equal under ``torch.equal``, on the 24-bit grid;
   8. kernel B4 (keyed erfinv Gaussians) against its twin, channel form
-     (offset 1, scale sigma) and decoder form (offset 0): equal 24-bit
-     integers, values within 4 ulps of the decoder form (libdevice's
-     erfinvf against PyTorch's erfinv; |dy| <= 4e-6 in the channel form),
-     and the channel form's moments;
+     (offset 1, scale sigma, [batch, n]) and decoder form (offset 0,
+     [n, batch]): samples (infinities included) and integers equal under
+     ``torch.equal``, and the channel form's moments;
   9. the GDBF decode on the card against the CPU plain path, bit for bit,
      for SMNGDBF, RSMNGDBF (3 phases) and StochasticNGDBF at 256 frames:
      the keyed draws are made on the card (B4/B3), copied to the CPU and
@@ -37,15 +39,27 @@ checkout.  Phases (any failed check raises and the exit code is non-zero):
  10. the SMNGDBF main path: ``simulate`` on qc_1008_504 at 3.25 dB, T=300,
      4 batches of 32768 frames after a warm-up batch, counters reset just
      before and read just after — B2 launched once per batch, B4 once per
-     executed decoder step, B1 never; BER, FER and average iterations
-     within 4 joint standard errors of the JAX package's values; decoded
-     info bits/s and a per-layer breakdown;
+     executed decoder step (its float2 instance), B1 never; bit errors,
+     word errors and iterations equal to the parent commit's run; BER, FER
+     and average iterations within 4 joint standard errors of the JAX
+     package's values; decoded info bits/s and a per-layer breakdown;
  11. the sweep CLI's gdbf route for one point each of ``SMNGDBF
      --uniform-noise`` and ``StochasticNGDBF --nq 3 --ymax 2.5``, counters
-     reset before and read after: B3 launched, rows well formed.
+     reset before and read after: B3 launched, rows well formed;
+ 12. edge shapes: B2, B3 and B4 (both layouts), with and without the
+     integers, against their twins under ``torch.equal`` on shapes that
+     reach the wide-store and the tail instances, from a first frame just
+     below 2^32; the launches each instance took;
+ 13. bounds of every kernel at the main path's shapes: its time, its plain
+     twin's, the nearest PyTorch call's (same work, not the same function),
+     the memory bound (bytes over 3.35 TB/s), the operation bound (f32
+     operations over 67 TFLOP/s), the issue bound (the SASS instructions on
+     one thread's path, ``tools/sass_count.py``, over 132 SMs x 4 warp
+     instructions per clock at the maximum SM clock), the shares, and the
+     launches per batch on each path.
 
-The last two lines are one JSON object describing the kernels (each with
-the launches of the path that runs it) and one
+The last three lines are the card, one JSON object describing the kernels
+(each with the launches of the path that runs it and its bounds) and one
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -80,6 +94,17 @@ JAX_SMNGDBF = dict(
     fer=(1.318359375e-02, 3.1505046386775366e-04),
     avg_iterations=(73.43167877197266, 0.13458862689481313),
 )
+# (bit errors, word errors, total iterations) of the two ``simulate`` runs
+# ([5] min-sum, [10] SMNGDBF) in the parent commit's chip_smoke.py on the
+# card: the noise is keyed and the kernels equal their twins, so a change
+# of kernel must give the same integers.
+PARENT_TOTALS = dict(minsum=(3156026, 84885, 1310720),
+                     smngdbf=(33190, 1761, 9631883))
+
+# The card's peaks (H100 SXM at 700 W: HBM3 rate and FP32 vector rate).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SMS = 132
 
 
 def check(ok: bool, what: str) -> None:
@@ -96,13 +121,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clocks() -> tuple[float, float]:
+    """(current, maximum) SM clock in MHz, as ``nvidia-smi`` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    cur, top = out.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
 def time_ms(fn, reps: int = 10) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events), after
-    one warm-up call."""
+    one warm-up call.  A sleep kernel ahead of the start event keeps the
+    card busy while the host enqueues the calls, so a short kernel's time
+    is not its launch overhead."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -177,9 +216,13 @@ def phase_b2(qc, device, batch, sigma, timer):
                                     device, with_bits=True)
     check(torch.equal(bits, bits_p), "B2 24-bit integers: kernel != plain")
     err = float((y - y_p).abs().max())
-    check(err <= 1e-5, f"B2 samples differ by {err} > 1e-5")
-    print(f"  B2 integers equal, max |y - y_plain| = {err:.3g} "
-          f"(exactly equal: {torch.equal(y, y_p)})")
+    check(torch.equal(y, y_p), f"B2 samples: kernel != plain (max |dy| "
+          f"{err})")
+    check(torch.equal(awgn_philox(SEED, 5 * batch, batch, qc.n, sigma,
+                                  device), y_p),
+          "B2 without integers: kernel != plain")
+    print(f"  B2 samples and integers equal to the twin's ({y.numel()} "
+          "samples, with and without the integers)")
     check(abs(float(y.mean()) - 1.0) < 2e-3
           and abs(float(y.std()) - sigma) < 2e-3, "B2 moments")
 
@@ -196,13 +239,17 @@ def phase_b2(qc, device, batch, sigma, timer):
                   "plain path")
         print(f"  decode of B2's samples (ET={et}): kernel path on the card"
               f" == plain path on the CPU for {rows} frames")
+    gen = torch.Generator(device=device).manual_seed(SEED)
     times = (
         timer(lambda: awgn_philox(SEED, 0, batch, qc.n, sigma, device)),
         timer(lambda: awgn_philox_plain(SEED, 0, batch, qc.n, sigma, device),
               3),
+        timer(lambda: torch.randn(batch, qc.n, generator=gen,
+                                  device=device)),
     )
-    print(f"  B2 kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms per call "
-          f"[{batch} x {qc.n}]")
+    print(f"  B2 kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, "
+          f"torch.randn (same work, not the same function) {times[2]:.4f} "
+          f"ms per call [{batch} x {qc.n}]")
     return err, times
 
 
@@ -240,16 +287,6 @@ def breakdown(qc, device, batch, sigma, timer):
     return parts
 
 
-def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """|a - b| in units in the last place, for finite f32 values of one
-    sign (int64 distance of the bit patterns)."""
-    ia = a.view(torch.int32).long()
-    ib = b.view(torch.int32).long()
-    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
-    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
-    return (ia - ib).abs()
-
-
 def phase_b3(n, device, batch, timer):
     """Kernel B3 against its twin in both layouts."""
     from ldpcsimulation_tpu_torch.kernels.channel import (
@@ -275,13 +312,18 @@ def phase_b3(n, device, batch, timer):
         check(abs(float(u.mean()) - 0.5) < 1e-3, f"B3 {layout} mean")
         print(f"  B3 {layout}: kernel == plain, {u.numel()} uniforms in "
               "(0, 1] on the grid")
+    gen = torch.Generator(device=device).manual_seed(SEED)
     times = (
         timer(lambda: uniform_philox(SEED, 0, batch, n, stream, device)),
         timer(lambda: uniform_philox_plain(SEED, 0, batch, n, stream, "nb",
                                            device), 3),
+        timer(lambda: torch.rand(n, batch, generator=gen, device=device)),
+        timer(lambda: uniform_philox(SEED, 0, batch, n, stream, device,
+                                     "bn")),
     )
-    print(f"  B3 kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms per call "
-          f"[{n} x {batch}]")
+    print(f"  B3 kernel {times[0]:.4f} ms ([batch, n]: {times[3]:.4f} ms), "
+          f"plain {times[1]:.4f} ms, torch.rand (same work, not the same "
+          f"function) {times[2]:.4f} ms per call [{n} x {batch}]")
     return max_err, times
 
 
@@ -304,30 +346,32 @@ def phase_b4(n, device, batch, sigma, timer):
                                       with_bits=True)
         check(torch.equal(k, k_p), f"B4 {form} integers: kernel != plain")
         fin = torch.isfinite(y_p)
-        check(torch.equal(fin, torch.isfinite(y))
-              and torch.equal(y[~fin], y_p[~fin]), f"B4 {form} infinities")
         err = float((y[fin] - y_p[fin]).abs().max())
         max_err = max(max_err, err)
-        u = ulps(y[fin], y_p[fin])
-        exact = float((y == y_p).float().mean())
-        print(f"  B4 {form} form: integers equal, max |y - y_plain| = "
-              f"{err:.3g}, max {int(u.max())} ulps, exactly equal "
-              f"{exact:.4f}, {int((~fin).sum())} infinite (u = 1.0)")
-        if form == "decoder":
-            check(int(u.max()) <= 4, f"B4 decoder form {int(u.max())} ulps")
-        else:
-            check(err <= 4e-6, f"B4 channel form |dy| {err} > 4e-6")
+        check(torch.equal(y, y_p), f"B4 {form} samples: kernel != plain "
+              f"(max |dy| {err})")
+        check(torch.equal(gauss_philox(SEED, 7 * batch, batch, n, stream,
+                                       offset, scale, device, layout), y_p),
+              f"B4 {form} without integers: kernel != plain")
+        print(f"  B4 {form} form: samples and integers equal to the twin's,"
+              f" {int((~fin).sum())} infinite (u = 1.0)")
+        if form == "channel":
             yf = y[fin]
             check(abs(float(yf.mean()) - 1.0) < 2e-3
                   and abs(float(yf.std()) - sigma) < 2e-3, "B4 moments")
+    gen = torch.Generator(device=device).manual_seed(SEED)
     times = (
         timer(lambda: gauss_philox(SEED, 0, batch, n, stream, 0.0, 0.6817,
                                    device)),
         timer(lambda: gauss_philox_plain(SEED, 0, batch, n, stream, 0.0,
                                          0.6817, "nb", device), 3),
+        timer(lambda: torch.randn(n, batch, generator=gen, device=device)),
+        timer(lambda: gauss_philox(SEED, 0, batch, n, stream, 1.0, sigma,
+                                   device, "bn")),
     )
-    print(f"  B4 kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms per call "
-          f"[{n} x {batch}]")
+    print(f"  B4 kernel {times[0]:.4f} ms ([batch, n]: {times[3]:.4f} ms), "
+          f"plain {times[1]:.4f} ms, torch.randn (same work, not the same "
+          f"function) {times[2]:.4f} ms per call [{n} x {batch}]")
     return max_err, times
 
 
@@ -389,6 +433,17 @@ def phase_gdbf_equal(qc, device, frames=256):
               f"{frames} frames ({res.steps} steps, {drawn / 1e6:.0f} MB "
               f"injected, unsatisfied {unsat:.3g}, max phases "
               f"{int(res.phases.max())}); launches {launched}")
+
+
+def check_totals(path: str, stats) -> tuple[int, int, int]:
+    """The run's (bit errors, word errors, total iterations) against the
+    parent commit's."""
+    got = (stats.errors, stats.word_errors, stats.total_iterations)
+    want = PARENT_TOTALS[path]
+    print(f"  totals (bit errors, word errors, iterations) {got}, the "
+          f"parent commit's {want}")
+    check(got == want, f"{path} totals {got} != the parent's {want}")
+    return got
 
 
 def mc_moments(stats, n):
@@ -492,9 +547,11 @@ def phase_gdbf_main(qc, device, batch, timer):
     torch.cuda.synchronize()
     steps.clear()
     build.LAUNCHES.clear()
+    build.PATHS.clear()
     stats = run(4 * batch)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
+    paths = dict(build.PATHS)
     rate_bits = stats.total_words * (qc.n - qc.m) / stats.wall_seconds
     print(f"  BER {stats.ber!r} FER {stats.fer!r} avg iterations "
           f"{stats.avg_iterations!r} over {stats.total_words} frames in "
@@ -503,6 +560,10 @@ def phase_gdbf_main(qc, device, batch, timer):
           f"{stats.extra.get('smoothing_used')}")
     check(launches == {"awgn_philox": 4, "gauss_philox": sum(steps)},
           f"SMNGDBF path launches {launches}, steps {steps}")
+    check(paths == {("awgn_philox", "fast"): 4,
+                    ("gauss_philox", "fast"): sum(steps)},
+          f"SMNGDBF path instances {paths}")
+    check_totals("smngdbf", stats)
     got = mc_moments(stats, qc.n)
     for k, (want, want_se) in JAX_SMNGDBF.items():
         val, se = got[k]
@@ -558,6 +619,143 @@ def phase_gdbf_sweep(device, batch):
     return rows, launches
 
 
+def phase_edges(device):
+    """B2, B3 and B4 against their twins on shapes that reach both
+    instances of each, from a first frame just below 2^32."""
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        awgn_philox,
+        awgn_philox_plain,
+        gauss_philox,
+        gauss_philox_plain,
+        uniform_philox,
+        uniform_philox_plain,
+    )
+
+    f0 = 2**32 - 100
+    sigma = 0.79
+
+    def same(got, want, what):
+        if isinstance(got, tuple):
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{what}: kernel != plain")
+        else:
+            check(torch.equal(got, want), f"{what}: kernel != plain")
+
+    build.PATHS.clear()
+    b2 = [(n, b) for n in (1008, 1007, 1006, 3, 1)
+          for b in (BATCH, 257, 1)] + [(3, 70001)]
+    for n, b in b2:
+        for bits in (False, True):
+            same(awgn_philox(SEED, f0, b, n, sigma, device, bits),
+                 awgn_philox_plain(SEED, f0, b, n, sigma, device, bits),
+                 f"B2 [{b} x {n}] bits={bits}")
+    stream = 2 * 41 + 1
+    for n in (1008, 1007, 5):
+        for b in (BATCH, 33, 1):
+            for layout in ("nb", "bn"):
+                for bits in (False, True):
+                    what = f"[{b} x {n}] {layout} bits={bits}"
+                    same(uniform_philox(SEED, f0, b, n, stream, device,
+                                        layout, bits),
+                         uniform_philox_plain(SEED, f0, b, n, stream, layout,
+                                              device, bits), "B3 " + what)
+                    same(gauss_philox(SEED, f0, b, n, stream, 0.0, 0.6817,
+                                      device, layout, bits),
+                         gauss_philox_plain(SEED, f0, b, n, stream, 0.0,
+                                            0.6817, layout, device, bits),
+                         "B4 " + what)
+    paths = dict(build.PATHS)
+    for name in ("awgn_philox", "uniform_philox", "gauss_philox"):
+        fast, tail = paths.get((name, "fast"), 0), paths.get((name, "tail"),
+                                                              0)
+        print(f"  {name}: {fast} launches to the wide-store instance, {tail} "
+              "to the tail, all equal to the twin")
+        check(fast > 0 and tail > 0, f"{name} instances {paths}")
+    print(f"  B2 shapes (batch, n) {[(b, n) for n, b in b2]}, with and "
+          f"without integers; B3/B4 n in (1008, 1007, 5) x batch in "
+          f"({BATCH}, 33, 1), both layouts; first frame 2^32 - 100")
+    return paths
+
+
+def phase_bounds(path, card, launches_per_batch, times, qc, batch):
+    """Memory, operation and issue bounds of each kernel at the main
+    path's shapes, beside its measured times."""
+    from ldpcsimulation_tpu_torch.decoders.minsum_qc import qc_plan
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    cur, top = sm_clocks()
+    kernels = sass_count.parse(sass_count.disassemble(path))
+    n = qc.n
+    nquads = (n + 3) // 4
+    plan = qc_plan(qc, "cpu")
+    m, dc = plan.cn_rows.shape
+    rows = plan.num_planes * qc.z
+    degrees = torch.unique((plan.cn_rows >= 0).sum(dim=1),
+                           return_counts=True)
+    maxdc = 8 if dc <= 8 else (16 if dc <= 16 else 32)
+    samples = batch * n
+
+    def b1_path(k):
+        """A check of degree d loads all slots (predicated) and stores d:
+        the mean path over the code's checks."""
+        return sum(int(c) * k.path_length(stores=int(d), loads=True)
+                   for d, c in zip(*degrees)) / m
+
+    def all_stores(k):
+        return k.path_length()
+
+    # (mangled-name key, path, threads, bytes, f32 operations): operations
+    # count the formula's f32 arithmetic with each transcendental (log,
+    # cos, sqrt, erfinv) as one
+    spec = {
+        "minsum_cn_scan": (
+            f"minsum_cn_scan_kernelI6__halfLi{maxdc}EE", b1_path, m * batch,
+            rows * batch * (2 + 4) + plan.cn_rows.numel() * 4,
+            rows * batch * 6),
+        "awgn_philox": ("awgn_philox_kernelILb1ELb0EE", all_stores,
+                        batch * nquads, samples * 4, samples * 12),
+        "uniform_philox": ("philox_draw_kernelILb0ELi1ELb1ELb0EE",
+                           all_stores, nquads * (batch // 2), samples * 4,
+                           samples * 2),
+        "gauss_philox": ("philox_draw_kernelILb1ELi1ELb1ELb0EE", all_stores,
+                         nquads * (batch // 2), samples * 4, samples * 8),
+    }
+    print(f"  SM clock {cur:g} MHz now, {top:g} MHz maximum (the issue "
+          f"bound's); {card}")
+    out = {}
+    for name, (key, path_of, threads, nbytes, ops) in spec.items():
+        k = sass_count.find(kernels, key)
+        steps = path_of(k)
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        issue = sass_count.issue_ms(threads, steps, top, SMS)
+        bound = max(mem_ms, ops_ms)
+        ms = times[name][0]
+        decides = max((mem_ms, "bytes"), (ops_ms, "operations"),
+                      (issue, "issue"))[1]
+        out[name] = dict(
+            bound_ms=bound, bound_by="bytes" if mem_ms >= ops_ms else
+            "operations", issue_ms=issue, sass_path=steps,
+            sass_static=k.static_count, threads=threads, bytes=nbytes,
+            operations=ops, decided_by=decides,
+            share=max(bound, issue) / ms, memory_share=mem_ms / ms,
+            launches_per_batch=launches_per_batch[name],
+        )
+        print(f"  {name:15s} {ms:.4f} ms; memory {mem_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), "
+              f"operations {ops_ms:.4f} ms, issue {issue:.4f} ms ({steps:g} "
+              f"SASS on one thread's path of {k.static_count}, {threads} "
+              f"threads): {decides} decide, share {max(bound, issue) / ms:.1%}"
+              f"; plain {times[name][1]:.4f} ms, yardstick "
+              f"{'none' if times[name][2] is None else f'{times[name][2]:.4f} ms'}"
+              f"; launches per batch {launches_per_batch[name]}")
+    print(f"  (B1's path: all {maxdc} unrolled slots' loads, predicated, "
+          f"and a check's own stores, averaged over the checks' degrees "
+          f"{dict(zip(degrees[0].tolist(), degrees[1].tolist()))})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -602,9 +800,11 @@ def main() -> int:
     run()  # warm-up: allocator and caches
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
+    build.PATHS.clear()
     stats = run()
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
+    paths = dict(build.PATHS)
     rate = stats.total_words * (qc.n - qc.m) / stats.wall_seconds
     print(f"  BER {stats.ber!r} FER {stats.fer!r} over {stats.total_words} "
           f"frames in {stats.wall_seconds:.4f} s: {rate:.6g} decoded info "
@@ -615,6 +815,8 @@ def main() -> int:
     check(launches.get("awgn_philox", 0) > 0, "B2 not launched")
     check(launches["minsum_cn_scan"] == 4 * T and launches["awgn_philox"] == 4,
           f"unexpected launch counts {launches}")
+    check(paths == {("awgn_philox", "fast"): 4}, f"B2 instances {paths}")
+    check_totals("minsum", stats)
     parts = breakdown(qc, device, BATCH, sigma, time_ms)
 
     print("[6] sweep CLI, one point")
@@ -647,6 +849,24 @@ def main() -> int:
         qc, device, BATCH, time_ms)
     print("[11] sweep CLI, gdbf route")
     _, s_launches = phase_gdbf_sweep(device, BATCH)
+    print("[12] edge shapes: B2, B3, B4 vs plain, both instances")
+    phase_edges(device)
+
+    print("[13] bounds at the main path's shapes")
+    times = {
+        "minsum_cn_scan": (*b1_times[torch.float16], None),
+        "awgn_philox": b2_times[:3],
+        "uniform_philox": b3_times[:3],
+        "gauss_philox": b4_times[:3],
+    }
+    per_batch = {  # launches per batch of 32768 frames, by path
+        name: {"minsum": launches.get(name, 0) / 4,
+               "smngdbf": g_launches.get(name, 0) / 4}
+        for name in times
+    }
+    per_batch["uniform_philox"]["gdbf sweep"] = (
+        s_launches["uniform_philox"] / 4)
+    bounds = phase_bounds(path, card, per_batch, times, qc, BATCH)
 
     summary = {
         "card": card,
@@ -660,31 +880,39 @@ def main() -> int:
             "decoded_info_bits_per_s": g_rate,
             "breakdown_ms": g_parts,
         },
+        "totals": {
+            "minsum": (stats.errors, stats.word_errors,
+                       stats.total_iterations),
+            "smngdbf": (g_stats.errors, g_stats.word_errors,
+                        g_stats.total_iterations),
+        },
+        "channel_form_ms": {"uniform_philox": b3_times[3],
+                            "gauss_philox": b4_times[3]},
     }
     print(json.dumps(summary))
     print(card)
+    # No PyTorch call computes B1-B4's functions (library_ms null); the
+    # yardstick is PyTorch's own Philox draw of the same shape.
+    rows = [
+        ("minsum_cn_scan", "minsum_cn_scan.cu", "minsum_pallas.py:60",
+         launches["minsum_cn_scan"], b1_err, None),
+        ("awgn_philox", "awgn_philox.cu", "channel_pallas.py:56",
+         launches["awgn_philox"], b2_err, f"torch.randn [{BATCH}, {n}]"),
+        ("uniform_philox", "uniform_philox.cu", "channel_pallas.py:89",
+         s_launches["uniform_philox"], b3_err, f"torch.rand [{n}, {BATCH}]"),
+        ("gauss_philox", "uniform_philox.cu", "channel_pallas.py:114",
+         g_launches["gauss_philox"], b4_err, f"torch.randn [{n}, {BATCH}]"),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "minsum_cn_scan", "route": "cuda",
-         "source": "ldpcsimulation_tpu_torch/csrc/minsum_cn_scan.cu",
-         "replaces": "ldpcsimulation_tpu/kernels/minsum_pallas.py:60",
-         "launches": launches["minsum_cn_scan"], "max_abs_err": b1_err,
-         "ms": b1_times[torch.float16][0],
-         "plain_ms": b1_times[torch.float16][1]},
-        {"name": "awgn_philox", "route": "cuda",
-         "source": "ldpcsimulation_tpu_torch/csrc/awgn_philox.cu",
-         "replaces": "ldpcsimulation_tpu/kernels/channel_pallas.py:56",
-         "launches": launches["awgn_philox"], "max_abs_err": b2_err,
-         "ms": b2_times[0], "plain_ms": b2_times[1]},
-        {"name": "uniform_philox", "route": "cuda",
-         "source": "ldpcsimulation_tpu_torch/csrc/uniform_philox.cu",
-         "replaces": "ldpcsimulation_tpu/kernels/channel_pallas.py:89",
-         "launches": s_launches["uniform_philox"], "max_abs_err": b3_err,
-         "ms": b3_times[0], "plain_ms": b3_times[1]},
-        {"name": "gauss_philox", "route": "cuda",
-         "source": "ldpcsimulation_tpu_torch/csrc/uniform_philox.cu",
-         "replaces": "ldpcsimulation_tpu/kernels/channel_pallas.py:114",
-         "launches": g_launches["gauss_philox"], "max_abs_err": b4_err,
-         "ms": b4_times[0], "plain_ms": b4_times[1]},
+        {"name": name, "route": "cuda",
+         "source": f"ldpcsimulation_tpu_torch/csrc/{src}",
+         "replaces": f"ldpcsimulation_tpu/kernels/{tpu}",
+         "launches": count, "max_abs_err": err,
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "library_ms": None, "yardstick_ms": times[name][2],
+         "yardstick": yard and f"{yard}, same work, not the same function",
+         **bounds[name]}
+        for name, src, tpu, count, err, yard in rows
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,17 +22,30 @@
 // and the sum rounds to even, so k = 2^24 - 1 gives u = 1.0 exactly and B4
 // gives +inf there (once in 2^24 draws), as the TPU functions do.
 //
-// Bound on the H100: the store, 4 bytes per sample (plus 4 for the 24-bit
-// integer when it is written for checking); per sample the ALU does a
-// quarter of a Philox call, and B4 adds erfinvf.  At the decoder's
-// [1008, 32768] that is 132 MB of stores per draw.  Design: one thread per
-// (column quad, frame).  In the decoder's [n, batch] layout neighbouring
-// threads take neighbouring frames, so each of a warp's four stores is one
-// contiguous 128-byte row segment and no transpose is needed; in the
-// [batch, n] layout they take neighbouring quads.  No shared memory, no
-// state.  Products and sums use the _rn intrinsics so nvcc contracts no
-// FMA: the arithmetic is the plain twin's (kernels/channel.py), operation
-// for operation, and only erfinvf comes from another math library.
+// Bound on the H100: B3 is near its store bound (4 bytes per sample, 132 MB
+// per draw at the decoder's [1008, 32768], 0.039 ms at 3.35 TB/s); B4 adds
+// libdevice's erfinvf per sample, which with the quarter Philox call makes
+// instruction issue its bound.  erfinvf stays: it equals PyTorch's CUDA
+// erfinv, which the plain twin (kernels/channel.py) uses, bit for bit.
+// Products and sums use the _rn intrinsics so nvcc contracts no FMA.
+//
+// Design, for the issue rate (B4) and the store width (both):
+//   * the layout, the store width and the checking output are template
+//     parameters, so no store carries a run-time test;
+//   * decoder layout [n, batch]: one thread per (column quad, frame pair)
+//     makes two independent Philox calls (two chains to interleave) and
+//     writes each of its four columns with one 8-byte float2 store of the
+//     two frames, a warp covering 256 contiguous bytes of a column row; an
+//     odd batch takes the tail instance (scalar stores);
+//   * channel layout [batch, n]: one thread per (frame, column quad), one
+//     16-byte float4 store when n % 4 == 0, as B2 does; else the tail;
+//   * 2-D grids with the frames on x (no cap on the batch) and the quads on
+//     y, so no thread divides: 32-bit indices, 64-bit only in the address.
+// No shared memory, TMA or wgmma: nothing is reused and the stores coalesce
+// as they are.  __launch_bounds__(256): ptxas (-Xptxas -v, the build log)
+// gives every instance 16-30 registers (the decoder layout's float2
+// instances 24 for B4 and 18 for B3, without the integers), no spills and
+// no stack, so eight blocks of 256 fit an SM: 64 warps, full occupancy.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -43,70 +56,176 @@ namespace {
 
 constexpr int kLayoutBatchMajor = 0;  // out[frame * n + col]   ([batch, n])
 constexpr int kLayoutColMajor = 1;    // out[col * batch + frame] ([n, batch])
+constexpr int kThreads = 256;
+// [batch, n]: a warp along one frame's quads, 8 frames per block
+constexpr int kQuadsPerBlock = 32;
+constexpr int kFramesPerBlock = kThreads / kQuadsPerBlock;
 
+// The sample of one 32-bit word: the plain twin's f32 operations in order.
 template <bool kGauss>
-__global__ void philox_draw_kernel(uint32_t key0, uint32_t key1,
-                                   uint64_t frame0, int64_t batch, int64_t n,
-                                   int64_t nquads, uint32_t stream,
-                                   int layout, float offset, float scale,
-                                   float* __restrict__ out,
-                                   int32_t* __restrict__ bits) {
-  const int64_t gid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (gid >= batch * nquads) return;
-  int64_t row, j;
-  if (layout == kLayoutColMajor) {
-    j = gid / batch;
-    row = gid - j * batch;
-  } else {
-    row = gid / nquads;
-    j = gid - row * nquads;
-  }
-  const uint64_t frame = frame0 + (uint64_t)row;
-  const uint32_t ctr[4] = {(uint32_t)j, (uint32_t)frame,
-                           (uint32_t)(frame >> 32), stream};
+__device__ __forceinline__ float draw(uint32_t k, float offset, float scale) {
+  const float u = __fmul_rn(__fadd_rn((float)k, 0.5f), 0x1p-24f);
+  if (!kGauss) return u;
+  // 2u - 1 is exact on this grid; sqrt(2) is rounded to f32 as the TPU
+  // function's jnp.float32(math.sqrt(2.0)) is.
+  const float t = __fsub_rn(__fmul_rn(2.0f, u), 1.0f);
+  const float nrm = __fmul_rn(1.41421356237309505f, erfinvf(t));
+  return __fadd_rn(offset, __fmul_rn(scale, nrm));
+}
+
+__device__ __forceinline__ void philox_at(uint32_t q, uint64_t frame,
+                                          uint32_t stream, uint32_t key0,
+                                          uint32_t key1, uint32_t x[4]) {
+  const uint32_t ctr[4] = {q, (uint32_t)frame, (uint32_t)(frame >> 32),
+                           stream};
   const uint32_t key[2] = {key0, key1};
-  uint32_t x[4];
   ldpc::philox4x32_10(ctr, key, x);
+}
+
+template <bool kGauss, int kLayout, bool kVec, bool kBits>
+__global__ void __launch_bounds__(kThreads)
+    philox_draw_kernel(uint32_t key0, uint32_t key1, uint64_t frame0,
+                       uint32_t batch, uint32_t n, uint32_t stream,
+                       float offset, float scale, float* __restrict__ out,
+                       int32_t* __restrict__ bits) {
+  if constexpr (kLayout == kLayoutColMajor) {
+    // frames r0 = 2p and r0 + 1 of column quad q = blockIdx.y
+    const uint32_t r0 = 2 * (blockIdx.x * kThreads + threadIdx.x);
+    const uint32_t q = blockIdx.y;
+    if (r0 >= batch) return;
+    const uint64_t f0 = frame0 + r0;
+    uint32_t xa[4], xb[4];
+    philox_at(q, f0, stream, key0, key1, xa);
+    philox_at(q, f0 + 1, stream, key0, key1, xb);
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const int64_t col = 4 * j + h;
-    if (col >= n) break;
-    const uint32_t k = x[h] >> 8;
-    const float u = __fmul_rn(__fadd_rn((float)k, 0.5f), 0x1p-24f);
-    float v = u;
-    if (kGauss) {
-      // 2u - 1 is exact on this grid; sqrt(2) is rounded to f32 as the TPU
-      // function's jnp.float32(math.sqrt(2.0)) is.
-      const float t = __fsub_rn(__fmul_rn(2.0f, u), 1.0f);
-      const float nrm = __fmul_rn(1.41421356237309505f, erfinvf(t));
-      v = __fadd_rn(offset, __fmul_rn(scale, nrm));
+    for (int h = 0; h < 4; ++h) {
+      const uint32_t col = 4 * q + h;
+      if (col >= n) break;  // the same for the whole block
+      const uint32_t ka = xa[h] >> 8, kb = xb[h] >> 8;
+      const float va = draw<kGauss>(ka, offset, scale);
+      const float vb = draw<kGauss>(kb, offset, scale);
+      const int64_t at = (int64_t)col * batch + r0;
+      if (kVec) {
+        *reinterpret_cast<float2*>(out + at) = make_float2(va, vb);
+        if (kBits) {
+          *reinterpret_cast<int2*>(bits + at) = make_int2(ka, kb);
+        }
+      } else {
+        out[at] = va;
+        if (kBits) bits[at] = (int32_t)ka;
+        if (r0 + 1 < batch) {
+          out[at + 1] = vb;
+          if (kBits) bits[at + 1] = (int32_t)kb;
+        }
+      }
     }
-    const int64_t at =
-        layout == kLayoutColMajor ? col * batch + row : row * n + col;
-    out[at] = v;
-    if (bits != nullptr) bits[at] = (int32_t)k;
+  } else {
+    const uint32_t row = blockIdx.x * kFramesPerBlock + threadIdx.y;
+    const uint32_t q = blockIdx.y * kQuadsPerBlock + threadIdx.x;
+    if (row >= batch || 4 * q >= n) return;
+    uint32_t x[4];
+    philox_at(q, frame0 + row, stream, key0, key1, x);
+    uint32_t k[4];
+    float v[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      k[h] = x[h] >> 8;
+      v[h] = draw<kGauss>(k[h], offset, scale);
+    }
+    const int64_t at = (int64_t)row * n + 4 * q;
+    if (kVec) {
+      *reinterpret_cast<float4*>(out + at) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      if (kBits) {
+        *reinterpret_cast<int4*>(bits + at) =
+            make_int4(k[0], k[1], k[2], k[3]);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (4 * q + h >= n) break;
+        out[at + h] = v[h];
+        if (kBits) bits[at + h] = (int32_t)k[h];
+      }
+    }
   }
 }
 
+bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+struct Draw {
+  uint32_t key0, key1;
+  uint64_t frame0;
+  uint32_t batch, n, stream;
+  float offset, scale;
+  float* out;
+  int32_t* bits;
+};
+
+template <bool kGauss, int kLayout, bool kVec, bool kBits>
+void start(const Draw& d, dim3 grid, dim3 block, cudaStream_t s) {
+  philox_draw_kernel<kGauss, kLayout, kVec, kBits><<<grid, block, 0, s>>>(
+      d.key0, d.key1, d.frame0, d.batch, d.n, d.stream, d.offset, d.scale,
+      d.out, d.bits);
+}
+
+template <bool kGauss, int kLayout>
+void start_layout(const Draw& d, bool vec, dim3 grid, dim3 block,
+                  cudaStream_t s) {
+  const bool with_bits = d.bits != nullptr;
+  if (vec && !with_bits) {
+    start<kGauss, kLayout, true, false>(d, grid, block, s);
+  } else if (vec) {
+    start<kGauss, kLayout, true, true>(d, grid, block, s);
+  } else if (!with_bits) {
+    start<kGauss, kLayout, false, false>(d, grid, block, s);
+  } else {
+    start<kGauss, kLayout, false, true>(d, grid, block, s);
+  }
+}
+
+// *fast is set to 1 when the wide-store instance runs (even batch for
+// [n, batch], n % 4 == 0 for [batch, n], aligned outputs), 0 for the tail,
+// and left as it was when an empty shape launches nothing.
 template <bool kGauss>
 int launch(uint64_t seed, uint64_t frame0, int64_t batch, int64_t n,
            uint32_t stream, int layout, float offset, float scale, float* out,
-           int32_t* bits, int device, void* cuda_stream) {
+           int32_t* bits, int device, void* cuda_stream, int* fast) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (layout != kLayoutBatchMajor && layout != kLayoutColMajor) {
+  const bool col_major = layout == kLayoutColMajor;
+  const int64_t nquads = (n + 3) / 4;
+  // grid y: column quads ([n, batch]) or tiles of 32 quads ([batch, n])
+  const int64_t ytiles =
+      col_major ? nquads : (nquads + kQuadsPerBlock - 1) / kQuadsPerBlock;
+  if (batch < 0 || batch > 0x7fffffffLL || n < 0 || ytiles > 65535 ||
+      (!col_major && layout != kLayoutBatchMajor)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t nquads = (n + 3) / 4;
-  const int64_t total = batch * nquads;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  philox_draw_kernel<kGauss>
-      <<<(unsigned)blocks, threads, 0, (cudaStream_t)cuda_stream>>>(
-          (uint32_t)seed, (uint32_t)(seed >> 32), frame0, batch, n, nquads,
-          stream, layout, offset, scale, out, bits);
+  if (batch == 0 || n == 0) return (int)cudaSuccess;
+  const Draw d{(uint32_t)seed, (uint32_t)(seed >> 32), frame0,
+               (uint32_t)batch, (uint32_t)n, stream, offset, scale, out,
+               bits};
+  const uintptr_t width = col_major ? 8 : 16;
+  const bool vec_shape = col_major ? batch % 2 == 0 : n % 4 == 0;
+  const bool vec = vec_shape && aligned(out, width) &&
+                   (bits == nullptr || aligned(bits, width));
+  *fast = vec ? 1 : 0;
+  cudaStream_t s = (cudaStream_t)cuda_stream;
+  if (col_major) {
+    const int64_t pairs = (batch + 1) / 2;
+    const dim3 grid((unsigned)((pairs + kThreads - 1) / kThreads),
+                    (unsigned)ytiles);
+    start_layout<kGauss, kLayoutColMajor>(d, vec, grid, dim3(kThreads), s);
+  } else {
+    const dim3 grid(
+        (unsigned)((batch + kFramesPerBlock - 1) / kFramesPerBlock),
+        (unsigned)ytiles);
+    start_layout<kGauss, kLayoutBatchMajor>(
+        d, vec, grid, dim3(kQuadsPerBlock, kFramesPerBlock), s);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -115,16 +234,16 @@ int launch(uint64_t seed, uint64_t frame0, int64_t batch, int64_t n,
 extern "C" int ldpc_uniform_philox(uint64_t seed, uint64_t frame0,
                                    int64_t batch, int64_t n, uint32_t stream,
                                    int layout, float* out, int32_t* bits,
-                                   int device, void* cuda_stream) {
+                                   int device, void* cuda_stream, int* fast) {
   return launch<false>(seed, frame0, batch, n, stream, layout, 0.0f, 1.0f,
-                       out, bits, device, cuda_stream);
+                       out, bits, device, cuda_stream, fast);
 }
 
 extern "C" int ldpc_gauss_philox(uint64_t seed, uint64_t frame0,
                                  int64_t batch, int64_t n, uint32_t stream,
                                  int layout, float offset, float scale,
                                  float* out, int32_t* bits, int device,
-                                 void* cuda_stream) {
+                                 void* cuda_stream, int* fast) {
   return launch<true>(seed, frame0, batch, n, stream, layout, offset, scale,
-                      out, bits, device, cuda_stream);
+                      out, bits, device, cuda_stream, fast);
 }

@@ -180,7 +180,7 @@ def simulate(
     seed: int = 0,
     preprocess: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     codewords: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
     verbose: bool = False,
     max_batches: int = 100000,
 ) -> MCStats:
@@ -192,9 +192,15 @@ def simulate(
     ``codewords``: optional [L, N] bit matrix cycled frame by frame, else
     all-zero codewords.  ``rate`` defaults to the design rate k/n.
     Counting happens on the device; each batch brings four [B] vectors to
-    the host (six with the bit-flip extras).
+    the host (six with the bit-flip extras).  ``device`` defaults to the
+    card; ``device="cpu"`` runs the kernels' plain twins.
     """
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "simulate: device 'cuda', but no CUDA device is available "
+            "(pass device='cpu' to run the plain PyTorch path)"
+        )
     rate = code.rate if rate is None else rate
     stop = stop or StopRule(min_word_errors=default_min_word_errors(code.n))
     sigma = n0_to_sigma(snr_to_n0(snr_db, rate))

@@ -10,7 +10,9 @@ the first kernel launch builds, and CPU tensors never reach this module.
 
 Every C entry returns the ``cudaGetLastError()`` of its launch (0 when
 clean); :func:`check` raises on anything else.  ``LAUNCHES`` counts each
-kernel's launches, so a run can show that its main path went through them.
+kernel's launches, so a run can show that its main path went through them;
+``PATHS`` counts the Philox kernels' launches by ``(name, "fast" | "tail")``,
+the instance their C entry chose (wide stores, or the scalar tail).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "BUILD_DIR", "build", "library", "check", "stream_of"]
+__all__ = ["LAUNCHES", "PATHS", "BUILD_DIR", "build", "library", "check",
+           "launch_philox", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -36,9 +39,12 @@ NVCC_FLAGS = (
 
 #: launches per kernel name, counted by each wrapper where it launches
 LAUNCHES: collections.Counter = collections.Counter()
+#: launches per (kernel name, "fast" or "tail")
+PATHS: collections.Counter = collections.Counter()
 
 _LIB = None
 _P = ctypes.c_void_p
+_INT_P = ctypes.POINTER(ctypes.c_int)
 
 
 def _nvcc() -> str:
@@ -111,7 +117,7 @@ def library() -> ctypes.CDLL:
         lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
         lib.ldpc_awgn_philox.argtypes = [
             ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_float, _P, _P, ctypes.c_int, _P,
+            ctypes.c_int64, ctypes.c_float, _P, _P, ctypes.c_int, _P, _INT_P,
         ]
         lib.ldpc_awgn_philox.restype = ctypes.c_int
         lib.ldpc_minsum_cn_scan.argtypes = [
@@ -122,10 +128,12 @@ def library() -> ctypes.CDLL:
         lib.ldpc_minsum_cn_scan.restype = ctypes.c_int
         draw = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_uint32, ctypes.c_int]
-        lib.ldpc_uniform_philox.argtypes = draw + [_P, _P, ctypes.c_int, _P]
+        lib.ldpc_uniform_philox.argtypes = draw + [
+            _P, _P, ctypes.c_int, _P, _INT_P,
+        ]
         lib.ldpc_uniform_philox.restype = ctypes.c_int
         lib.ldpc_gauss_philox.argtypes = draw + [
-            ctypes.c_float, ctypes.c_float, _P, _P, ctypes.c_int, _P,
+            ctypes.c_float, ctypes.c_float, _P, _P, ctypes.c_int, _P, _INT_P,
         ]
         lib.ldpc_gauss_philox.restype = ctypes.c_int
         _LIB = lib
@@ -137,6 +145,19 @@ def check(rc: int, kernel: str) -> None:
     if rc != 0:
         msg = library().ldpc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
+
+
+def launch_philox(entry: str, name: str, *args) -> None:
+    """Call a Philox kernel's C entry, raise on a CUDA error, and count the
+    launch in ``LAUNCHES`` and its instance in ``PATHS`` (an empty shape
+    launches nothing and counts nothing)."""
+    fast = ctypes.c_int(-1)
+    rc = getattr(library(), entry)(*args, ctypes.byref(fast))
+    check(rc, name)
+    if fast.value < 0:
+        return
+    LAUNCHES[name] += 1
+    PATHS[name, "fast" if fast.value else "tail"] += 1
 
 
 def stream_of(device) -> int:

@@ -1,0 +1,50 @@
+"""Run the ``chip_smoke.py`` of other checkouts of this repository (an
+older commit unpacked with ``git archive``, say) with this checkout's
+kernel timer, so the kernel times of two commits compare in one call.
+
+    python -m ldpcsimulation_tpu_torch.tools.ab_smoke DIR [DIR ...]
+
+Each DIR's ``chip_smoke.py`` runs in a process of its own, from DIR (so it
+builds and loads DIR's kernels), with its module-level ``time_ms`` replaced
+by this checkout's; its output passes through.  Exits with the first
+non-zero exit code, after running every DIR.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+TIMER = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+
+_RUN = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("timer_source", {timer!r})
+timer_source = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timer_source)
+sys.path.insert(0, ".")
+import chip_smoke
+chip_smoke.time_ms = timer_source.time_ms
+sys.exit(chip_smoke.main())
+"""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("dirs", nargs="+", type=Path,
+                    help="checkouts holding a chip_smoke.py")
+    args = ap.parse_args(argv)
+    code = _RUN.format(timer=str(TIMER))
+    rcs = []
+    for d in args.dirs:
+        print(f"== {d} (timer: {TIMER})", flush=True)
+        rcs.append(subprocess.run([sys.executable, "-c", code],
+                                  cwd=d).returncode)
+        print(f"== {d}: exit {rcs[-1]}", flush=True)
+    return next((rc for rc in rcs if rc), 0)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,36 @@
+"""``tools/ab_smoke.py``: another checkout's ``chip_smoke.py`` runs from its
+own directory with this checkout's ``time_ms``, and its exit code comes
+back."""
+
+from pathlib import Path
+
+from ldpcsimulation_tpu_torch.tools import ab_smoke
+
+FAKE = """
+import os, sys
+
+
+def time_ms(fn, reps=10):
+    return -1.0
+
+
+def main():
+    print("cwd", os.path.basename(os.getcwd()))
+    print("patched", time_ms.__module__ == "timer_source")
+    return {rc}
+"""
+
+
+def test_ab_smoke_runs_each_checkout_with_this_timer(tmp_path, capfd):
+    assert ab_smoke.TIMER == Path(__file__).resolve().parents[1] / \
+        "chip_smoke.py"
+    for name, rc in (("new", 3), ("old", 0)):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "chip_smoke.py").write_text(FAKE.format(rc=rc))
+    # every checkout runs; the first non-zero exit code is returned
+    assert ab_smoke.main([str(tmp_path / "new"), str(tmp_path / "old")]) == 3
+    out = capfd.readouterr().out
+    assert "cwd new" in out and "cwd old" in out
+    assert out.count("patched True") == 2
+    assert f"== {tmp_path / 'new'}: exit 3" in out
+    assert f"== {tmp_path / 'old'}: exit 0" in out

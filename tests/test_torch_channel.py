@@ -329,6 +329,51 @@ def test_gauss_twin_equals_jax_formula(offset, scale):
     assert (got == want).mean() > 0.2
 
 
+# ------------------------------- B2-B4: a sample's place in any launch
+
+F0 = 2**32 - 150  # the wide draw's frames cross the counter's high word
+PLACEMENTS = [
+    (kind, n)
+    for kind in ("awgn", "uniform-nb", "uniform-bn", "gauss-nb", "gauss-bn")
+    for n in (1008, 1007, 1006, 5, 3, 1)
+    # B2 at n = 1008 is test_awgn_plain_replays_frames_in_any_batch's
+    if (kind, n) != ("awgn", 1008)
+]
+
+
+def _twin(kind, frame0, batch, n):
+    """[batch, n] samples of one twin, whatever layout it writes."""
+    if kind == "awgn":
+        return awgn_philox(9, frame0, batch, n, 0.79, "cpu")
+    name, layout = kind.split("-")
+    if name == "uniform":
+        out = uniform_philox_plain(9, frame0, batch, n, 7, layout)
+    else:
+        out = gauss_philox_plain(9, frame0, batch, n, 7, 0.0, 0.6817,
+                                 layout)
+    return out.t() if layout == "nb" else out
+
+
+@pytest.fixture(scope="module")
+def wide_draws():
+    return {}
+
+
+@pytest.mark.parametrize("kind,n", PLACEMENTS)
+def test_twin_sample_depends_only_on_frame_and_column(kind, n, wide_draws):
+    """The contract of the kernels' wide-store and tail instances: the
+    sample at (frame, column) is the same whatever n, batch and frame0
+    place it in — odd widths, odd and single-frame batches, a first frame
+    on either side of 2^32."""
+    if kind not in wide_draws:
+        wide_draws[kind] = _twin(kind, F0, 300, 1008)
+    wide = wide_draws[kind]
+    for off, batch in ((40, 257), (299, 1), (100, 33)):
+        got = _twin(kind, F0 + off, batch, n)
+        assert got.shape == (batch, n)
+        assert torch.equal(got, wide[off:off + batch, :n])
+
+
 def test_noise_wrappers_route_and_reject():
     assert torch.equal(uniform_philox(1, 2, 8, 9, 3, "cpu"),
                        uniform_philox_plain(1, 2, 8, 9, 3))

@@ -344,7 +344,7 @@ def test_simulate_smngdbf_within_mc_bounds():
         lambda yq, key: pg.decode_gdbf(pcode, yq, sigma, pcfg, key=key,
                                        qc=pqc),
         3.0, stop=mc.StopRule.fixed_frames(1024), batch_size=512, seed=1,
-        preprocess=lambda y: saturate(y, 2.5),
+        preprocess=lambda y: saturate(y, 2.5), device="cpu",
     )
     jm, pm = _mc_moments(jst, jqc.n), _mc_moments(pst, jqc.n)
     for i in (0, 2, 4):

@@ -3,6 +3,8 @@ identical to the JAX package's; ``simulate`` within Monte-Carlo bounds of
 the flagship operating point, replayable across batch sizes, and symmetric
 under codeword fixtures."""
 
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -108,7 +110,7 @@ def test_simulate_flagship_ber_within_mc_bounds():
         lambda y, key: decode_minsum_qc(qc, y, 10,
                                         storage_dtype=torch.float16),
         snr_db=2.0, stop=mc.StopRule.fixed_frames(2048), batch_size=1024,
-        seed=0,
+        seed=0, device="cpu",
     )
     assert stats.total_words == 2048 and stats.total_bits == 2048 * qc.n
     w = np.arange(1, qc.n + 1)
@@ -134,7 +136,7 @@ def _run(qc, **kw):
     return mc.simulate(
         qc.to_code(),
         lambda y, key: decode_minsum_qc(qc, y, 8, early_termination=True),
-        snr_db=2.5, **kw,
+        snr_db=2.5, device="cpu", **kw,
     )
 
 
@@ -166,6 +168,18 @@ def test_simulate_codewords_match_all_zero(small):
     assert _summary(fix) == _summary(base)
     with pytest.raises(ValueError):
         _run(qc, stop=stop, codewords=cw[:, :-1])
+
+
+def test_simulate_defaults_to_the_card(small, monkeypatch):
+    """``simulate`` runs on the card unless told otherwise, and without a
+    card it raises, naming ``device='cpu'``."""
+    params = inspect.signature(mc.simulate).parameters
+    assert params["device"].default == "cuda"
+    _, qc = small
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mc.simulate(qc.to_code(), lambda y, key: None, 2.5,
+                    stop=mc.StopRule.fixed_frames(8), batch_size=8)
 
 
 def test_simulate_stops_on_errors_and_reports(small, capsys):
