@@ -57,6 +57,28 @@ the exit code is non-zero):
      one thread's path, ``tools/sass_count.py``, over 132 SMs x 4 warp
      instructions per clock at the maximum SM clock), the shares, and the
      launches per batch on each path.
+ 14. kernel B1 against its twin under ``torch.equal`` on tied messages in
+     the forms of the slot-array and generalized QC paths: the generic slot
+     form on peg_1008_504 (B=32768, f16 and f32), the 64-slot instance on
+     highrate_4376_282 (dc_max 63, B=32768, all three variants), the
+     generalized plan of dvbs2_1_2_qc (pairs and an absent edge, B=8192)
+     and a synthetic table of 70000 checks (past grid y's 65535); each
+     form's time, plain twin's time, memory and issue bounds;
+ 15. the card against the CPU plain path, bit for bit, on the card's
+     samples: ``decode_minsum`` on peg_1008_504, ``decode_minsum_qc`` on
+     dvbs2_1_2_qc and wifi_1944_972 (the offset variant on
+     ``quantize_no_zero`` samples), 256 frames each, T=10;
+ 16. the slice's path at full width: ``simulate`` with ``decode_minsum`` on
+     peg_1008_504 at 2.0 dB, T=10, f16 storage, 4 batches of 32768 frames
+     after a warm-up, counters reset just before and read just after — BER
+     and FER within 4 joint standard errors of the JAX package's CPU run
+     (``tests/jax_reference_stats.py``), decoded info bits/s and a per-layer
+     breakdown; then one dvbs2_1_2_qc point at B=8192 on real codewords
+     (``dvbs2_rate12_encode``, every word checked against H);
+ 17. the sweep CLI's new routes for one point each: ``--alist`` on a
+     temporary alist of qc_1008_504 (the "detected QC" note),
+     ``offsetminsum`` on wifi_1944_972 and ``normalizedminsum`` on
+     peg_1008_504.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -100,6 +122,17 @@ JAX_SMNGDBF = dict(
 # of kernel must give the same integers.
 PARENT_TOTALS = dict(minsum=(3156026, 84885, 1310720),
                      smngdbf=(33190, 1761, 9631883))
+# The slot-array path [16]: peg_1008_504, 2.0 dB, T=10, f16 storage.  The
+# JAX package's decode_minsum there (its CPU run, 131072 frames, seed 0,
+# ``python -m tests.jax_reference_stats minsum_peg``): (value, s.e.).
+PEG_CODE = "peg_1008_504"
+JAX_PEG_MINSUM = dict(
+    ber=(0.024125386798192584, 8.639914746255443e-05),
+    fer=(0.6111602783203125, 0.0013465048084980611),
+)
+DVBS2_CODE = "dvbs2_1_2_qc"
+DVBS2_BATCH = 8192
+DVBS2_SNR_DB = 2.5
 
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and FP32 vector rate).
 HBM_BYTES_PER_S = 3.35e12
@@ -756,6 +789,346 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     return out
 
 
+def b1_issue(kernels, cn_rows, batch, dtype, top):
+    """Issue bound of one B1 launch from its SASS: every unrolled slot's
+    loads and a check's own stores, averaged over the table's degrees."""
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    m, dc = cn_rows.shape
+    maxdc = next(c for c in (8, 16, 32, 64) if dc <= c)
+    t = "6__half" if dtype == torch.float16 else "f"  # mangled T
+    k = sass_count.find(kernels, f"minsum_cn_scan_kernelI{t}Li{maxdc}EE")
+    degs, counts = torch.unique((cn_rows >= 0).sum(dim=1).cpu(),
+                                return_counts=True)
+    # a check with no slot (a synthetic table's) takes the path of one
+    path = sum(int(c) * k.path_length(stores=max(int(d), 1), loads=True)
+               for d, c in zip(degs, counts)) / m
+    return sass_count.issue_ms(m * batch, path, top, SMS), path, maxdc
+
+
+def phase_b1_forms(device, lib_path, timer):
+    """Kernel B1 against its twin in the slot-array and generalized QC
+    forms, with each form's time and bounds."""
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import minsum_plan, qc_plan
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        minsum_cn_scan,
+        minsum_cn_scan_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    _, top = sm_clocks()
+    kernels = sass_count.parse(sass_count.disassemble(lib_path))
+    gen = torch.Generator(device=device).manual_seed(14)
+    g = torch.Generator().manual_seed(14)
+    big = torch.randperm(210000, generator=g)[:200000].to(torch.int32)
+    big = torch.cat([big, torch.full((10000,), -1, dtype=torch.int32)])
+    forms = (
+        ("generic peg_1008_504", minsum_plan(
+            load_named_code(PEG_CODE), device).cn_rows, 3024, BATCH,
+         (torch.float16, torch.float32), ("plain",)),
+        ("64-slot highrate_4376_282", minsum_plan(
+            load_named_code("highrate_4376_282"), device).cn_rows, 17504,
+         BATCH, (torch.float16,), ("plain", "normalized", "offset")),
+        ("generalized dvbs2_1_2_qc", qc_plan(
+            load_named_qc(DVBS2_CODE), device).cn_rows, 226800, DVBS2_BATCH,
+         (torch.float16,), ("plain", "offset")),
+        ("70000 checks", big[torch.randperm(210000, generator=g)].view(
+            70000, 3).to(device), 210000, 1024, (torch.float32,),
+         ("plain",)),
+    )
+    kw = {"plain": {}, "normalized": {"alpha": 0.8}, "offset": {"delta": 0.15}}
+    out, max_err = {}, 0.0
+    for name, cn_rows, rows, batch, dtypes, variants in forms:
+        named = torch.unique(cn_rows[cn_rows >= 0]).long()
+        check(named.numel() == int((cn_rows >= 0).sum()),
+              f"{name}: a row named twice")
+        for dtype in dtypes:
+            v2c = tied_messages(gen, rows, batch, dtype, device)
+            for variant in variants:
+                got = minsum_cn_scan(v2c, cn_rows, variant, **kw[variant])
+                want = minsum_cn_scan_plain(v2c, cn_rows, variant,
+                                            **kw[variant])
+                got, want = got[named], want[named]
+                max_err = max(max_err, float((got - want).abs().max()))
+                check(torch.equal(got, want),
+                      f"B1 {name} {variant} {dtype}: kernel != plain")
+                del got, want
+            ms = timer(lambda: minsum_cn_scan(v2c, cn_rows))
+            plain_ms = timer(lambda: minsum_cn_scan_plain(v2c, cn_rows), 2)
+            nbytes = (named.numel() * batch * (v2c.element_size() + 4)
+                      + cn_rows.numel() * 4)
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            issue, path, maxdc = b1_issue(kernels, cn_rows, batch, dtype, top)
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            out[key] = dict(
+                shape=[rows, batch], dc_max=int(cn_rows.shape[1]),
+                instance=maxdc, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                memory_ms=mem_ms, issue_ms=issue, sass_path=path,
+                memory_share=mem_ms / ms,
+            )
+            print(f"  B1 {key}: equal ({', '.join(variants)}); {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms [{rows} x {batch}], "
+                  f"{maxdc}-slot instance; memory {mem_ms:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), issue "
+                  f"{issue:.4f} ms ({path:.0f} SASS on a thread's path)")
+            del v2c
+        torch.cuda.empty_cache()
+    wide = torch.zeros((65, 65), dtype=torch.int32, device=device)
+    try:
+        minsum_cn_scan(torch.zeros((65, 8), device=device), wide)
+        check(False, "B1 took dc_max 65")
+    except ValueError as e:
+        check("dc_max <= 64" in str(e), f"B1 refusal: {e}")
+    print("  B1 refuses dc_max 65 by name")
+    return out, max_err
+
+
+def phase_card_vs_cpu(device, frames=256):
+    """The slot-array and generalized QC decodes on the card against the
+    CPU plain path, bit for bit, on the card's channel samples."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        quantize_no_zero,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_minsum,
+        decode_minsum_qc,
+    )
+
+    f16 = torch.float16
+    cases = (
+        (PEG_CODE, False, 2.0, False, dict(storage_dtype=f16)),
+        (PEG_CODE, False, 2.0, False, dict(variant="normalized", alpha=1.25,
+                                           early_termination=True)),
+        (DVBS2_CODE, True, DVBS2_SNR_DB, True, dict(
+            variant="offset", delta=0.15, storage_dtype=f16)),
+        ("wifi_1944_972", True, 2.5, True, dict(
+            variant="offset", delta=0.15, storage_dtype=f16,
+            early_termination=True)),
+        ("wifi_1944_972", True, 2.5, False, {}),
+    )
+    for name, is_qc, snr, quantized, kw in cases:
+        if is_qc:
+            qc = load_named_qc(name)
+            n, rate = qc.n, (qc.n - qc.m) / qc.n
+            dec = lambda y, T: decode_minsum_qc(qc, y, T, **kw)  # noqa: E731
+        else:
+            code = load_named_code(name)
+            n, rate = code.n, code.rate
+            dec = lambda y, T: decode_minsum(code, y, T, **kw)  # noqa: E731
+        y = awgn_all_zero(SEED, 17 * frames, frames, n,
+                          snr_to_sigma(snr, rate), device)
+        if quantized:
+            y = quantize_no_zero(y, 2.0, 8.0)
+        res, ref = dec(y, T), dec(y.cpu(), T)
+        for f in ("hard", "iterations", "satisfied"):
+            check(torch.equal(getattr(res, f).cpu(), getattr(ref, f)),
+                  f"{name} {kw} {f}: card != CPU plain path")
+        print(f"  {name} {'QC' if is_qc else 'slot-array'} {kw}: card == "
+              f"CPU for {frames} frames, T={T}; satisfied "
+              f"{float(res.satisfied.float().mean()):.3g}, mean iterations "
+              f"{float(res.iterations.float().mean()):.3g}")
+
+
+def generic_breakdown(code, device, batch, sigma, timer):
+    """Device time of each layer of one slot-array batch (CUDA events)."""
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_minsum,
+        minsum_cn_update,
+        minsum_plan,
+        minsum_step,
+    )
+    from ldpcsimulation_tpu_torch.decoders.base import xor_satisfied
+    from ldpcsimulation_tpu_torch.kernels.channel import awgn_philox
+    from ldpcsimulation_tpu_torch.kernels.minsum import minsum_cn_scan
+
+    plan = minsum_plan(code, device)
+    y = awgn_philox(SEED, 0, batch, code.n, sigma, device)
+    yt = y.t().contiguous()
+    v2c = yt.repeat_interleave(code.dv_max, dim=0).to(torch.float16)
+    step = minsum_step(code, storage_dtype=torch.float16)
+    d = torch.where(yt > 0, 1, -1).to(torch.int32)
+    parts = {
+        "channel (B2)": timer(
+            lambda: awgn_philox(SEED, 0, batch, code.n, sigma, device)),
+        "CN update (B1)": timer(lambda: minsum_cn_scan(v2c, plan.cn_rows)),
+        "CN update + padding": timer(lambda: minsum_cn_update(code, v2c)),
+        "iteration (B1 + VN)": timer(lambda: step(v2c, yt)),
+        "syndrome check": timer(lambda: xor_satisfied(plan.check_cols, d)),
+        "decode T=10": timer(
+            lambda: decode_minsum(code, y, T, storage_dtype=torch.float16),
+            3),
+        "error count": timer(lambda: (d.t() != 1).sum(dim=1)),
+    }
+    for k, v in parts.items():
+        print(f"  {k:22s} {v:9.4f} ms")
+    return parts
+
+
+def phase_generic_main(device, timer):
+    """The slot-array path at full width through ``simulate``, gated
+    against the JAX package's statistics."""
+    from ldpcsimulation_tpu_torch.channel import snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import decode_minsum
+    from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    code = load_named_code(PEG_CODE, device)
+
+    def dec(y, key):
+        return decode_minsum(code, y, T, storage_dtype=torch.float16)
+
+    def run(frames):
+        return simulate(code, dec, SNR_DB, stop=StopRule.fixed_frames(frames),
+                        batch_size=BATCH, seed=SEED, device=device)
+
+    run(BATCH)  # warm-up batch
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    build.PATHS.clear()
+    stats = run(4 * BATCH)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    rate_bits = stats.total_words * code.k / stats.wall_seconds
+    print(f"  BER {stats.ber!r} FER {stats.fer!r} over {stats.total_words} "
+          f"frames in {stats.wall_seconds:.4f} s: {rate_bits:.6g} decoded "
+          f"info bits/s; totals (bit errors, word errors, iterations) "
+          f"{(stats.errors, stats.word_errors, stats.total_iterations)}; "
+          f"launches {launches}")
+    check(launches == {"minsum_cn_scan": 4 * T, "awgn_philox": 4},
+          f"slot-array path launches {launches}")
+    got = mc_moments(stats, code.n)
+    for k, (want, want_se) in JAX_PEG_MINSUM.items():
+        val, se = got[k]
+        bound = 4 * math.hypot(se, want_se)
+        print(f"  {k}: port {val:.6g} (se {se:.3g}), JAX {want:.6g} (se "
+              f"{want_se:.3g}), |diff| {abs(val - want):.3g} <= {bound:.3g}")
+        check(abs(val - want) <= bound, f"slot-array {k} outside 4 joint s.e.")
+    sigma = snr_to_sigma(SNR_DB, code.rate)
+    parts = generic_breakdown(code, device, BATCH, sigma, timer)
+    return stats, rate_bits, launches, parts
+
+
+def phase_dvbs2_point(device):
+    """One dvbs2_1_2_qc point at B=8192 on real codewords: the encoder's
+    words, relabeled to the QC column order, each checked against H."""
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.codes.standards import (
+        dvbs2_rate12_encode,
+        dvbs2_rate12_qc,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_minsum_qc,
+        qc_check_satisfied,
+    )
+    from ldpcsimulation_tpu_torch.channel import snr_to_sigma
+    from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.channel import awgn_philox
+
+    det = dvbs2_rate12_qc()
+    qc = load_named_qc(DVBS2_CODE)
+    info = np.random.default_rng(SEED).integers(0, 2, (64, 32400), np.uint8)
+    cw = dvbs2_rate12_encode(info)[:, det.col_perm]
+    d = torch.as_tensor(1 - 2 * cw.T.astype(np.int32), device=device)
+    check(bool(qc_check_satisfied(qc, d).all()),
+          "an encoded DVB-S2 word violates H")
+    code = qc.to_code(device)
+
+    def dec(y, key):
+        return decode_minsum_qc(qc, y, T, storage_dtype=torch.float16)
+
+    def run():
+        return simulate(code, dec, DVBS2_SNR_DB,
+                        stop=StopRule.fixed_frames(DVBS2_BATCH),
+                        batch_size=DVBS2_BATCH, seed=SEED, codewords=cw,
+                        device=device)
+
+    first = run()  # warm-up: the tables and the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    stats = run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    rate_bits = stats.total_words * 32400 / stats.wall_seconds
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    y = awgn_philox(SEED, 0, DVBS2_BATCH, qc.n,
+                    snr_to_sigma(DVBS2_SNR_DB, 0.5), device)
+    decode_ms = time_ms(lambda: dec(y, None), 2)
+    print(f"  {DVBS2_CODE} {DVBS2_SNR_DB} dB T={T} f16 on {cw.shape[0]} "
+          f"encoded words: BER {stats.ber!r} FER {stats.fer!r} over "
+          f"{stats.total_words} frames in {stats.wall_seconds:.4f} s "
+          f"({first.wall_seconds:.4f} s in the first call), "
+          f"{rate_bits:.6g} decoded info bits/s; the decode alone "
+          f"{decode_ms:.2f} ms (device); launches {launches}; peak device "
+          f"memory {peak:.1f} GiB")
+    check((stats.errors, stats.word_errors) == (first.errors,
+                                                first.word_errors),
+          "DVB-S2 run not repeatable")
+    check(0.0 <= stats.ber <= 0.5, f"DVB-S2 BER {stats.ber}")
+    check(launches == {"minsum_cn_scan": T, "awgn_philox": 1},
+          f"DVB-S2 launches {launches}")
+    return stats, rate_bits, launches, decode_ms
+
+
+def phase_minsum_sweep(device, batch):
+    """The sweep CLI's --alist, offsetminsum and normalizedminsum routes,
+    one point each."""
+    import contextlib
+    import io
+
+    from ldpcsimulation_tpu_torch.codes import (
+        code_to_alist,
+        load_named_code,
+        save_alist,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    common = ["-T", "10", "--snr", "2.0", "--batch", str(batch),
+              "--max-frames", str(batch), "--msg-dtype", "f16",
+              "--device", str(device)]
+    build.LAUNCHES.clear()
+    rows = []
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        alist = f"{tmp}/qc_1008_504.alist"
+        save_alist(code_to_alist(load_named_code(CODE)), alist)
+        runs = (
+            (["minsum", "--alist", alist], 6, alist),
+            (["offsetminsum", "--code", "wifi_1944_972", "--ymax", "2.0",
+              "--nq", "8", "--delta", "0.15"], 8, "wifi_1944_972"),
+            (["normalizedminsum", "--code", PEG_CODE, "--alpha", "1.25"], 7,
+             PEG_CODE),
+        )
+        for i, (args, width, name) in enumerate(runs):
+            log_path = f"{tmp}/ms{i}.log"
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = sweep_main(args + common + ["--log", log_path])
+            with open(log_path) as f:
+                row = f.read().splitlines()
+            check(rc == 0 and len(row) == 1, f"{args[0]} wrote one row")
+            cols = row[0].split("\t")
+            check(len(cols) == width and cols[0] == "2" and cols[4] == "10"
+                  and cols[-1] == name and 0.0 <= float(cols[1]) <= 0.5,
+                  f"{args[0]} row {cols}")
+            if "--alist" in args:
+                check("detected QC structure z=84" in err.getvalue(),
+                      f"no QC detection note: {err.getvalue()!r}")
+            rows.append(row[0])
+            print(f"  {' '.join(args[:3])}: {row[0]}")
+    launches = dict(build.LAUNCHES)
+    print(f"  launches {launches}")
+    check(launches == {"minsum_cn_scan": 3 * T, "awgn_philox": 3},
+          f"min-sum sweep launches {launches}")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -868,6 +1241,17 @@ def main() -> int:
         s_launches["uniform_philox"] / 4)
     bounds = phase_bounds(path, card, per_batch, times, qc, BATCH)
 
+    print("[14] B1 vs plain, the slot-array and generalized QC forms")
+    forms, forms_err = phase_b1_forms(device, path, time_ms)
+    print("[15] min-sum decodes: card vs CPU plain path")
+    phase_card_vs_cpu(device)
+    print(f"[16] slot-array path: simulate {PEG_CODE} {SNR_DB} dB T={T} f16, "
+          f"4 x {BATCH} frames; then {DVBS2_CODE} at B={DVBS2_BATCH}")
+    p_stats, p_rate, p_launches, p_parts = phase_generic_main(device, time_ms)
+    d_stats, d_rate, d_launches, d_ms = phase_dvbs2_point(device)
+    print("[17] sweep CLI, --alist and the quantized min-sum routes")
+    _, ms_launches = phase_minsum_sweep(device, 8192)
+
     summary = {
         "card": card,
         "ber": stats.ber,
@@ -888,6 +1272,18 @@ def main() -> int:
         },
         "channel_form_ms": {"uniform_philox": b3_times[3],
                             "gauss_philox": b4_times[3]},
+        "slot_array": {
+            "code": PEG_CODE, "ber": p_stats.ber, "fer": p_stats.fer,
+            "frames": p_stats.total_words,
+            "decoded_info_bits_per_s": p_rate, "breakdown_ms": p_parts,
+            "totals": (p_stats.errors, p_stats.word_errors,
+                       p_stats.total_iterations),
+        },
+        "dvbs2": {"code": DVBS2_CODE, "ber": d_stats.ber, "fer": d_stats.fer,
+                  "frames": d_stats.total_words,
+                  "decoded_info_bits_per_s": d_rate,
+                  "decode_ms": d_ms},
+        "b1_forms": forms,
     }
     print(json.dumps(summary))
     print(card)
@@ -895,7 +1291,7 @@ def main() -> int:
     # yardstick is PyTorch's own Philox draw of the same shape.
     rows = [
         ("minsum_cn_scan", "minsum_cn_scan.cu", "minsum_pallas.py:60",
-         launches["minsum_cn_scan"], b1_err, None),
+         launches["minsum_cn_scan"], max(b1_err, forms_err), None),
         ("awgn_philox", "awgn_philox.cu", "channel_pallas.py:56",
          launches["awgn_philox"], b2_err, f"torch.randn [{BATCH}, {n}]"),
         ("uniform_philox", "uniform_philox.cu", "channel_pallas.py:89",
@@ -903,6 +1299,13 @@ def main() -> int:
         ("gauss_philox", "uniform_philox.cu", "channel_pallas.py:114",
          g_launches["gauss_philox"], b4_err, f"torch.randn [{n}, {BATCH}]"),
     ]
+    # B1's launches on each min-sum path of this run, and its other forms
+    extra = {"minsum_cn_scan": {
+        "launches_by_path": {"minsum qc [5]": launches["minsum_cn_scan"],
+                             "slot-array [16]": p_launches["minsum_cn_scan"],
+                             "dvbs2 [16]": d_launches["minsum_cn_scan"],
+                             "sweep [17]": ms_launches["minsum_cn_scan"]},
+        "forms": forms}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",
@@ -911,7 +1314,7 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "library_ms": None, "yardstick_ms": times[name][2],
          "yardstick": yard and f"{yard}, same work, not the same function",
-         **bounds[name]}
+         **bounds[name], **extra.get(name, {})}
         for name, src, tpu, count, err, yard in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Code representation: alist I/O, constructions, padded-slot `Code`, QC
-structure, named codes."""
+structure and its detection, the standard tables, the GF(2) encoder, named
+codes."""
 
 from .alist import Alist, dumps_alist, from_dense, load_alist, parse_alist, save_alist
 from .code import Code, build_code, code_to_alist
 from .construct import make_regular_code, peg, qc_expand, random_regular
-from .library import NAMED_CODES, load_named_code, load_named_qc
+from .encode import Encoder, gf2_rref, make_encoder, random_codewords
+from .library import NAMED_CODES, QC_NAMES, load_named_code, load_named_qc
 from .qc import QCCode, build_qc_code, build_qc_code_edges, qc_ira, qc_peg
+from .qc_detect import DetectedQC, detect_qc, permuted_decoder
 
 __all__ = [
     "Alist",
@@ -21,7 +24,12 @@ __all__ = [
     "random_regular",
     "qc_expand",
     "make_regular_code",
+    "Encoder",
+    "gf2_rref",
+    "make_encoder",
+    "random_codewords",
     "NAMED_CODES",
+    "QC_NAMES",
     "load_named_code",
     "load_named_qc",
     "QCCode",
@@ -29,4 +37,7 @@ __all__ = [
     "build_qc_code_edges",
     "qc_ira",
     "qc_peg",
+    "DetectedQC",
+    "detect_qc",
+    "permuted_decoder",
 ]

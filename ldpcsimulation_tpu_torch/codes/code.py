@@ -65,6 +65,28 @@ class Code:
     def rate(self) -> float:
         return self.k / self.n
 
+    def true_k(self) -> int:
+        """Rank-aware information length n − rank(H), by GF(2) elimination
+        on first use, cached on the instance (a redundant H, such as the
+        802.3an matrix of 384 rows and rank 325, has more than n − m)."""
+        cached = self.__dict__.get("_true_k")
+        if cached is None:
+            from .encode import gf2_rref
+
+            h = np.zeros((self.m, self.n), np.uint8)
+            cn_vn = self.cn_vn.cpu().numpy().reshape(-1)
+            keep = self.cn_mask.cpu().numpy().reshape(-1)
+            rows = np.repeat(np.arange(self.m), self.dc_max)
+            h[rows[keep], cn_vn[keep]] = 1
+            _, pivots, _ = gf2_rref(h)
+            cached = self.n - len(pivots)
+            object.__setattr__(self, "_true_k", cached)
+        return cached
+
+    def true_rate(self) -> float:
+        """Rank-aware code rate ``true_k() / n`` (see :meth:`true_k`)."""
+        return self.true_k() / self.n
+
     @classmethod
     def from_arrays(cls, device="cpu", **fields) -> "Code":
         """Build from the JAX ``Code``'s fields given as numpy arrays (and
@@ -76,6 +98,16 @@ class Code:
             for f in _ARRAY_FIELDS
         }
         return cls(**meta, **arrays)
+
+    def to(self, device) -> "Code":
+        """The same code with its tables on ``device`` (self if they are
+        there already)."""
+        device = torch.device(device)
+        if self.cn_vn.device == device:
+            return self
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in _ARRAY_FIELDS
+        })
 
     def __repr__(self) -> str:  # keep reprs short in logs
         base = (

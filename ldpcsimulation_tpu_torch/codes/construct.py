@@ -2,9 +2,9 @@
 
 Numpy ports of ``ldpcsimulation_tpu.codes.construct``; each construction
 draws the same numbers from the same seed, so both packages build the same
-H.  Only the Python PEG is here: the JAX package's native C++ PEG (used for
-n > 2000) is ROADMAP item A1, and ``nb_regular`` waits for the non-binary
-item (A12).
+H.  The PEG of regular codes with n > 2000 runs the C++ PEG of ``native/``
+(:mod:`..native`), as the JAX package's does; ``nb_regular`` waits for the
+non-binary item (A12).
 """
 
 from __future__ import annotations
@@ -37,19 +37,18 @@ def peg(
     Deterministic given (n, m, dv, seed).  Returns an :class:`Alist` whose
     per-node adjacency is ascending within each column.
 
-    backend: "python" | "auto".  The JAX package's "auto" switches to its
-    native C++ PEG (an independent RNG stream) for regular codes with
-    n > 2000, so those codes — and ``backend="native"`` — raise here until
-    the native PEG is ported (ROADMAP item A1).
+    backend: "python" | "native" | "auto".  "native" runs the C++ PEG
+    (:mod:`..native`, an independent RNG stream); "auto" picks it for
+    regular codes with n > 2000, as the JAX package does, so both build the
+    same code under the same arguments.
     """
-    native = backend == "native" or (
-        backend == "auto" and isinstance(dv, int) and n > 2000
-    )
-    if native:
-        raise NotImplementedError(
-            "the native PEG backend is not ported yet (ROADMAP item A1)"
-        )
-    if backend not in ("auto", "python"):
+    if isinstance(dv, int) and (
+        backend == "native" or (backend == "auto" and n > 2000)
+    ):
+        from ..native import peg_native
+
+        return peg_native(n, m, dv, seed=seed)
+    if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown PEG backend {backend!r}")
     rng = np.random.default_rng(seed)
     dv_list = [dv] * n if isinstance(dv, int) else list(dv)

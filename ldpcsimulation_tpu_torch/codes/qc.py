@@ -45,7 +45,8 @@ class QCCode:
     Generalizations for real standards: ``extra_edges`` lists further
     circulants of a (bi, bj) pair beyond the one ``base`` records, and
     ``minus_edges`` entries (bi, bj, shift, r) remove the edge at row offset
-    r of that circulant.  The min-sum decoder does not take them yet.
+    r of that circulant.  The min-sum decoder's row tables take both
+    (:func:`..decoders.minsum_qc.qc_plan`).
     """
 
     z: int

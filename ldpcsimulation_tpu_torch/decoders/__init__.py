@@ -1,9 +1,12 @@
-"""Decoders: the flooding QC min-sum decoder, the GDBF/NGDBF bit-flip
-family, and their shared machinery."""
+"""Decoders: the flooding min-sum decoders (slot-array and QC), the
+GDBF/NGDBF bit-flip family, and their shared machinery."""
 
 from .base import (
     DecodeResult,
     NoiseKey,
+    check_satisfied,
+    gather_cn,
+    gather_vn,
     run_flooding_soft,
     sgn_neg,
     sgn_pos,
@@ -18,6 +21,14 @@ from .gdbf import (
     keyed_draws,
     preset,
 )
+from .minsum import (
+    MinSumPlan,
+    decode_minsum,
+    minsum_cn_update,
+    minsum_plan,
+    minsum_step,
+    vn_update,
+)
 from .minsum_qc import (
     decode_minsum_qc,
     qc_check_satisfied,
@@ -29,6 +40,9 @@ from .minsum_qc import (
 __all__ = [
     "DecodeResult",
     "NoiseKey",
+    "check_satisfied",
+    "gather_cn",
+    "gather_vn",
     "run_flooding_soft",
     "sgn_neg",
     "sgn_pos",
@@ -40,6 +54,12 @@ __all__ = [
     "decode_gdbf",
     "keyed_draws",
     "preset",
+    "MinSumPlan",
+    "decode_minsum",
+    "minsum_cn_update",
+    "minsum_plan",
+    "minsum_step",
+    "vn_update",
     "decode_minsum_qc",
     "qc_check_satisfied",
     "qc_minsum_step",

@@ -23,7 +23,12 @@ __all__ = [
     "sgn_neg",
     "storage_cast",
     "run_flooding_soft",
+    "gather_cn",
+    "gather_vn",
     "syndrome_from_hard",
+    "check_columns",
+    "check_satisfied",
+    "xor_satisfied",
 ]
 
 
@@ -77,6 +82,20 @@ def sgn_neg(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, 1.0, -1.0).to(x.dtype)
 
 
+def gather_cn(code, v2c_flat: torch.Tensor) -> torch.Tensor:
+    """[N*dv_max, B] v2c -> [M, dc_max, B] per-check incoming messages
+    (padding slots read VN slot 0)."""
+    g = v2c_flat[code.cn_from_vn.reshape(-1).long()]
+    return g.reshape(code.m, code.dc_max, -1)
+
+
+def gather_vn(code, c2v_flat: torch.Tensor) -> torch.Tensor:
+    """[M*dc_max, B] c2v -> [N, dv_max, B] per-variable incoming messages
+    (padding slots read CN slot 0)."""
+    g = c2v_flat[code.vn_from_cn.reshape(-1).long()]
+    return g.reshape(code.n, code.dv_max, -1)
+
+
 def syndrome_from_hard(code, d: torch.Tensor) -> torch.Tensor:
     """Bipolar syndrome per check from hard decisions (the bit-flip
     decoders' CN update).
@@ -88,6 +107,31 @@ def syndrome_from_hard(code, d: torch.Tensor) -> torch.Tensor:
     vals = d[code.cn_vn.reshape(-1).long()].reshape(m, dc, -1)
     vals = torch.where(code.cn_mask[:, :, None], vals, torch.ones_like(vals))
     return torch.prod(vals, dim=1).to(d.dtype)
+
+
+def xor_satisfied(cols: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """d: [N, B] ±1 -> [B] bool, all parity checks satisfied: per check the
+    XOR of its negative decisions (the sign of the JAX package's product).
+
+    cols: [M, dc] int64 column of each check slot, N in an absent slot (a
+    sentinel row that is never negative).
+    """
+    neg = torch.cat([d < 0, d.new_zeros((1, d.shape[1]), dtype=torch.bool)])
+    odd = neg[cols[:, 0]]
+    for t in range(1, cols.shape[1]):
+        odd = odd ^ neg[cols[:, t]]
+    return ~odd.any(dim=0)
+
+
+def check_columns(code) -> torch.Tensor:
+    """[M, dc_max] int64: ``cn_vn`` with the sentinel column N in padding
+    slots (the table :func:`xor_satisfied` reads)."""
+    return torch.where(code.cn_mask, code.cn_vn, code.n).long()
+
+
+def check_satisfied(code, d: torch.Tensor) -> torch.Tensor:
+    """d: [N, B] ±1 -> [B] bool, all parity checks satisfied."""
+    return xor_satisfied(check_columns(code).to(d.device), d)
 
 
 def _decide(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

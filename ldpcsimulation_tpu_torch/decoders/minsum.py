@@ -1,0 +1,169 @@
+"""Flooding min-sum decoder on the slot-array Tanner graph of any binary
+code: plain, normalized and offset variants.
+
+Port of ``ldpcsimulation_tpu.decoders.minsum`` with the same arithmetic,
+slot order and tie-breaking, so its decisions equal the JAX decoder's bit
+for bit on the same samples.  Messages live in VN-slot layout
+``[N * dv_max, B]`` (batch last).
+
+The CN update is kernel B1 in its TPU kernel's own generic form: the
+routing table is ``where(cn_mask, cn_from_vn, −1)``, so check c's slot t
+reads VN slot ``cn_from_vn[c, t]`` of v2c and writes that slot of c2v.
+The c2v messages therefore land in VN-slot layout and the VN update needs
+no gather: a reshape to ``[N, dv_max, B]``, a left fold over the slots and
+the channel term added last.  B1 does not write the padding slots; they
+are set to exact zeros, which the fold adds as the JAX decoder does.
+The variant post-op (``/ alpha``, ``|·| − delta``) runs inside B1 in the
+storage precision, as the JAX decoder's weakly typed scalars do.
+
+The reference min-sum (``decodeMinSum.cpp``) always runs all T iterations;
+``early_termination=True`` is the framework's extension.  Min-sum works on
+the (optionally quantized) channel samples, not on LLRs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import torch
+
+from ..codes.code import Code
+from ..kernels.minsum import VARIANTS, minsum_cn_scan
+from .base import (
+    DecodeResult,
+    check_columns,
+    run_flooding_soft,
+    storage_cast,
+    xor_satisfied,
+)
+
+__all__ = ["MinSumPlan", "minsum_plan", "minsum_cn_update", "vn_update",
+           "minsum_step", "decode_minsum"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MinSumPlan:
+    """Tables of one code on one device.
+
+    code:       the code with its tables on the plan's device.
+    cn_rows:    [M, dc_max] int32 — ``cn_from_vn`` with −1 in padding
+                slots; B1's routing table.
+    check_cols: [M, dc_max] int64 — ``cn_vn`` with the sentinel column N
+                in padding slots; the syndrome check's table.
+    vn_pad:     [N * dv_max, 1] bool — True in VN padding slots (None for a
+                code without any).
+    """
+
+    code: Code
+    cn_rows: torch.Tensor
+    check_cols: torch.Tensor
+    vn_pad: Optional[torch.Tensor]
+
+
+@functools.lru_cache(maxsize=None)
+def minsum_plan(code: Code, device) -> MinSumPlan:
+    """B1's routing table of ``code`` on ``device`` (built once, cached)."""
+    code = code.to(device)
+    cn_rows = torch.where(code.cn_mask, code.cn_from_vn,
+                          torch.full_like(code.cn_from_vn, -1))
+    pad = ~code.vn_mask.reshape(-1, 1)
+    return MinSumPlan(
+        code=code,
+        cn_rows=cn_rows.to(torch.int32).contiguous(),
+        check_cols=check_columns(code),
+        vn_pad=pad if bool(pad.any()) else None,
+    )
+
+
+def minsum_cn_update(code: Code, v2c_flat: torch.Tensor,
+                     variant: str = "plain", alpha: float = 1.0,
+                     delta: float = 0.0) -> torch.Tensor:
+    """Check-node min-sum update with the variant post-op (kernel B1).
+
+    v2c_flat: [N*dv_max, B] variable→check messages (VN-slot layout, f16 or
+    f32).  Returns c2v [N*dv_max, B] f32 in VN-slot layout — unlike the JAX
+    function, whose output is in CN-slot layout and whose post-op is
+    separate — with exact zeros in the padding slots.
+    """
+    plan = minsum_plan(code, v2c_flat.device)
+    c2v = minsum_cn_scan(v2c_flat.contiguous(), plan.cn_rows, variant,
+                         alpha, delta)
+    if plan.vn_pad is not None:  # slots B1 does not write
+        c2v = torch.where(plan.vn_pad, 0.0, c2v)
+    return c2v
+
+
+def vn_update(code: Code, y_t: torch.Tensor, c2v_flat: torch.Tensor):
+    """Variable-node total-sum update (decodeMinSum.cpp:452-476).
+
+    y_t: [N, B] channel samples; c2v_flat: [N*dv_max, B] in VN-slot layout
+    with zeros in the padding slots (as :func:`minsum_cn_update` gives).
+    Returns (v2c_flat [N*dv_max, B], total [N, B], d [N, B] ±1 int32).
+    The fold is pinned: messages left to right over all dv_max slots,
+    padding zeros included, then the channel term — y + ((m₀ + m₁) + m₂ …).
+    """
+    msgs = c2v_flat.view(code.n, code.dv_max, -1)
+    acc = msgs[:, 0]
+    for j in range(1, code.dv_max):
+        acc = acc + msgs[:, j]
+    total = y_t + acc
+    v2c = total[:, None, :] - msgs
+    d = torch.where(total > 0, 1, -1).to(torch.int32)
+    return v2c.reshape(code.n * code.dv_max, -1), total, d
+
+
+def minsum_step(code: Code, variant: str = "plain", alpha: float = 1.0,
+                delta: float = 0.0, storage_dtype=None):
+    """The :func:`decode_minsum` iteration as a function of (messages,
+    channel term): ``step(v2c, y_t) -> (v2c', total)`` with ``y_t`` the
+    ``[N, B]`` channel samples."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown min-sum variant {variant!r}")
+
+    def step(v2c, y_t):
+        sdt = storage_dtype if storage_dtype is not None else y_t.dtype
+        c2v = minsum_cn_update(code, v2c, variant, alpha, delta)
+        v2c, total, _ = vn_update(code, y_t, c2v)
+        return storage_cast(v2c, sdt), total
+
+    return step
+
+
+def decode_minsum(
+    code: Code,
+    y: torch.Tensor,
+    num_iterations: int,
+    variant: str = "plain",
+    alpha: float = 1.0,
+    delta: float = 0.0,
+    early_termination: bool = False,
+    storage_dtype=None,
+) -> DecodeResult:
+    """Batched flooding min-sum decode.  y: [B, N] channel samples
+    (pre-quantized by the caller for the fixed-point variants — the
+    reference quantizes the channel, not the messages).
+
+    variant: "plain" | "normalized" | "offset".  storage_dtype: optional
+    narrower message dtype (e.g. torch.float16); arithmetic stays f32 and
+    each v2c store saturates at the storage range.  The code's tables are
+    taken to y's device (once, cached).
+    """
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown min-sum variant {variant!r}")
+    y_t = y.t().contiguous()  # [N, B]
+    n, b = y_t.shape
+    if n != code.n:
+        raise ValueError(f"y has {n} columns, the code {code.n}")
+    plan = minsum_plan(code, y_t.device)
+    sdt = storage_dtype if storage_dtype is not None else y_t.dtype
+    # initializeSymMessages: every VN slot starts at the channel sample
+    v2c0 = y_t.repeat_interleave(code.dv_max, dim=0).to(sdt)
+    step_y = minsum_step(plan.code, variant, alpha, delta, storage_dtype)
+    d, iters, done = run_flooding_soft(
+        y_t, v2c0, lambda v2c: step_y(v2c, y_t),
+        lambda d: xor_satisfied(plan.check_cols, d),
+        num_iterations, early_termination, b,
+    )
+    return DecodeResult(hard=d.t(), iterations=iters, satisfied=done)

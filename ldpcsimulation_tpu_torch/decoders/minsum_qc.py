@@ -16,27 +16,42 @@ by −shift and rolls its output back by +shift).  Here :func:`qc_plan` turns
 the block structure into row tables once per code and device, and kernel B1
 (:func:`..kernels.minsum.minsum_cn_scan`) does the routing: check (bi, r)
 reads and writes, for its slot t, row ``p(bj_t, vslot_t) * z +
-(r + shift_t) % z``.  The VN update (messages left-folded in slot order,
-channel term added last), the saturating storage cast and the syndrome
-check are plain torch.
+(r + shift_t) % z``.  The VN update (messages left-folded in the generic
+decoder's slot order, channel term added last), the saturating storage cast
+and the syndrome check are plain torch.
 
-Not here yet: codes with multi-edge blocks or absent edges (``extra_edges``,
-``minus_edges``) raise ``NotImplementedError`` — they need
-``codes/standards.py`` (ROADMAP S1, with A3's DVB-S2 case).
+The generalized structures of real standards (``extra_edges``: two
+circulants on one block pair; ``minus_edges``: single absent edges, as in
+DVB-S2) live in the same tables, where the JAX decoder keeps per-row
+``where`` views (``qc_slot_plan``):
+
+* **pairs**: in the check rows where the expanded H orders the second
+  circulant's column first, the two ``cn_rows`` entries are exchanged, so
+  the scan sees the generic slot order and its tie-break stays exact; the
+  VN fold takes the pair's two terms in the same per-column order;
+* **absent edges**: −1 in ``cn_rows`` (the scan skips the slot, as the JAX
+  decoder's +inf read does) and the sentinel column N in ``check_cols``;
+  B1 leaves that message row unwritten, so the step fills it with zeros
+  before the fold, where the JAX decoder adds an exact zero.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..codes.qc import QCCode
 from ..kernels.minsum import VARIANTS, minsum_cn_scan
-from .base import DecodeResult, run_flooding_soft, storage_cast
+from .base import (
+    DecodeResult,
+    run_flooding_soft,
+    storage_cast,
+    xor_satisfied,
+)
 
 __all__ = [
     "QCPlan",
@@ -53,12 +68,16 @@ class QCPlan:
     """Static row tables of one QC code on one device.
 
     cn_rows:     [M, dc_max] int32 — message row of check (bi, r), slot t
-                 (−1 for an absent slot); the kernel's routing table.
+                 (−1 for an absent slot), in the generic slot order; the
+                 kernel's routing table.
     check_cols:  [M, dc_max] int64 — column of that edge (N for an absent
                  slot, a sentinel row); the syndrome check's table.
-    plane_block: [P] int64 — VN block of each plane.
-    vn_slots:    per VN slot s, (blocks with a slot s, their s-th plane) as
-                 int64 tensors — the VN fold's order.
+    row_col:     [R] int64 — column of each message row.
+    fold:        per fold position s, (columns with a term there, or None
+                 for all N; the message row of that term) — the VN fold's
+                 order.
+    absent_rows: int64 message rows of absent edges (None if there are
+                 none), zeroed before the fold.
     """
 
     z: int
@@ -66,67 +85,112 @@ class QCPlan:
     num_planes: int
     cn_rows: torch.Tensor
     check_cols: torch.Tensor
-    plane_block: torch.Tensor
-    vn_slots: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    row_col: torch.Tensor
+    fold: Tuple[Tuple[Optional[torch.Tensor], torch.Tensor], ...]
+    absent_rows: Optional[torch.Tensor]
+
+
+def _pairs(keys):
+    """Indices k where entries k and k+1 share a key (a two-circulant
+    pair), walking left to right; three in a row raise."""
+    out, k = [], 0
+    while k < len(keys):
+        if k + 1 < len(keys) and keys[k + 1] == keys[k]:
+            if k + 2 < len(keys) and keys[k + 2] == keys[k]:
+                raise NotImplementedError(
+                    ">2 circulants between one block pair")
+            out.append(k)
+            k += 2
+        else:
+            k += 1
+    return out
+
+
+def _swap(rows, k, sw):
+    rows[k], rows[k + 1] = (np.where(sw, rows[k + 1], rows[k]),
+                            np.where(sw, rows[k], rows[k + 1]))
 
 
 @functools.lru_cache(maxsize=None)
 def qc_plan(qc: QCCode, device) -> QCPlan:
     """Row tables of ``qc`` on ``device`` (built once, cached)."""
-    if qc.extra_edges or qc.minus_edges:
-        raise NotImplementedError(
-            "QC codes with multi-edge blocks or absent edges need "
-            "codes/standards.py, which is not ported yet (ROADMAP S1)"
-        )
     if any(len(blocks) == 0 for blocks in qc.vn_blocks):
         raise ValueError("every VN block needs at least one circulant")
-    z, nb = qc.z, qc.nb
+    z, nb, n = qc.z, qc.nb, qc.n
     plane_of = {}
     plane_block = []
     for bj in range(nb):
-        for s, (bi, shift) in enumerate(qc.vn_blocks[bj]):
+        for bi, shift in qc.vn_blocks[bj]:
             plane_of[(bj, bi, shift)] = len(plane_block)
             plane_block.append(bj)
+    off = np.arange(z)
 
-    r = np.arange(z)
+    # VN side: per block, the message rows of its columns in fold order
+    # (a pair's two terms swap where the second circulant's row comes
+    # first in the expanded column)
+    fold_rows = []
+    for bj in range(nb):
+        ents = qc.vn_blocks[bj]
+        rows = [plane_of[(bj, bi, s)] * z + off for bi, s in ents]
+        for k in _pairs([bi for bi, _ in ents]):
+            _swap(rows, k, (off - ents[k + 1][1]) % z < (off - ents[k][1]) % z)
+        fold_rows.append(rows)
+    absent = []
+    for bi, bj, s, r in qc.minus_edges:
+        if (bj, bi, s) not in plane_of:
+            raise ValueError(f"minus edge {(bi, bj, s, r)} has no circulant")
+        absent.append(plane_of[(bj, bi, s)] * z + (r + s) % z)
+
+    # CN side: absent slots first, then the pair swaps carry them along
+    minus = {}
+    for bi, bj, s, r in qc.minus_edges:
+        minus.setdefault((bi, bj, s), []).append(r)
     cn_rows = np.full((qc.m, qc.dc_max), -1, np.int64)
-    check_cols = np.full((qc.m, qc.dc_max), qc.n, np.int64)
+    check_cols = np.full((qc.m, qc.dc_max), n, np.int64)
     for bi in range(qc.mb):
-        for t, (bj, shift) in enumerate(qc.cn_blocks[bi]):
-            off = (r + shift) % z
-            cn_rows[bi * z:(bi + 1) * z, t] = plane_of[(bj, bi, shift)] * z + off
-            check_cols[bi * z:(bi + 1) * z, t] = bj * z + off
+        ents = qc.cn_blocks[bi]
+        rows, cols = [], []
+        for bj, s in ents:
+            at = (off + s) % z
+            rt, ct = plane_of[(bj, bi, s)] * z + at, bj * z + at
+            gone = minus.get((bi, bj, s), [])
+            rt[gone], ct[gone] = -1, n
+            rows.append(rt)
+            cols.append(ct)
+        for k in _pairs([bj for bj, _ in ents]):
+            sw = (off + ents[k + 1][1]) % z < (off + ents[k][1]) % z
+            _swap(rows, k, sw)
+            _swap(cols, k, sw)
+        for t in range(len(ents)):
+            cn_rows[bi * z:(bi + 1) * z, t] = rows[t]
+            check_cols[bi * z:(bi + 1) * z, t] = cols[t]
 
-    vn_slots = []
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    fold = []
     for s in range(qc.dv_max):
-        blocks = [bj for bj in range(nb) if len(qc.vn_blocks[bj]) > s]
-        planes = [plane_of[(bj,) + qc.vn_blocks[bj][s]] for bj in blocks]
-        vn_slots.append(tuple(
-            torch.tensor(v, dtype=torch.int64, device=device)
-            for v in (blocks, planes)
-        ))
+        blocks = [bj for bj in range(nb) if len(fold_rows[bj]) > s]
+        rows = np.concatenate([fold_rows[bj][s] for bj in blocks])
+        cols = (None if len(blocks) == nb else
+                np.concatenate([bj * z + off for bj in blocks]))
+        fold.append((None if cols is None else dev(cols), dev(rows)))
     return QCPlan(
         z=z,
         nb=nb,
         num_planes=len(plane_block),
-        cn_rows=torch.tensor(cn_rows, dtype=torch.int32, device=device),
-        check_cols=torch.tensor(check_cols, dtype=torch.int64, device=device),
-        plane_block=torch.tensor(plane_block, dtype=torch.int64,
-                                 device=device),
-        vn_slots=tuple(vn_slots),
+        cn_rows=torch.as_tensor(cn_rows.astype(np.int32), device=device),
+        check_cols=dev(check_cols),
+        row_col=dev((np.asarray(plane_block)[:, None] * z + off).reshape(-1)),
+        fold=tuple(fold),
+        absent_rows=dev(absent) if absent else None,
     )
 
 
 def qc_check_satisfied(qc: QCCode, d: torch.Tensor) -> torch.Tensor:
     """d: [N, B] (or [Nb, z, B]) ±1 decisions -> [B] all checks satisfied."""
     d = d.reshape(qc.n, -1)
-    plan = qc_plan(qc, d.device)
-    neg = torch.cat([d < 0, d.new_zeros((1, d.shape[1]), dtype=torch.bool)])
-    cols = plan.check_cols
-    odd = neg[cols[:, 0]]
-    for t in range(1, cols.shape[1]):
-        odd = odd ^ neg[cols[:, t]]
-    return ~odd.any(dim=0)
+    return xor_satisfied(qc_plan(qc, d.device).check_cols, d)
 
 
 def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
@@ -145,19 +209,19 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
     def step(v2c, yb):
         plan = qc_plan(qc, v2c.device)
         sdt = storage_dtype if storage_dtype is not None else yb.dtype
-        b = v2c.shape[1]
         c2v = minsum_cn_scan(v2c, plan.cn_rows, variant, alpha, delta)
-        planes = c2v.view(plan.num_planes, plan.z, b)
-        _, idx = plan.vn_slots[0]  # every block has a slot 0
-        acc = planes[idx]
-        for blocks, idx in plan.vn_slots[1:]:
-            if len(blocks) == plan.nb:
-                acc = acc + planes[idx]
+        if plan.absent_rows is not None:  # rows B1 does not write
+            c2v.index_fill_(0, plan.absent_rows, 0.0)
+        _, rows = plan.fold[0]  # every column has a position 0
+        acc = c2v[rows]
+        for cols, rows in plan.fold[1:]:
+            if cols is None:
+                acc = acc + c2v[rows]
             else:
-                acc[blocks] = acc[blocks] + planes[idx]
-        total = yb.reshape(plan.nb, plan.z, b) + acc
-        v2c_new = storage_cast(total[plan.plane_block] - planes, sdt)
-        return v2c_new.view(-1, b), total.view(-1, b)
+                acc[cols] = acc[cols] + c2v[rows]
+        total = yb + acc
+        v2c_new = storage_cast(total[plan.row_col] - c2v, sdt)
+        return v2c_new, total
 
     return step
 
@@ -165,10 +229,7 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
 def qc_ragged_init(qc: QCCode, yb: torch.Tensor, sdt) -> torch.Tensor:
     """Initial v2c planes ``[P*z, B]``: every slot starts at its column's
     channel sample."""
-    b = yb.shape[-1]
-    plan = qc_plan(qc, yb.device)
-    planes = yb.reshape(plan.nb, plan.z, b)[plan.plane_block]
-    return planes.to(sdt).view(-1, b)
+    return yb[qc_plan(qc, yb.device).row_col].to(sdt)
 
 
 def decode_minsum_qc(

@@ -189,8 +189,9 @@ def simulate(
     decode_fn(inp [B, N] on ``device``, key) -> DecodeResult, with ``inp``
     the channel samples mapped by ``preprocess`` (a quantizer and/or LLR;
     identity if None) and ``key`` the batch's :class:`NoiseKey`.
-    ``codewords``: optional [L, N] bit matrix cycled frame by frame, else
-    all-zero codewords.  ``rate`` defaults to the design rate k/n.
+    ``codewords``: optional [L, N] bit matrix cycled frame by frame (copied
+    to the device once), else all-zero codewords.  ``rate`` defaults to the
+    design rate k/n.
     Counting happens on the device; each batch brings four [B] vectors to
     the host (six with the bit-flip extras).  ``device`` defaults to the
     card; ``device="cpu"`` runs the kernels' plain twins.
@@ -209,6 +210,8 @@ def simulate(
         codewords = np.asarray(codewords, np.uint8)
         if codewords.ndim != 2 or codewords.shape[1] != code.n:
             raise ValueError(f"codewords must be [L, {code.n}]")
+        num_words = codewords.shape[0]
+        codewords = torch.tensor(codewords, device=device)  # once
 
     stats = MCStats(n=code.n)
     t0 = time.perf_counter()
@@ -224,8 +227,8 @@ def simulate(
                 break
         y = awgn_all_zero(seed, frame_offset, b, code.n, sigma, device)
         if codewords is not None:
-            idx = cycle_indices(frame_offset, b, codewords.shape[0])
-            c = bpsk(codewords[idx]).to(device)  # [B, N] ±1
+            idx = cycle_indices(frame_offset, b, num_words)
+            c = bpsk(codewords[torch.as_tensor(idx, device=device)])  # ±1
             y = c * y
         else:
             c = 1

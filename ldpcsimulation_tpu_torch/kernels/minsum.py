@@ -7,9 +7,13 @@ reads check ``c``'s slot ``t`` from row ``cn_rows[c, t]`` of the message
 planes ``v2c [R, B]`` and writes that slot's output to the same row of
 ``c2v [R, B]`` (f32).  ``cn_rows`` holds −1 for an absent slot; every other
 entry must lie in [0, R) and name its row only once (the kernel does not
-check: the tables come from ``decoders.minsum_qc.qc_plan``, which builds
-them so).  A row that no check names is left unwritten (``torch.empty``);
-the QC plan names every row.
+check: the tables come from ``decoders.minsum_qc.qc_plan`` and
+``decoders.minsum.minsum_plan``, which build them so).  A row that no check
+names is left unwritten (``torch.empty``): the callers zero it themselves
+(the slot-array decoder's padding slots, the QC decoder's absent edges).
+The kernel takes any M and ``dc_max`` up to 64, as the Pallas kernel's
+tiles can hold; a table of more than 65535 checks takes one grid per 65535
+(still one call, one count in ``LAUNCHES``).
 
 :func:`minsum_cn_scan` launches the kernel for CUDA tensors and runs
 :func:`minsum_cn_scan_plain` for CPU tensors.  Both are exact: the scan only
@@ -28,7 +32,7 @@ __all__ = ["VARIANTS", "minsum_cn_scan", "minsum_cn_scan_plain",
 
 #: variant name -> id passed to the kernel
 VARIANTS = {"plain": 0, "normalized": 1, "offset": 2}
-_MAX_DC = 32  # the kernel's largest compile-time slot cap
+_MAX_DC = 64  # the kernel's largest compile-time slot cap
 
 
 def in_storage(x: float, dtype: torch.dtype) -> float:
@@ -116,10 +120,10 @@ def minsum_cn_scan(v2c, cn_rows, variant="plain", alpha=1.0, delta=0.0):
         raise ValueError(f"minsum_cn_scan: unsupported device {v2c.device}")
     _check(v2c, cn_rows, variant)
     m, dc = cn_rows.shape
-    if dc > _MAX_DC or m > 65535:
+    if dc > _MAX_DC:
         raise ValueError(
-            f"minsum_cn_scan: the kernel takes dc_max <= {_MAX_DC} and "
-            f"M <= 65535, got dc_max={dc}, M={m}"
+            f"minsum_cn_scan: the kernel takes dc_max <= {_MAX_DC}, got "
+            f"dc_max={dc}"
         )
     sdt = v2c.dtype
     c2v = torch.empty(v2c.shape, dtype=torch.float32, device=v2c.device)

@@ -11,15 +11,17 @@ stores.
 
 A thread's path is the shortest path through the kernel's control-flow
 graph from its entry, through the global stores (all of them, or the first
-``stores`` in address order) and, if asked, every global load, in address
-order, to an ``EXIT``: the path of a thread that does its whole share of
-the work and takes no slow path.  nvcc places the slow paths of the
+``stores`` in address order) and, if asked, every global load placed before
+the last of those stores, in address order, to an ``EXIT``: the path of a
+thread that does its whole share of the work and takes no slow path.  nvcc places the slow paths of the
 accurate math functions (the Payne–Hanek reduction of ``cosf``, the
 special-operand fix-ups of ``sqrtf``) behind branches or in called
 subroutines, so the shortest such path skips them; a subroutine called
 without a predicate counts with its own shortest path to ``RET``.  Where
 a run-time branch picks one of several copies of the stores (the min-sum
-kernel's variants), the first copy in address order is the path's.
+kernel's variants), the first copy in address order is the path's, with the
+loads inside it (the 64-slot min-sum instance re-reads its row table there)
+and not those of the other copies.
 
 The issue bound of a launch is its warp instructions over the card's issue
 rate: ``threads × path / 32`` over ``SMs × 4 × SM clock`` (four warp
@@ -130,12 +132,14 @@ class Kernel:
                     loads: bool = False) -> int:
         """Instructions on the shortest path from the entry to an EXIT
         (counted) through the first ``stores`` global stores (all if None)
-        and, with ``loads``, every global load, in address order."""
+        and, with ``loads``, every global load placed before the last of
+        them, in address order."""
         stops = sorted(self._ops(STORES))[:stores]
         if not stops:
             raise ValueError(f"{self.name}: no global store")
         if loads:
-            stops = sorted(stops + sorted(self._ops(LOADS)))
+            stops = sorted(stops + [i for i in self._ops(LOADS)
+                                    if i < stops[-1]])
         total, at = 0, 0
         for s in stops + [None]:
             goal = {s} if s is not None else self._ops({"EXIT"})

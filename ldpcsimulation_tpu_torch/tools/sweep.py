@@ -11,15 +11,22 @@ Examples (one H100):
     python -m ldpcsimulation_tpu_torch.tools.sweep minsum \\
         --code qc_1008_504 --snr 2.0 -T 10 --msg-dtype f16 \\
         --batch 32768 --log ms.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep offsetminsum \\
+        --code wifi_1944_972 --snr 1.5:2.5:0.5 -T 10 --ymax 2.0 --nq 8 \\
+        --delta 0.15 --batch 32768 --log oms.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep minsum --alist H.alist \\
+        --snr 2.0 -T 10 --batch 32768 --log h.log
     python -m ldpcsimulation_tpu_torch.tools.sweep gdbf --preset SMNGDBF \\
         --code qc_1008_504 --snr 3.0:3.5:0.25 -T 300 --theta -0.9 \\
         --noise-scale 0.975 --lam 0.988 --alpha 0.75 --window 64 \\
         --ymax 2.5 --batch 32768 --log smngdbf.log
 
-Ported so far: plain min-sum on the named QC codes (flooding schedule),
-and the GDBF/NGDBF presets on every named code (QC codes take the
-row-gather graph operations).  The other decoders and drivers exit with
-an error naming their ROADMAP item.
+Ported so far: the min-sum family (plain, offset and normalized, the
+fixed-point variants on ``quantize_no_zero`` samples; flooding schedule)
+and the GDBF/NGDBF presets, on every named code and on ``--alist`` files.
+QC codes (named, or detected in an alist in natural order) take the QC
+decoder and the QC graph operations, the others the slot-array ones.  The
+other decoders and drivers exit with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,10 +39,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..channel import quantize_round, saturate, snr_to_sigma
+from ..channel import quantize_no_zero, quantize_round, saturate, snr_to_sigma
+from ..codes.alist import load_alist
+from ..codes.code import build_code
 from ..codes.library import NAMED_CODES, load_named_code, load_named_qc
+from ..codes.qc_detect import detect_qc
 from ..decoders.base import syndrome_from_hard
 from ..decoders.gdbf import PRESETS, decode_gdbf, preset
+from ..decoders.minsum import decode_minsum
 from ..decoders.minsum_qc import decode_minsum_qc, qc_check_satisfied
 from ..harness import (
     StopRule,
@@ -50,11 +61,12 @@ from ..harness.fixtures import load_codeword_file
 
 __all__ = ["main", "build_parser"]
 
+#: min-sum decoders -> their variant
+_MINSUM = {"minsum": "plain", "offsetminsum": "offset",
+           "normalizedminsum": "normalized"}
 #: decoders of the JAX CLI that are not ported yet -> their ROADMAP item
 _NOT_PORTED = {
     "bp": "A8",
-    "offsetminsum": "S4 (quantized min-sum routes)",
-    "normalizedminsum": "S4 (quantized min-sum routes)",
     "ddbmp": "A11",
     "ngdbfhw": "A11",
     "nbqspa": "A12",
@@ -100,9 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("decoder",
-                   choices=["minsum", "gdbf", *sorted(_NOT_PORTED)])
-    p.add_argument("--code", required=True, choices=sorted(NAMED_CODES),
-                   help="named code (min-sum takes the QC codes)")
+                   choices=[*_MINSUM, "gdbf", *sorted(_NOT_PORTED)])
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--code", choices=sorted(NAMED_CODES), help="named code")
+    src.add_argument("--alist", help="path to an alist file (binary)")
     p.add_argument("--schedule", choices=["flooding", "layered"],
                    default="flooding")
     p.add_argument("--distributed", action="store_true",
@@ -130,9 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", action="store_true")
     # grid parameters (each list is one axis of the grid)
     p.add_argument("--ymax", type=float, nargs="+", default=[None],
-                   help="gdbf: saturate at ±Ymax")
+                   help="saturation/quantizer range ±Ymax")
     p.add_argument("--nq", type=float, nargs="+", default=[None],
-                   help="gdbf: quantizer bits")
+                   help="quantizer levels (min-sum) or bits (gdbf)")
     p.add_argument("--alpha", type=float, nargs="+", default=[None])
     p.add_argument("--delta", type=float, nargs="+", default=[None])
     p.add_argument("--theta", type=float, nargs="+", default=[None])
@@ -165,7 +178,7 @@ def _refuse_unported(args) -> None:
 
     if args.decoder in _NOT_PORTED:
         no(f"decoder {args.decoder!r}", _NOT_PORTED[args.decoder])
-    if args.schedule == "layered" and args.decoder == "minsum":
+    if args.schedule == "layered" and args.decoder in _MINSUM:
         no("--schedule layered", "A9")
     if args.stream:
         no("--stream", "A10")
@@ -182,17 +195,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "sweep: error: --device cuda, but no CUDA device is available "
             "(pass --device cpu to run the plain PyTorch path)"
         )
-    qc = None
-    try:
-        qc = load_named_qc(args.code)
-    except KeyError:
-        if args.decoder == "minsum":
-            raise SystemExit(
-                f"sweep: error: {args.code} has no QC structure; min-sum on "
-                "slot-array codes is not ported yet (ROADMAP A7)"
-            )
-    code = (qc.to_code(device) if qc is not None
-            else load_named_code(args.code, device))
+    code, qc, alist_name = _load_code(args, device)
     rate = args.rate if args.rate is not None else code.rate
     codewords = (
         load_codeword_file(args.codewords, n=code.n)
@@ -271,16 +274,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 file=sys.stderr,
             )
             continue
-        if args.decoder == "minsum":
-            sdt = torch.float16 if args.msg_dtype == "f16" else None
-            stats = run_point(snr, lambda y, key: decode_minsum_qc(
-                qc, y, T, early_termination=args.early_termination,
-                storage_dtype=sdt,
-            ))
-            row = minsum_log_row(snr, stats, T, args.code)
+        if args.decoder in _MINSUM:
+            stats, row = _minsum_point(args, code, qc, alist_name, run_point,
+                                       T, point)
         else:
-            stats, row = _gdbf_point(args, code, qc, rate, run_point, T,
-                                     point)
+            stats, row = _gdbf_point(args, code, qc, alist_name, rate,
+                                     run_point, T, point)
         append_row(args.log, row)
         _mark_done(args.log, gkey)
         print(
@@ -292,7 +291,68 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-def _gdbf_point(args, code, qc, rate, run_point, T, point):
+def _load_code(args, device):
+    """(code, QC structure or None, the log rows' code name) of --code or
+    --alist.  A named code takes its registered QC structure; an alist whose
+    H is QC in natural order (rows and columns unpermuted) takes the
+    detected one, as the JAX CLI routes it."""
+    if args.code:
+        try:
+            qc = load_named_qc(args.code)
+        except KeyError:
+            return load_named_code(args.code, device), None, args.code
+        return qc.to_code(device), qc, args.code
+    alist = load_alist(args.alist)
+    if alist.q > 2:
+        raise SystemExit(
+            "sweep: error: non-binary alists are not ported yet (ROADMAP A12)"
+        )
+    code = build_code(alist, device)
+    det = detect_qc(alist)
+    if (det is None or (det.col_perm != np.arange(code.n)).any()
+            or (det.row_perm != np.arange(code.m)).any()):
+        return code, None, args.alist
+    print(
+        f"sweep: detected QC structure z={det.qc.z} "
+        f"({det.qc.mb}x{det.qc.nb} base) — using roll decoders",
+        file=sys.stderr,
+    )
+    return code, det.qc, args.alist
+
+
+def _minsum_point(args, code, qc, alist_name, run_point, T, point):
+    """One grid point of a min-sum route: the fixed-point variants decode
+    ``quantize_no_zero`` samples (Ymax 2.0 and 8 levels unless given), and
+    their rows carry Ymax and alpha or delta, as the JAX CLI's do."""
+    (snr, ymax, nq, alpha, delta, *_rest) = point
+    variant = _MINSUM[args.decoder]
+    pre = None
+    if variant != "plain":
+        ym = ymax if ymax is not None else 2.0
+        nql = nq if nq is not None else 8.0
+        pre = lambda y: quantize_no_zero(y, ym, nql)  # noqa: E731
+    kw = dict(
+        variant=variant,
+        alpha=alpha if alpha is not None else 1.0,
+        delta=delta if delta is not None else 0.0,
+        early_termination=args.early_termination,
+        storage_dtype=torch.float16 if args.msg_dtype == "f16" else None,
+    )
+    if qc is not None:
+        dec = lambda y, key: decode_minsum_qc(qc, y, T, **kw)  # noqa: E731
+    else:
+        dec = lambda y, key: decode_minsum(code, y, T, **kw)  # noqa: E731
+    stats = run_point(snr, dec, preprocess=pre)
+    row = minsum_log_row(
+        snr, stats, T, alist_name,
+        ymax=ymax if variant != "plain" else None,
+        alpha=alpha if variant == "normalized" else None,
+        delta=delta if variant == "offset" else None,
+    )
+    return stats, row
+
+
+def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point):
     """One grid point of the GDBF route: the JAX CLI's defaults (theta
     −0.9, quantizer Ymax 2.25 when only --nq is given), preprocessing
     (saturate, then quantize) and row fields."""
@@ -330,7 +390,7 @@ def _gdbf_point(args, code, qc, rate, run_point, T, point):
         preprocess=pre,
     )
     row = gdbf_log_row(
-        snr, stats, T, cfg.theta, args.code,
+        snr, stats, T, cfg.theta, alist_name,
         noise_scale=(cfg.noise_scale
                      if cfg.add_noise or cfg.quantize_probabilities
                      else None),

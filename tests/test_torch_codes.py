@@ -116,11 +116,20 @@ def test_code_tensors_on_requested_device():
 
 
 def test_unported_paths_raise_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        peg(40, 20, 3, backend="native")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        peg(4000, 2000, 3)  # the JAX package builds this natively
-    with pytest.raises(KeyError, match="ROADMAP"):
-        load_named_code("dvbs2_1_2")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        load_named_qc("wifi_1944_972")
+    """The paths that raised before the native PEG and the standard tables
+    were ported now build the JAX package's codes; what is left to refuse
+    names what there is."""
+    from ldpcsimulation_tpu.codes import construct as jcon
+
+    assert _alist_fields(peg(40, 20, 3, backend="native")) == _alist_fields(
+        jcon.peg(40, 20, 3, backend="native"))
+    assert _alist_fields(peg(4000, 2000, 3)) == _alist_fields(
+        jcon.peg(4000, 2000, 3))
+    assert load_named_code("dvbs2_1_2").n == 64800
+    assert load_named_qc("wifi_1944_972").z == 81
+    with pytest.raises(KeyError, match="have \\["):
+        load_named_code("dvbs2_1_3")
+    with pytest.raises(KeyError, match="no QC structure"):
+        load_named_qc("peg_1008_504")
+    with pytest.raises(ValueError, match="backend"):
+        peg(40, 20, 3, backend="fortran")

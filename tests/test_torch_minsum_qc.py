@@ -265,6 +265,7 @@ def test_decode_zero_iterations_and_guards(small_qcs):
     qc = QCCode.from_reference(jqc)
     with pytest.raises(ValueError, match="columns"):
         decode_minsum_qc(qc, torch.from_numpy(y[:, :-1]), 3)
-    pair = jqc_mod.build_qc_code_edges([(0, 0, 1), (0, 0, 3), (1, 1, 0)], 8, 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_minsum_qc(QCCode.from_reference(pair), torch.zeros(2, 16), 3)
+    triple = jqc_mod.build_qc_code_edges(
+        [(0, 0, 1), (0, 0, 3), (0, 0, 5), (1, 1, 0)], 8, 2, 2)
+    with pytest.raises(NotImplementedError, match=">2 circulants"):
+        decode_minsum_qc(QCCode.from_reference(triple), torch.zeros(2, 16), 3)

@@ -84,6 +84,30 @@ def test_uniform_predicate_branch_is_conditional():
     assert k._shortest(0, k._ops({"EXIT"})) == 3
 
 
+def test_loads_of_other_store_copies_are_not_on_the_path():
+    """A run-time branch picks one of two copies, each loading then
+    storing: the path takes the first copy's load and store and skips the
+    second copy, loads included."""
+    text = HEADER + """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E R2, [R4.64] ;
+        /*0020*/                   ISETP.NE.AND P0, PT, R0, 0x1, PT ;
+        /*0030*/               @P0 BRA 0x70 ;
+        /*0040*/                   LDG.E R3, [R6.64] ;
+        /*0050*/                   STG.E [R8.64], R3 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   LDG.E R3, [R6.64+0x4] ;
+        /*0080*/                   FADD R3, R3, R2 ;
+        /*0090*/                   STG.E [R8.64], R3 ;
+        /*00a0*/                   EXIT ;
+"""
+    k = sc.find(sc.parse(text), "demo")
+    assert k.path_length(stores=1, loads=True) == 7  # 0000 to 0060
+    assert k.path_length(stores=1) == 7
+    with pytest.raises(ValueError, match="no path"):
+        k.path_length(loads=True)  # both stores: not on one path
+
+
 def test_issue_bound_and_lookup():
     # 132 SMs x 4 warp instructions per clock at 1000 MHz: 528e9 per second
     assert sc.issue_ms(32 * 528, 1_000_000, 1000.0) == pytest.approx(1.0)

@@ -1,6 +1,6 @@
-"""The port's sweep CLI: the min-sum and GDBF routes write the JAX CLI's
-row format and resume keys; everything not ported exits naming its ROADMAP
-item."""
+"""The port's sweep CLI: the min-sum routes (plain, offset, normalized; named
+codes and --alist files) and the GDBF route write the JAX CLI's row format
+and resume keys; everything not ported exits naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -99,7 +99,7 @@ def test_unported_options_name_roadmap_item(tmp_path, extra, item):
 
 @pytest.mark.parametrize("decoder,item", [
     ("bp", "A8"), ("ddbmp", "A11"), ("nbqspa", "A12"),
-    ("offsetminsum", "S4"),
+    ("ngdbfhw", "A11"),
 ])
 def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
@@ -140,14 +140,89 @@ def test_gdbf_rows_and_keys_equal_jax_cli(tmp_path, args, smoothing):
     assert len(_rows(jlog)) == len(jrows)
 
 
+def _assert_rows_and_keys_equal(tmp_path, common, stats=(1, 3)):
+    """Same grid through both CLIs: the same rows column for column apart
+    from the Monte-Carlo statistics (other noise), the same resume keys."""
+    plog, jlog = tmp_path / "p.log", tmp_path / "j.log"
+    assert main(common + ["--device", "cpu", "--log", str(plog)]) == 0
+    assert jax_main(common + ["--log", str(jlog)]) == 0
+    prows, jrows = _rows(plog), _rows(jlog)
+    assert len(prows) == len(jrows) >= 1
+    for p, j in zip(prows, jrows):
+        assert len(p) == len(j)
+        assert [v for i, v in enumerate(p) if i not in stats] == [
+            v for i, v in enumerate(j) if i not in stats]
+        assert 0.0 <= float(p[1]) <= 0.5
+    assert (tmp_path / "p.log.done").read_text() == (
+        (tmp_path / "j.log.done").read_text())
+    return prows
+
+
 def test_non_qc_code_and_missing_cuda(tmp_path, monkeypatch):
+    """A code without QC structure takes the slot-array decoder, with the
+    JAX CLI's row and resume key; without a card the CLI exits."""
     args = ["minsum", "--code", "peg_96_48", "-T", "2", "--snr", "2.0",
-            "--device", "cpu", "--log", str(tmp_path / "x")]
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
-        main(args)
+            "--batch", "32", "--max-frames", "32"]
+    (row,) = _assert_rows_and_keys_equal(tmp_path, args)
+    assert row[2] == "2" and row[-1] == "peg_96_48" and len(row) == 6
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
-        main(args[:-4] + ["--log", str(tmp_path / "x")])
+        main(args + ["--log", str(tmp_path / "x")])
+
+
+@pytest.mark.parametrize("args,width", [
+    (["offsetminsum", "--code", "wifi_1944_972", "--ymax", "2.0", "--nq",
+      "8", "--delta", "0.15"], 8),
+    (["normalizedminsum", "--code", "peg_1008_504", "--alpha", "1.25",
+      "0.8"], 7),
+    (["offsetminsum", "--code", "qc_1008_504", "--msg-dtype", "f16",
+      "--early-termination"], 6),
+    (["normalizedminsum", "--code", "peg_96_48", "--ymax", "1.5", "2.5",
+      "--nq", "16"], 7),
+])
+def test_quantized_minsum_rows_and_keys_equal_jax_cli(tmp_path, args, width):
+    """The fixed-point routes decode quantize_no_zero samples (Ymax 2.0
+    and 8 levels unless given) and write Ymax and alpha or delta in their
+    rows (each only when given), as the JAX CLI does; named QC codes take
+    the QC decoder, the others the slot-array one."""
+    common = args + ["-T", "4", "--snr", "2.0", "--batch", "32",
+                     "--max-frames", "32"]
+    et = "--early-termination" in args
+    rows = _assert_rows_and_keys_equal(tmp_path, common,
+                                       stats=(1, 2, 3) if et else (1, 3))
+    assert all(len(r) == width for r in rows)
+
+
+def test_alist_routes_detected_qc_and_generic(tmp_path, capsys):
+    """--alist: a QC matrix in natural order is detected and takes the QC
+    decoder (the JAX CLI's stderr note), with the JAX CLI's row; an
+    unstructured one takes the slot-array decoder."""
+    from ldpcsimulation_tpu_torch.codes import (
+        code_to_alist,
+        load_named_code,
+        save_alist,
+    )
+
+    qc_path = tmp_path / "qc.alist"
+    save_alist(code_to_alist(load_named_code("qc_1008_504")), str(qc_path))
+    common = ["minsum", "--alist", str(qc_path), "-T", "5", "--snr", "2.0",
+              "--batch", "32", "--max-frames", "32"]
+    (row,) = _assert_rows_and_keys_equal(tmp_path, common)
+    assert row[-1] == str(qc_path)
+    err = capsys.readouterr().err
+    assert err.count("detected QC structure z=84 (6x12 base)") == 2
+    peg_path = tmp_path / "peg.alist"
+    save_alist(code_to_alist(load_named_code("peg_96_48")), str(peg_path))
+    log = tmp_path / "g.log"
+    assert main(["offsetminsum", "--alist", str(peg_path), "-T", "3",
+                 "--snr", "2.0", "--batch", "16", "--max-frames", "16",
+                 "--device", "cpu", "--log", str(log)]) == 0
+    assert "detected" not in capsys.readouterr().err
+    (grow,) = _rows(log)
+    assert grow[2] == "3" and grow[-1] == str(peg_path) and len(grow) == 6
+    with pytest.raises(SystemExit):
+        main(["minsum", "--alist", str(peg_path), "--code", "peg_96_48",
+              "-T", "3", "--snr", "2.0", "--log", str(log)])
 
 
 def test_parse_snr():
