@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, checks each
-against its plain PyTorch twin on the card, drives the min-sum main path
-and the SMNGDBF bit-flip path at full width, and measures every kernel
-against its bounds.
+against its plain PyTorch twin on the card, drives the min-sum main path,
+the SMNGDBF bit-flip path and the BP, layered and DD-BMP paths at full
+width, and measures every kernel against its bounds.
 
     python3 chip_smoke.py
 
@@ -67,7 +67,7 @@ the exit code is non-zero):
  15. the card against the CPU plain path, bit for bit, on the card's
      samples: ``decode_minsum`` on peg_1008_504, ``decode_minsum_qc`` on
      dvbs2_1_2_qc and wifi_1944_972 (the offset variant on
-     ``quantize_no_zero`` samples), 256 frames each, T=10;
+     ``quantize_no_zero`` samples), 256 frames each (dvbs2_1_2_qc 64), T=10;
  16. the slice's path at full width: ``simulate`` with ``decode_minsum`` on
      peg_1008_504 at 2.0 dB, T=10, f16 storage, 4 batches of 32768 frames
      after a warm-up, counters reset just before and read just after — BER
@@ -78,7 +78,36 @@ the exit code is non-zero):
  17. the sweep CLI's new routes for one point each: ``--alist`` on a
      temporary alist of qc_1008_504 (the "detected QC" note),
      ``offsetminsum`` on wifi_1944_972 and ``normalizedminsum`` on
-     peg_1008_504.
+     peg_1008_504;
+ 18. the row-layered min-sum decoder and DD-BMP on the card against the CPU
+     plain path under ``torch.equal`` on hard decisions, iterations and
+     flags: layered min-sum on qc_1008_504 (plain, f16; 256 frames),
+     wifi_1944_972 (normalized; 256) and dvbs2_1_2_qc (offset, on
+     ``quantize_no_zero`` samples; 32), with B1 counted Mb times per executed
+     iteration and never its twin; DD-BMP on qc_1008_504 (QC form; 256) and
+     reg4_4000_2000 (generic, T=100; 64);
+ 19. sum-product BP on the card against the CPU plain path, by tolerance
+     (CUDA's ``exp``/``log`` differ from the CPU's by ulps): one check update
+     each of ``bp_cn_update``, ``qc_cn_bp`` and ``qc_bp_layered_step`` within
+     ``BP_RTOL``/``BP_ATOL``, and T=20 decodes of 256 frames (slot-array, QC
+     with f16 storage and early termination, layered) agreeing in at least
+     ``BP_FRAME_AGREEMENT`` of the frames;
+ 20. kernel B1 at a layer's shape (one base row of qc_1008_504,
+     wifi_1944_972 and dvbs2_1_2_qc; f32, tied samples, all three variants)
+     against its twin under ``torch.equal``, with its time per launch and its
+     bounds;
+ 21. ``simulate`` at full width (B=32768), counters reset just before and
+     read just after, each gated within 4 joint standard errors of the JAX
+     package's CPU run at the same point (``tests/jax_reference_stats.py``):
+     (a) ``decode_bp`` on peg_1008_504 at 1.6 dB, T=20, f32; (b)
+     ``decode_bp_qc`` on qc_1008_504 at 2.0 dB, T=20, early termination, f16;
+     (c) ``decode_minsum_layered_qc`` on wifi_1944_972 at 2.0 dB, T=10, early
+     termination, with flooding min-sum beside it (both BERs and average
+     iterations), B1 launched Mb per executed iteration; (d) ``decode_ddbmp``
+     on reg4_4000_2000 at 3.9 dB, Ymax 1.6, 8 levels, T=100; decoded info
+     bits/s, ms per iteration, peak memory and a breakdown for each;
+ 22. the sweep CLI's ``bp``, ``bp --schedule layered``, ``minsum --schedule
+     layered`` and ``ddbmp`` routes, one point each.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -92,6 +121,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -134,10 +164,50 @@ DVBS2_CODE = "dvbs2_1_2_qc"
 DVBS2_BATCH = 8192
 DVBS2_SNR_DB = 2.5
 
+# The BP, layered and DD-BMP paths [21].  The JAX package's CPU runs at the
+# same points (seed 0, ``python -m tests.jax_reference_stats <point>``; the
+# frame counts are chosen so that each run takes a few minutes at most on the
+# CPU: 131072 for the BP points, 65536 for the layered one, 16384 for
+# DD-BMP): (value, standard error).
+JAX_POINTS = dict(
+    bp_peg=dict(  # 131072 frames
+        ber=(0.01319847409687345, 7.337482435187254e-05),
+        fer=(0.2583160400390625, 0.0012090107639789614)),
+    bp_qc=dict(  # 131072 frames
+        ber=(0.0020970541333395335, 3.0072514725982847e-05),
+        fer=(0.05408477783203125, 0.0006247534586913568),
+        avg_iterations=(9.926643371582031, 0.010502526341304346)),
+    minsum_layered_wifi=dict(  # 65536 frames
+        ber=(0.002326400191695602, 5.787675797763303e-05),
+        fer=(0.0540618896484375, 0.0008833585297688832),
+        avg_iterations=(6.363555908203125, 0.0064888559138918875)),
+    ddbmp_reg4=dict(  # 16384 frames
+        ber=(0.00205279541015625, 6.742019045496297e-05),
+        fer=(0.17010498046875, 0.002935351567318561),
+        avg_iterations=(50.1552734375, 0.22792395690114237)),
+)
+WIFI_CODE = "wifi_1944_972"
+REG4_CODE = "reg4_4000_2000"
+# BP on the card against the CPU: |card - cpu| <= BP_ATOL + BP_RTOL * |cpu| on
+# every output of one check update (messages within +-20; CUDA's exp and log
+# are a few ulps from the CPU's, and the log of a ratio near 1 turns an ulp
+# of the ratio into ~1e-7 absolute), and the share of frames whose T=20
+# decisions must agree in every bit.
+BP_RTOL, BP_ATOL = 2e-5, 2e-5
+BP_FRAME_AGREEMENT = 0.97
+
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and FP32 vector rate).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SMS = 132
+
+
+START = time.perf_counter()
+
+
+def header(text: str) -> None:
+    """A phase's first line, with the seconds since the script started."""
+    print(f"{text}  (+{time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -884,9 +954,10 @@ def phase_b1_forms(device, lib_path, timer):
     return out, max_err
 
 
-def phase_card_vs_cpu(device, frames=256):
+def phase_card_vs_cpu(device):
     """The slot-array and generalized QC decodes on the card against the
-    CPU plain path, bit for bit, on the card's channel samples."""
+    CPU plain path, bit for bit, on the card's channel samples (256 frames;
+    64 on dvbs2_1_2_qc, whose CPU side is the slow one)."""
     from ldpcsimulation_tpu_torch.channel import (
         awgn_all_zero,
         quantize_no_zero,
@@ -911,6 +982,7 @@ def phase_card_vs_cpu(device, frames=256):
         ("wifi_1944_972", True, 2.5, False, {}),
     )
     for name, is_qc, snr, quantized, kw in cases:
+        frames = 64 if name == DVBS2_CODE else 256
         if is_qc:
             qc = load_named_qc(name)
             n, rate = qc.n, (qc.n - qc.m) / qc.n
@@ -1129,6 +1201,466 @@ def phase_minsum_sweep(device, batch):
     return rows, launches
 
 
+def equal_results(res, ref, what):
+    for f in ("hard", "iterations", "satisfied"):
+        check(torch.equal(getattr(res, f).cpu(), getattr(ref, f)),
+              f"{what} {f}: card != CPU plain path")
+
+
+def phase_layered_ddbmp_card_vs_cpu(device):
+    """Layered min-sum and DD-BMP on the card against the CPU plain path,
+    bit for bit, on the card's channel samples; layered min-sum launches B1
+    once per layer and executed iteration.  The two cases whose CPU side is
+    slow run fewer frames (dvbs2_1_2_qc 32, reg4_4000_2000 at T=100 64), the
+    others 256.  Returns B1's counted launches per layered decode."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        quantize_no_zero,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_ddbmp,
+        decode_ddbmp_qc,
+        decode_minsum_layered_qc,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    f16 = torch.float16
+    layered = (
+        (CODE, 256, 2.0, None, dict(storage_dtype=f16)),
+        (CODE, 256, 2.0, None, dict(storage_dtype=f16,
+                                    early_termination=True)),
+        (WIFI_CODE, 256, 2.0, None, dict(variant="normalized", alpha=1.25)),
+        (DVBS2_CODE, 32, DVBS2_SNR_DB, (2.0, 8.0), dict(
+            variant="offset", delta=0.15, storage_dtype=f16)),
+    )
+    counted = {}
+    for name, frames, snr, quant, kw in layered:
+        qc = load_named_qc(name)
+        y = awgn_all_zero(SEED, 19 * frames, frames, qc.n,
+                          snr_to_sigma(snr, (qc.n - qc.m) / qc.n), device)
+        if quant:
+            y = quantize_no_zero(y, *quant)
+        build.LAUNCHES.clear()
+        res = decode_minsum_layered_qc(qc, y, T, **kw)
+        launched = dict(build.LAUNCHES)
+        ref = decode_minsum_layered_qc(qc, y.cpu(), T, **kw)
+        check(dict(build.LAUNCHES) == launched, "the CPU decode launched B1")
+        equal_results(res, ref, f"layered min-sum {name} {kw}")
+        rounds = int(res.iterations.max())
+        check(launched == {"minsum_cn_scan": qc.mb * rounds},
+              f"layered {name}: launches {launched}, {qc.mb} layers x "
+              f"{rounds} iterations")
+        et = " ET" if kw.get("early_termination") else ""
+        counted[f"{name}{et}, one decode of {frames} frames"] = launched[
+            "minsum_cn_scan"]
+        print(f"  layered min-sum {name} {kw}: card == CPU for {frames} "
+              f"frames, T={T}; satisfied "
+              f"{float(res.satisfied.float().mean()):.3g}, mean iterations "
+              f"{float(res.iterations.float().mean()):.3g}; B1 launches "
+              f"{qc.mb * rounds} = {qc.mb} layers x {rounds}")
+    for name, is_qc, frames, snr, ymax, t_max in (
+            (CODE, True, 256, 3.5, 1.5, 50),
+            (REG4_CODE, False, 64, 3.9, 1.6, 100)):
+        if is_qc:
+            qc = load_named_qc(name)
+            n, rate = qc.n, (qc.n - qc.m) / qc.n
+            dec = lambda y: decode_ddbmp_qc(qc, y, t_max)  # noqa: E731
+        else:
+            code = load_named_code(name)
+            n, rate = code.n, code.rate
+            dec = lambda y: decode_ddbmp(code, y, t_max)  # noqa: E731
+        y = quantize_no_zero(
+            awgn_all_zero(SEED, 23 * frames, frames, n,
+                          snr_to_sigma(snr, rate), device), ymax, 8.0)
+        res, ref = dec(y), dec(y.cpu())
+        equal_results(res, ref, f"DD-BMP {name}")
+        print(f"  DD-BMP {name} {'QC' if is_qc else 'slot-array'} T={t_max}: "
+              f"card == CPU for {frames} frames; satisfied "
+              f"{float(res.satisfied.float().mean()):.3g}, mean break index "
+              f"{float(res.iterations.float().mean()):.4g}")
+    return counted
+
+
+def phase_bp_card_vs_cpu(device, frames=256):
+    """BP on the card against the CPU plain path: one check update of each
+    form within BP_RTOL/BP_ATOL, T=20 decodes by frame agreement.  Returns
+    the agreement rates seen."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import (
+        bp_cn_update,
+        decode_bp,
+        decode_bp_layered_qc,
+        decode_bp_qc,
+        qc_bp_layered_step,
+        qc_cn_bp,
+        qc_plan,
+    )
+
+    def close(got, want, what):
+        got = got.cpu()
+        err = (got - want).abs()
+        worst = float((err - BP_RTOL * want.abs()).max())
+        check(bool(torch.isfinite(got).all()) and worst <= BP_ATOL,
+              f"{what}: card outside {BP_ATOL} + {BP_RTOL}|cpu| by {worst}")
+        return float(err.max())
+
+    gen = torch.Generator().manual_seed(19)
+    code = load_named_code(PEG_CODE)
+    v2c = torch.clamp(1.0 + 6.0 * torch.randn(
+        code.n * code.dv_max, frames, generator=gen), -20, 20)
+    v2c[torch.rand(v2c.shape, generator=gen) < 0.02] = 0.0
+    err = close(bp_cn_update(code.to(device), v2c.to(device)),
+                bp_cn_update(code, v2c), "bp_cn_update")
+    print(f"  bp_cn_update {PEG_CODE} [{v2c.shape[0]} x {frames}]: max |card "
+          f"- cpu| {err:.3g}")
+    for name in (CODE, DVBS2_CODE):
+        qc = load_named_qc(name)
+        b = frames if name == CODE else 16
+        planes = torch.clamp(1.0 + 6.0 * torch.randn(
+            qc_plan(qc, "cpu").num_planes * qc.z, b, generator=gen), -20, 20)
+        err = close(qc_cn_bp(qc, planes.to(device).half()),
+                    qc_cn_bp(qc, planes.half()), f"qc_cn_bp {name}")
+        print(f"  qc_cn_bp {name} f16 planes [{planes.shape[0]} x {b}]: max "
+              f"|card - cpu| {err:.3g}")
+    qc = load_named_qc(WIFI_CODE)
+    plan = qc_plan(qc, "cpu")
+    q = 2.0 + 12.0 * torch.randn(qc.n, frames, generator=gen)
+    L = tuple(3.0 * torch.randn(lp.dc * qc.z, frames, generator=gen)
+              for lp in plan.layers)
+    step = qc_bp_layered_step(qc)
+    (q_d, L_d), _ = step((q.to(device), tuple(x.to(device) for x in L)))
+    (q_c, L_c), _ = step((q, L))
+    err = max([close(q_d, q_c, "layered BP posterior")] + [
+        close(a, b, f"layered BP layer {i}")
+        for i, (a, b) in enumerate(zip(L_d, L_c))])
+    print(f"  qc_bp_layered_step {WIFI_CODE} (posteriors up to +-"
+          f"{float(q.abs().max()):.0f}): max |card - cpu| {err:.3g} over the "
+          f"posterior and {len(L)} layers' messages")
+
+    seen = {}
+    qc1 = load_named_qc(CODE)
+    cases = (
+        ("decode_bp", PEG_CODE, 1.6, code.n, code.rate,
+         lambda llr: decode_bp(code, llr, 20)),
+        ("decode_bp_qc", CODE, 2.0, qc1.n, 0.5,
+         lambda llr: decode_bp_qc(qc1, llr, 20, early_termination=True,
+                                  storage_dtype=torch.float16)),
+        ("decode_bp_layered_qc", WIFI_CODE, 1.5, qc.n, 0.5,
+         lambda llr: decode_bp_layered_qc(qc, llr, 20,
+                                          early_termination=True)),
+    )
+    for fn, name, snr, n, rate, dec in cases:
+        y = awgn_all_zero(SEED, 29 * frames, frames, n,
+                          snr_to_sigma(snr, rate), device)
+        llr = llr_from_channel(y, snr_to_n0(snr, rate))
+        res, ref = dec(llr), dec(llr.cpu())
+        same = float((res.hard.cpu() == ref.hard).all(dim=1).float().mean())
+        its = float((res.iterations.cpu() == ref.iterations).float().mean())
+        seen[fn] = dict(frames_equal=same, iterations_equal=its)
+        print(f"  {fn} {name} {snr} dB T=20: {same:.4f} of {frames} frames "
+              f"equal the CPU's in every decision, {its:.4f} in the iteration"
+              f" count (gate {BP_FRAME_AGREEMENT}); satisfied "
+              f"{float(res.satisfied.float().mean()):.3g}")
+        check(min(same, its) >= BP_FRAME_AGREEMENT,
+              f"{fn}: card and CPU agree on {same}, {its} of the frames")
+    return seen
+
+
+def phase_b1_layer(device, lib_path, timer):
+    """Kernel B1 at a layer's shape against its twin, with its time per
+    launch and its bounds."""
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import qc_plan
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        minsum_cn_scan,
+        minsum_cn_scan_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    _, top = sm_clocks()
+    kernels = sass_count.parse(sass_count.disassemble(lib_path))
+    gen = torch.Generator(device=device).manual_seed(20)
+    kw = {"plain": {}, "normalized": {"alpha": 1.25},
+          "offset": {"delta": 0.15}}
+    out, max_err = {}, 0.0
+    for name, batch in ((CODE, BATCH), (WIFI_CODE, BATCH),
+                        (DVBS2_CODE, DVBS2_BATCH)):
+        qc = load_named_qc(name)
+        layers = qc_plan(qc, device).layers
+        # the widest layer, and one with an absent edge where the code has one
+        picks = {max(range(qc.mb), key=lambda bi: layers[bi].dc)}
+        picks |= {bi for bi in range(qc.mb) if layers[bi].absent is not None}
+        for bi in sorted(picks):
+            lp = layers[bi]
+            rows = lp.dc * qc.z
+            qext = tied_messages(gen, rows, batch, torch.float32, device)
+            named = lp.scan_rows[lp.scan_rows >= 0].long()
+            for variant in kw:
+                got = minsum_cn_scan(qext, lp.scan_rows, variant,
+                                     **kw[variant])[named]
+                want = minsum_cn_scan_plain(qext, lp.scan_rows, variant,
+                                            **kw[variant])[named]
+                max_err = max(max_err, float((got - want).abs().max()))
+                check(torch.equal(got, want),
+                      f"B1 layer {name}[{bi}] {variant}: kernel != plain")
+            ms = timer(lambda: minsum_cn_scan(qext, lp.scan_rows), 50)
+            plain_ms = timer(
+                lambda: minsum_cn_scan_plain(qext, lp.scan_rows), 3)
+            nbytes = named.numel() * batch * 8 + lp.scan_rows.numel() * 4
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            issue, path, maxdc = b1_issue(kernels, lp.scan_rows, batch,
+                                          torch.float32, top)
+            out[f"{name} layer {bi}"] = dict(
+                shape=[rows, batch], checks=qc.z, dc=lp.dc, instance=maxdc,
+                absent=0 if lp.absent is None else int(lp.absent.numel()),
+                ms=ms, plain_ms=plain_ms, bytes=nbytes, memory_ms=mem_ms,
+                issue_ms=issue, sass_path=path, memory_share=mem_ms / ms,
+            )
+            print(f"  B1 {name} layer {bi} [{rows} x {batch}] f32, {qc.z} "
+                  f"checks x {lp.dc} slots"
+                  f"{'' if lp.absent is None else ', one absent edge'}: "
+                  f"equal (3 variants, tied); {ms:.4f} ms per launch, plain "
+                  f"{plain_ms:.4f} ms; memory {mem_ms:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), issue "
+                  f"{issue:.4f} ms ({path:.0f} SASS); a layered decode "
+                  f"launches it {qc.mb} times per executed iteration")
+            del qext
+    return out, max_err
+
+
+def gated_simulate(label, point, code, k_info, dec, rounds_of, snr, batches,
+                   device, preprocess=None, gate=True):
+    """One full-width ``simulate`` run after a warm-up batch: launch counters
+    reset just before and read just after, the statistics held within 4
+    joint standard errors of the JAX package's (``JAX_POINTS[point]``).
+    ``rounds_of(result)`` gives the update rounds a decode executed."""
+    from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    rounds = []
+
+    def counted(x, key):
+        res = dec(x, key)
+        rounds.append(rounds_of(res))
+        return res
+
+    def run(frames):
+        return simulate(code, counted, snr, stop=StopRule.fixed_frames(frames),
+                        batch_size=BATCH, seed=SEED, device=device,
+                        preprocess=preprocess)
+
+    run(BATCH)  # warm-up batch
+    torch.cuda.synchronize()
+    rounds.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    stats = run(batches * BATCH)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rate_bits = stats.total_words * k_info / stats.wall_seconds
+    ms_per_round = stats.wall_seconds * 1e3 / sum(rounds)
+    print(f"  {label}: BER {stats.ber!r} FER {stats.fer!r} avg iterations "
+          f"{stats.avg_iterations!r} over {stats.total_words} frames in "
+          f"{stats.wall_seconds:.4f} s: {rate_bits:.6g} decoded info bits/s; "
+          f"rounds per batch {rounds}, {ms_per_round:.3f} ms of wall per "
+          f"round; peak device memory {peak:.2f} GiB; launches {launches}")
+    check(launches.get("awgn_philox", 0) == batches, f"{label}: B2 {launches}")
+    got = mc_moments(stats, code.n)
+    for k, (want, want_se) in (JAX_POINTS[point].items() if gate else ()):
+        val, se = got[k]
+        bound = 4 * math.hypot(se, want_se)
+        print(f"  {k}: port {val:.6g} (se {se:.3g}), JAX {want:.6g} (se "
+              f"{want_se:.3g}), |diff| {abs(val - want):.3g} <= {bound:.3g}")
+        check(abs(val - want) <= bound, f"{label} {k} outside 4 joint s.e.")
+    return dict(
+        ber=stats.ber, fer=stats.fer, avg_iterations=stats.avg_iterations,
+        frames=stats.total_words, decoded_info_bits_per_s=rate_bits,
+        ms_per_round=ms_per_round, rounds=rounds, peak_gib=peak,
+        launches=launches,
+    )
+
+
+def phase_new_paths(device, timer):
+    """The BP, layered min-sum and DD-BMP paths at full width through
+    ``simulate``, each gated against the JAX package's statistics, with a
+    breakdown of each."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        quantize_no_zero,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import (
+        bp_cn_update,
+        bp_step,
+        decode_bp,
+        decode_bp_qc,
+        decode_ddbmp,
+        decode_minsum_layered_qc,
+        decode_minsum_qc,
+        layered_l0,
+        qc_bp_step,
+        qc_cn_bp,
+        qc_minsum_layered_step,
+        qc_minsum_step,
+        qc_ragged_init,
+    )
+
+    out = {}
+    f16 = torch.float16
+    fixed = lambda t: (lambda res: t)  # noqa: E731
+    until_done = lambda res: int(res.iterations.max())  # noqa: E731
+
+    def parts_of(label, parts):
+        for k, v in parts.items():
+            print(f"    {k:34s} {v:9.4f} ms")
+        out[label]["breakdown_ms"] = parts
+
+    # (a) slot-array BP
+    peg = load_named_code(PEG_CODE, device)
+    n0 = snr_to_n0(1.6, peg.rate)
+    out["bp_peg"] = gated_simulate(
+        f"(a) decode_bp {PEG_CODE} 1.6 dB T=20 f32", "bp_peg", peg, peg.k,
+        lambda llr, key: decode_bp(peg, llr, 20), fixed(20), 1.6, 4, device,
+        preprocess=lambda y: llr_from_channel(y, n0))
+    llr_t = llr_from_channel(awgn_all_zero(
+        SEED, 0, BATCH, peg.n, snr_to_sigma(1.6, peg.rate), device),
+        n0).t().contiguous()
+    v2c = llr_t.repeat_interleave(peg.dv_max, dim=0)
+    step = bp_step(peg)
+    parts_of("bp_peg", {
+        "check update (bp_cn_update)": timer(
+            lambda: bp_cn_update(peg, v2c), 3),
+        "iteration (check + variable)": timer(lambda: step(v2c, llr_t), 3),
+    })
+    del v2c, llr_t
+
+    # (b) QC BP, early termination, f16 storage
+    qc = load_named_qc(CODE)
+    code = qc.to_code(device)
+    n0 = snr_to_n0(2.0, 0.5)
+    out["bp_qc"] = gated_simulate(
+        f"(b) decode_bp_qc {CODE} 2.0 dB T=20 ET f16", "bp_qc", code,
+        qc.n - qc.m,
+        lambda llr, key: decode_bp_qc(qc, llr, 20, early_termination=True,
+                                      storage_dtype=f16),
+        until_done, 2.0, 4, device,
+        preprocess=lambda y: llr_from_channel(y, n0))
+    llr_t = llr_from_channel(awgn_all_zero(
+        SEED, 0, BATCH, qc.n, snr_to_sigma(2.0, 0.5), device),
+        n0).t().contiguous()
+    planes = qc_ragged_init(qc, llr_t, f16)
+    step = qc_bp_step(qc, storage_dtype=f16)
+    parts_of("bp_qc", {
+        "check update (qc_cn_bp)": timer(lambda: qc_cn_bp(qc, planes), 3),
+        "iteration (check + variable)": timer(lambda: step(planes, llr_t), 3),
+    })
+    del planes, llr_t
+
+    # (c) layered min-sum beside flooding min-sum, both with early
+    # termination, on the 802.11n (1944, 972) code
+    wifi = load_named_qc(WIFI_CODE)
+    wcode = wifi.to_code(device)
+    out["minsum_layered_wifi"] = gated_simulate(
+        f"(c) decode_minsum_layered_qc {WIFI_CODE} 2.0 dB T={T} ET f32",
+        "minsum_layered_wifi", wcode, wifi.n - wifi.m,
+        lambda y, key: decode_minsum_layered_qc(wifi, y, T,
+                                                early_termination=True),
+        until_done, 2.0, 4, device)
+    lay = out["minsum_layered_wifi"]
+    check(lay["launches"] == {
+        "minsum_cn_scan": wifi.mb * sum(lay["rounds"]), "awgn_philox": 4},
+        f"layered path launches {lay['launches']}, rounds {lay['rounds']}")
+    out["minsum_flooding_wifi"] = gated_simulate(
+        f"(c) decode_minsum_qc {WIFI_CODE} 2.0 dB T={T} ET f32 (flooding, "
+        "beside it)", None, wcode, wifi.n - wifi.m,
+        lambda y, key: decode_minsum_qc(wifi, y, T, early_termination=True),
+        until_done, 2.0, 4, device, gate=False)
+    flo = out["minsum_flooding_wifi"]
+    print(f"  layered vs flooding at T={T}: BER {lay['ber']:.6g} vs "
+          f"{flo['ber']:.6g}, FER {lay['fer']:.6g} vs {flo['fer']:.6g}, "
+          f"average iterations {lay['avg_iterations']:.4g} vs "
+          f"{flo['avg_iterations']:.4g}")
+    check(lay["ber"] < flo["ber"] and lay["avg_iterations"]
+          < flo["avg_iterations"], "layered not ahead of flooding")
+    y_t = awgn_all_zero(SEED, 0, BATCH, wifi.n, snr_to_sigma(2.0, 0.5),
+                        device).t().contiguous()
+    lstep = qc_minsum_layered_step(wifi)
+    state = (y_t, layered_l0(wifi, BATCH, torch.float32, device))
+    fstep = qc_minsum_step(wifi)
+    fplanes = qc_ragged_init(wifi, y_t, torch.float32)
+    parts_of("minsum_layered_wifi", {
+        f"layered iteration ({wifi.mb} layers)": timer(
+            lambda: lstep(state), 5),
+        "flooding iteration (B1 + VN)": timer(lambda: fstep(fplanes, y_t), 5),
+    })
+    del state, fplanes, y_t
+
+    # (d) DD-BMP on the (4000, 2000) code
+    reg4 = load_named_code(REG4_CODE, device)
+    out["ddbmp_reg4"] = gated_simulate(
+        f"(d) decode_ddbmp {REG4_CODE} 3.9 dB Ymax 1.6 nq 8 T=100",
+        "ddbmp_reg4", reg4, reg4.k,
+        lambda yq, key: decode_ddbmp(reg4, yq, 100),
+        lambda res: min(int(res.iterations.max()) + 1, 100), 3.9, 2, device,
+        preprocess=lambda y: quantize_no_zero(y, 1.6, 8.0))
+    return out
+
+
+def phase_new_sweep(device, batch):
+    """The sweep CLI's bp, layered and ddbmp routes, one point each."""
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.harness import fmt
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    common = ["--batch", str(batch), "--max-frames", str(batch), "--device",
+              str(device)]
+    runs = (
+        (["bp", "--code", CODE, "--snr", "2.0", "-T", "20",
+          "--early-termination", "--msg-dtype", "f16"], 6, "20", CODE, {}),
+        (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
+          "-T", "10", "--early-termination"], 6, "10", WIFI_CODE, {}),
+        (["minsum", "--code", WIFI_CODE, "--schedule", "layered", "--snr",
+          "2.0", "-T", "10", "--msg-dtype", "f16"], 6, "10", WIFI_CODE,
+         {"minsum_cn_scan": load_named_qc(WIFI_CODE).mb * 10}),
+        (["ddbmp", "--code", REG4_CODE, "--snr", "3.9", "-T", "100",
+          "--ymax", "1.6", "--nq", "8"], 7, "100", REG4_CODE, {}),
+    )
+    rows = []
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        for i, (args, width, t_col, name, b1) in enumerate(runs):
+            log_path = f"{tmp}/new{i}.log"
+            build.LAUNCHES.clear()
+            rc = sweep_main(args + common + ["--log", log_path])
+            launches = dict(build.LAUNCHES)
+            with open(log_path) as f:
+                row = f.read().splitlines()
+            check(rc == 0 and len(row) == 1, f"{args[0]} wrote one row")
+            cols = row[0].split("\t")
+            snr = fmt(float(args[args.index("--snr") + 1]))
+            check(len(cols) == width and cols[0] == snr and cols[4] == t_col and cols[-1] == name
+                  and 0.0 <= float(cols[1]) < 0.1
+                  and 0.0 <= float(cols[2]) <= float(t_col),
+                  f"{args[0]} row {cols}")
+            check(launches == {"awgn_philox": 1, **b1},
+                  f"{' '.join(args[:5])}: launches {launches}")
+            rows.append(row[0])
+            print(f"  {' '.join(args[:5])}: {row[0]}; launches {launches}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1142,24 +1674,24 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+    header(f"[1] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     path, log, secs = build.build()
     build.library()
-    print(f"[2] built {path.name} in {secs:.1f} s")
+    header(f"[2] built {path.name} in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print(f"    {line.strip()}")
 
     qc = load_named_qc(CODE)
     sigma = snr_to_sigma(SNR_DB, (qc.n - qc.m) / qc.n)
-    print(f"[3] B1 vs plain, {CODE}, B={BATCH}")
+    header(f"[3] B1 vs plain, {CODE}, B={BATCH}")
     b1_err, b1_times = phase_b1(qc, device, BATCH, sigma, time_ms)
-    print("[4] B2 vs plain")
+    header("[4] B2 vs plain")
     b2_err, b2_times = phase_b2(qc, device, BATCH, sigma, time_ms)
 
-    print(f"[5] main path: simulate {CODE} {SNR_DB} dB T={T} f16, "
+    header(f"[5] main path: simulate {CODE} {SNR_DB} dB T={T} f16, "
           f"4 x {BATCH} frames")
     code = qc.to_code(device)
 
@@ -1192,7 +1724,7 @@ def main() -> int:
     check_totals("minsum", stats)
     parts = breakdown(qc, device, BATCH, sigma, time_ms)
 
-    print("[6] sweep CLI, one point")
+    header("[6] sweep CLI, one point")
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         log_path = f"{tmp}/sweep.log"
         rc = sweep_main([
@@ -1210,22 +1742,22 @@ def main() -> int:
           f"sweep row {cols}")
 
     n = qc.n
-    print(f"[7] B3 vs plain [{n} x {BATCH}]")
+    header(f"[7] B3 vs plain [{n} x {BATCH}]")
     b3_err, b3_times = phase_b3(n, device, BATCH, time_ms)
-    print(f"[8] B4 vs plain [{n} x {BATCH}]")
+    header(f"[8] B4 vs plain [{n} x {BATCH}]")
     b4_err, b4_times = phase_b4(n, device, BATCH, sigma, time_ms)
-    print("[9] GDBF decode: card vs CPU plain path on injected draws")
+    header("[9] GDBF decode: card vs CPU plain path on injected draws")
     phase_gdbf_equal(qc, device)
-    print(f"[10] SMNGDBF path: simulate {CODE} {GDBF_SNR_DB} dB T={GDBF_T},"
+    header(f"[10] SMNGDBF path: simulate {CODE} {GDBF_SNR_DB} dB T={GDBF_T},"
           f" 4 x {BATCH} frames")
     g_stats, g_rate, g_launches, g_parts = phase_gdbf_main(
         qc, device, BATCH, time_ms)
-    print("[11] sweep CLI, gdbf route")
+    header("[11] sweep CLI, gdbf route")
     _, s_launches = phase_gdbf_sweep(device, BATCH)
-    print("[12] edge shapes: B2, B3, B4 vs plain, both instances")
+    header("[12] edge shapes: B2, B3, B4 vs plain, both instances")
     phase_edges(device)
 
-    print("[13] bounds at the main path's shapes")
+    header("[13] bounds at the main path's shapes")
     times = {
         "minsum_cn_scan": (*b1_times[torch.float16], None),
         "awgn_philox": b2_times[:3],
@@ -1241,16 +1773,26 @@ def main() -> int:
         s_launches["uniform_philox"] / 4)
     bounds = phase_bounds(path, card, per_batch, times, qc, BATCH)
 
-    print("[14] B1 vs plain, the slot-array and generalized QC forms")
+    header("[14] B1 vs plain, the slot-array and generalized QC forms")
     forms, forms_err = phase_b1_forms(device, path, time_ms)
-    print("[15] min-sum decodes: card vs CPU plain path")
+    header("[15] min-sum decodes: card vs CPU plain path")
     phase_card_vs_cpu(device)
-    print(f"[16] slot-array path: simulate {PEG_CODE} {SNR_DB} dB T={T} f16, "
+    header(f"[16] slot-array path: simulate {PEG_CODE} {SNR_DB} dB T={T} f16, "
           f"4 x {BATCH} frames; then {DVBS2_CODE} at B={DVBS2_BATCH}")
     p_stats, p_rate, p_launches, p_parts = phase_generic_main(device, time_ms)
     d_stats, d_rate, d_launches, d_ms = phase_dvbs2_point(device)
-    print("[17] sweep CLI, --alist and the quantized min-sum routes")
+    header("[17] sweep CLI, --alist and the quantized min-sum routes")
     _, ms_launches = phase_minsum_sweep(device, 8192)
+    header("[18] layered min-sum and DD-BMP: card vs CPU plain path")
+    layered_counted = phase_layered_ddbmp_card_vs_cpu(device)
+    header("[19] BP: card vs CPU plain path, by tolerance and agreement")
+    bp_seen = phase_bp_card_vs_cpu(device)
+    header("[20] B1 at a layer's shape vs plain")
+    layer_forms, layer_err = phase_b1_layer(device, path, time_ms)
+    header(f"[21] BP, layered min-sum and DD-BMP paths: simulate at B={BATCH}")
+    new_paths = phase_new_paths(device, time_ms)
+    header("[22] sweep CLI, the bp, layered and ddbmp routes")
+    phase_new_sweep(device, 8192)
 
     summary = {
         "card": card,
@@ -1284,6 +1826,9 @@ def main() -> int:
                   "decoded_info_bits_per_s": d_rate,
                   "decode_ms": d_ms},
         "b1_forms": forms,
+        "b1_layer_forms": layer_forms,
+        "bp_card_vs_cpu": bp_seen,
+        "new_paths": new_paths,
     }
     print(json.dumps(summary))
     print(card)
@@ -1291,7 +1836,8 @@ def main() -> int:
     # yardstick is PyTorch's own Philox draw of the same shape.
     rows = [
         ("minsum_cn_scan", "minsum_cn_scan.cu", "minsum_pallas.py:60",
-         launches["minsum_cn_scan"], max(b1_err, forms_err), None),
+         launches["minsum_cn_scan"], max(b1_err, forms_err, layer_err),
+         None),
         ("awgn_philox", "awgn_philox.cu", "channel_pallas.py:56",
          launches["awgn_philox"], b2_err, f"torch.randn [{BATCH}, {n}]"),
         ("uniform_philox", "uniform_philox.cu", "channel_pallas.py:89",
@@ -1304,8 +1850,12 @@ def main() -> int:
         "launches_by_path": {"minsum qc [5]": launches["minsum_cn_scan"],
                              "slot-array [16]": p_launches["minsum_cn_scan"],
                              "dvbs2 [16]": d_launches["minsum_cn_scan"],
-                             "sweep [17]": ms_launches["minsum_cn_scan"]},
-        "forms": forms}}
+                             "sweep [17]": ms_launches["minsum_cn_scan"],
+                             "layered [21]": new_paths["minsum_layered_wifi"][
+                                 "launches"]["minsum_cn_scan"],
+                             **{f"layered [18] {k}": v
+                                for k, v in layered_counted.items()}},
+        "forms": forms, "layer_forms": layer_forms}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",

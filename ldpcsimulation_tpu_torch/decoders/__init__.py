@@ -1,5 +1,6 @@
-"""Decoders: the flooding min-sum decoders (slot-array and QC), the
-GDBF/NGDBF bit-flip family, and their shared machinery."""
+"""Decoders: min-sum (slot-array, QC, row-layered), sum-product BP (slot-array,
+QC, row-layered), DD-BMP, the GDBF/NGDBF bit-flip family, and their shared
+machinery."""
 
 from .base import (
     DecodeResult,
@@ -7,12 +8,17 @@ from .base import (
     check_satisfied,
     gather_cn,
     gather_vn,
+    run_flooding,
     run_flooding_soft,
     sgn_neg,
     sgn_pos,
     storage_cast,
     syndrome_from_hard,
 )
+from .bp import MAXLLR, bp_cn_update, bp_step, decode_bp, pair_excl_logmags
+from .bp_layered import decode_bp_layered_qc, qc_bp_layered_step
+from .bp_qc import decode_bp_qc, qc_bp_step, qc_cn_bp
+from .ddbmp import decode_ddbmp, decode_ddbmp_qc, qc_ddbmp_round
 from .gdbf import (
     PRESETS,
     GDBFConfig,
@@ -29,7 +35,15 @@ from .minsum import (
     minsum_step,
     vn_update,
 )
+from .minsum_layered import (
+    decode_minsum_layered_qc,
+    layered_l0,
+    qc_minsum_layered_step,
+)
 from .minsum_qc import (
+    LayerPlan,
+    QCPlan,
+    assert_layered_compatible,
     decode_minsum_qc,
     qc_check_satisfied,
     qc_minsum_step,
@@ -43,11 +57,25 @@ __all__ = [
     "check_satisfied",
     "gather_cn",
     "gather_vn",
+    "run_flooding",
     "run_flooding_soft",
     "sgn_neg",
     "sgn_pos",
     "storage_cast",
     "syndrome_from_hard",
+    "MAXLLR",
+    "bp_cn_update",
+    "bp_step",
+    "decode_bp",
+    "pair_excl_logmags",
+    "decode_bp_layered_qc",
+    "qc_bp_layered_step",
+    "decode_bp_qc",
+    "qc_bp_step",
+    "qc_cn_bp",
+    "decode_ddbmp",
+    "decode_ddbmp_qc",
+    "qc_ddbmp_round",
     "PRESETS",
     "GDBFConfig",
     "GDBFResult",
@@ -60,6 +88,12 @@ __all__ = [
     "minsum_plan",
     "minsum_step",
     "vn_update",
+    "decode_minsum_layered_qc",
+    "layered_l0",
+    "qc_minsum_layered_step",
+    "LayerPlan",
+    "QCPlan",
+    "assert_layered_compatible",
     "decode_minsum_qc",
     "qc_check_satisfied",
     "qc_minsum_step",

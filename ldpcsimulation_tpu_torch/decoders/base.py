@@ -22,6 +22,7 @@ __all__ = [
     "sgn_pos",
     "sgn_neg",
     "storage_cast",
+    "run_flooding",
     "run_flooding_soft",
     "gather_cn",
     "gather_vn",
@@ -136,6 +137,55 @@ def check_satisfied(code, d: torch.Tensor) -> torch.Tensor:
 
 def _decide(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(total > 0, 1, -1).to(dtype)
+
+
+def run_flooding(
+    state0,
+    step,
+    decide,
+    satisfied_of,
+    num_iterations: int,
+    early_termination: bool,
+    batch: int,
+):
+    """Iteration loop for decoders whose state is a tuple of tensors (the
+    layered ones).
+
+    step(state) -> state'        — one full decoder iteration.
+    decide(state) -> d           — hard decisions, batch last.
+    satisfied_of(d) -> [B] bool  — all checks satisfied per frame.
+
+    Fixed-trip: T steps, one decision at the end, ``iterations`` is T.
+    Early termination: ``decide(state0)`` is checked first; the loop stops
+    when every frame checks out or at T, only the decision carry is masked
+    (a satisfied frame's state may keep evolving — its latched decision is
+    what the decoder returns), and ``iterations`` counts the update rounds
+    each frame used.  The host reads the all-done flag once per iteration.
+
+    Returns (d, iterations [B] int32, satisfied [B] bool).
+    """
+    if not early_termination:
+        state = state0
+        for _ in range(num_iterations):
+            state = step(state)
+        d = decide(state)
+        iters = torch.full((batch,), num_iterations, dtype=torch.int32,
+                           device=d.device)
+        return d, iters, satisfied_of(d)
+
+    state = state0
+    d = decide(state)
+    done = satisfied_of(d)
+    iters = torch.zeros((batch,), dtype=torch.int32, device=d.device)
+    t = 0
+    while t < num_iterations and not bool(done.all()):
+        state = step(state)
+        act = ~done
+        d = torch.where(act, decide(state), d)
+        iters = torch.where(act, t + 1, iters)
+        done = done | satisfied_of(d)
+        t += 1
+    return d, iters, done
 
 
 def run_flooding_soft(

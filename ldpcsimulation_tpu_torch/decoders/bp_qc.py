@@ -1,0 +1,102 @@
+"""Flooding sum-product BP for quasi-cyclic codes.
+
+Port of ``ldpcsimulation_tpu.decoders.bp_qc``: the arithmetic of :mod:`.bp`
+(hyperbolic-pair check update with exact prefix/suffix exclusion, ±MAXLLR
+clamp on the outgoing messages) on the flat ``[P * z, B]`` message planes of
+:mod:`.minsum_qc`, routed by ``QCPlan.cn_rows`` with one row gather per
+slot.  ``cn_rows`` is in the generic slot order (a pair's entries exchanged
+row by row), the order the JAX decoder folds in: the f32 fold is not
+associative, so the order is part of the result.  An absent slot reads +inf,
+whose ``u = e^-inf`` is exactly 0 and whose sign is +1 — the fold's neutral
+element, which leaves ``s + d·0 == s`` untouched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..codes.qc import QCCode
+from .base import DecodeResult, run_flooding_soft, sgn_pos, storage_cast
+from .bp import MAXLLR, excl_sign_products, pair_excl_logmags
+from .minsum_qc import (
+    qc_check_satisfied,
+    qc_fold,
+    qc_plan,
+    qc_ragged_init,
+)
+
+__all__ = ["qc_cn_bp", "qc_bp_step", "decode_bp_qc"]
+
+
+def qc_cn_bp(qc: QCCode, v2c: torch.Tensor) -> torch.Tensor:
+    """Sum-product check update on the ``[P*z, B]`` planes: c2v ``[P*z, B]``
+    in the same rows, zeros in the rows of absent edges.  Arithmetic runs in
+    (at least) float32 whatever the storage type."""
+    plan = qc_plan(qc, v2c.device)
+    cdt = torch.promote_types(v2c.dtype, torch.float32)
+    views = []
+    for rows, gone, _ in plan.slots:
+        msg = v2c[rows].to(cdt)
+        if gone is not None:
+            msg = torch.where(gone, float("inf"), msg)
+        views.append(msg)
+    mags = pair_excl_logmags([torch.exp(-v.abs()) for v in views])
+    sprods = excl_sign_products([sgn_pos(v) for v in views])
+    c2v = torch.empty((v2c.shape[0] + 1, v2c.shape[1]), dtype=cdt,
+                      device=v2c.device)
+    for (_, _, rows_w), sp, mg in zip(plan.slots, sprods, mags):
+        c2v[rows_w] = sp * mg
+    c2v = c2v[:-1]
+    if plan.absent_rows is not None:
+        c2v.index_fill_(0, plan.absent_rows, 0.0)
+    return c2v
+
+
+def qc_bp_step(qc: QCCode, max_llr: float = MAXLLR, storage_dtype=None):
+    """The :func:`decode_bp_qc` iteration as a function of (messages,
+    channel term): ``step(v2c, yb) -> (v2c', total)`` with ``v2c`` the
+    ``[P*z, B]`` planes and ``yb``/``total`` the clamped ``[N, B]`` LLRs and
+    the posterior.  The VN side is :func:`.minsum_qc.qc_minsum_step`'s:
+    total = y + ((c₀ + c₁) + c₂ …) in the generic slot order, then
+    v2c' = storage_cast(clip(total − c_s, ±max_llr))."""
+
+    def step(v2c, yb):
+        plan = qc_plan(qc, v2c.device)
+        sdt = storage_dtype if storage_dtype is not None else yb.dtype
+        c2v = qc_cn_bp(qc, v2c)
+        total = yb + qc_fold(plan.fold, c2v)
+        v2c_new = storage_cast(
+            torch.clamp(total[plan.row_col] - c2v, -max_llr, max_llr), sdt)
+        return v2c_new, total
+
+    return step
+
+
+def decode_bp_qc(
+    qc: QCCode,
+    llr: torch.Tensor,
+    num_iterations: int,
+    max_llr: float = MAXLLR,
+    early_termination: bool = False,
+    storage_dtype=None,
+) -> DecodeResult:
+    """Batched flooding sum-product on a QC code.  llr: [B, N] LLRs.
+
+    storage_dtype: optional narrower type (e.g. torch.float16) of the v2c
+    planes; the arithmetic stays float32 (see :func:`.bp.decode_bp`).
+    """
+    # input clamp, as decode_bp: |llr| ≳ 89 would underflow u to 0 and the
+    # log(s/0) = inf would poison the frame with NaN
+    llr_t = torch.clamp(llr.t(), -max_llr, max_llr).contiguous()  # [N, B]
+    n, b = llr_t.shape
+    if n != qc.n:
+        raise ValueError(f"llr has {n} columns, the code {qc.n}")
+    sdt = storage_dtype if storage_dtype is not None else llr_t.dtype
+    v2c0 = qc_ragged_init(qc, llr_t, sdt)
+    step_y = qc_bp_step(qc, max_llr, storage_dtype)
+    d, iters, done = run_flooding_soft(
+        llr_t, v2c0, lambda v2c: step_y(v2c, llr_t),
+        lambda d: qc_check_satisfied(qc, d),
+        num_iterations, early_termination, b,
+    )
+    return DecodeResult(hard=d.t(), iterations=iters, satisfied=done)

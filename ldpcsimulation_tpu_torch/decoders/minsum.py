@@ -95,7 +95,8 @@ def minsum_cn_update(code: Code, v2c_flat: torch.Tensor,
     return c2v
 
 
-def vn_update(code: Code, y_t: torch.Tensor, c2v_flat: torch.Tensor):
+def vn_update(code: Code, y_t: torch.Tensor, c2v_flat: torch.Tensor,
+              clamp: Optional[float] = None):
     """Variable-node total-sum update (decodeMinSum.cpp:452-476).
 
     y_t: [N, B] channel samples; c2v_flat: [N*dv_max, B] in VN-slot layout
@@ -103,6 +104,8 @@ def vn_update(code: Code, y_t: torch.Tensor, c2v_flat: torch.Tensor):
     Returns (v2c_flat [N*dv_max, B], total [N, B], d [N, B] ±1 int32).
     The fold is pinned: messages left to right over all dv_max slots,
     padding zeros included, then the channel term — y + ((m₀ + m₁) + m₂ …).
+    ``clamp`` bounds the outgoing messages to ±clamp (BP,
+    decodeBP.cpp:399-401).
     """
     msgs = c2v_flat.view(code.n, code.dv_max, -1)
     acc = msgs[:, 0]
@@ -110,6 +113,8 @@ def vn_update(code: Code, y_t: torch.Tensor, c2v_flat: torch.Tensor):
         acc = acc + msgs[:, j]
     total = y_t + acc
     v2c = total[:, None, :] - msgs
+    if clamp is not None:
+        v2c = torch.clamp(v2c, -clamp, clamp)
     d = torch.where(total > 0, 1, -1).to(torch.int32)
     return v2c.reshape(code.n * code.dv_max, -1), total, d
 

@@ -55,12 +55,45 @@ from .base import (
 
 __all__ = [
     "QCPlan",
+    "LayerPlan",
+    "assert_layered_compatible",
     "qc_plan",
     "qc_check_satisfied",
+    "qc_fold",
     "qc_minsum_step",
     "qc_ragged_init",
     "decode_minsum_qc",
 ]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LayerPlan:
+    """One base row (layer) of a QC code as the row-layered decoders see it.
+
+    The layer's messages live in a buffer ``[dc * z, B]`` of its own, in the
+    PHYSICAL circulant order of ``qc.cn_blocks[bi]`` (the order the JAX
+    layered decoders scan and fold in; a pair is not exchanged row by row
+    here, unlike ``QCPlan.cn_rows``): local row ``t * z + r`` is the edge of
+    check (bi, r) in circulant t.
+
+    cols:        [dc*z] int64 — the column of each local row.
+    scan_rows:   [z, dc] int32 — kernel B1's routing table over the local
+                 rows, −1 where the edge is absent.
+    absent:      int64 local rows of absent edges (None if there are none).
+    single_rows: int64 local rows of the circulants that are alone on their
+                 block pair (None when every circulant is: all rows).
+    pair_first, pair_second: int64 local rows of a two-circulant pair's
+                 first member and, column for column, of its second (None
+                 without pairs).
+    """
+
+    dc: int
+    cols: torch.Tensor
+    scan_rows: torch.Tensor
+    absent: Optional[torch.Tensor]
+    single_rows: Optional[torch.Tensor]
+    pair_first: Optional[torch.Tensor]
+    pair_second: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -78,6 +111,16 @@ class QCPlan:
                  order.
     absent_rows: int64 message rows of absent edges (None if there are
                  none), zeroed before the fold.
+    fold_phys:   ``fold`` in the physical circulant order of
+                 ``qc.vn_blocks`` (no per-column pair exchange; ``fold``
+                 itself for a code without pairs).
+    row_check:   [R] int64 — the check of each message row.
+    slots:       per slot t of ``cn_rows``, for the decoders that route with
+                 plain row gathers: (the [M] int64 rows to read, 0 standing
+                 in for an absent slot; the [M, 1] bool mask of absent
+                 slots, None if there are none; the rows to write, the spare
+                 row R standing in for an absent slot).
+    layers:      per base row, its :class:`LayerPlan`.
     """
 
     z: int
@@ -88,6 +131,11 @@ class QCPlan:
     row_col: torch.Tensor
     fold: Tuple[Tuple[Optional[torch.Tensor], torch.Tensor], ...]
     absent_rows: Optional[torch.Tensor]
+    fold_phys: Tuple[Tuple[Optional[torch.Tensor], torch.Tensor], ...]
+    row_check: torch.Tensor
+    slots: Tuple[Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor],
+                 ...]
+    layers: Tuple[LayerPlan, ...]
 
 
 def _pairs(keys):
@@ -125,13 +173,20 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
             plane_block.append(bj)
     off = np.arange(z)
 
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
     # VN side: per block, the message rows of its columns in fold order
     # (a pair's two terms swap where the second circulant's row comes
     # first in the expanded column)
-    fold_rows = []
+    fold_rows, phys_rows = [], []
+    row_check = np.zeros(len(plane_block) * z, np.int64)
     for bj in range(nb):
         ents = qc.vn_blocks[bj]
         rows = [plane_of[(bj, bi, s)] * z + off for bi, s in ents]
+        for (bi, s), rt in zip(ents, rows):
+            row_check[rt] = bi * z + (off - s) % z
+        phys_rows.append(list(rows))
         for k in _pairs([bi for bi, _ in ents]):
             _swap(rows, k, (off - ents[k + 1][1]) % z < (off - ents[k][1]) % z)
         fold_rows.append(rows)
@@ -147,6 +202,7 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
         minus.setdefault((bi, bj, s), []).append(r)
     cn_rows = np.full((qc.m, qc.dc_max), -1, np.int64)
     check_cols = np.full((qc.m, qc.dc_max), n, np.int64)
+    layers = []
     for bi in range(qc.mb):
         ents = qc.cn_blocks[bi]
         rows, cols = [], []
@@ -157,7 +213,10 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
             rt[gone], ct[gone] = -1, n
             rows.append(rt)
             cols.append(ct)
-        for k in _pairs([bj for bj, _ in ents]):
+        firsts = _pairs([bj for bj, _ in ents])
+        layers.append(_layer_plan(
+            z, ents, [rt < 0 for rt in rows], firsts, dev))
+        for k in firsts:
             sw = (off + ents[k + 1][1]) % z < (off + ents[k][1]) % z
             _swap(rows, k, sw)
             _swap(cols, k, sw)
@@ -165,16 +224,28 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
             cn_rows[bi * z:(bi + 1) * z, t] = rows[t]
             check_cols[bi * z:(bi + 1) * z, t] = cols[t]
 
-    def dev(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    def fold_of(block_rows):
+        fold = []
+        for s in range(qc.dv_max):
+            blocks = [bj for bj in range(nb) if len(block_rows[bj]) > s]
+            rows = np.concatenate([block_rows[bj][s] for bj in blocks])
+            cols = (None if len(blocks) == nb else
+                    np.concatenate([bj * z + off for bj in blocks]))
+            fold.append((None if cols is None else dev(cols), dev(rows)))
+        return tuple(fold)
 
-    fold = []
-    for s in range(qc.dv_max):
-        blocks = [bj for bj in range(nb) if len(fold_rows[bj]) > s]
-        rows = np.concatenate([fold_rows[bj][s] for bj in blocks])
-        cols = (None if len(blocks) == nb else
-                np.concatenate([bj * z + off for bj in blocks]))
-        fold.append((None if cols is None else dev(cols), dev(rows)))
+    fold = fold_of(fold_rows)
+    spare = len(plane_block) * z
+    slots = []
+    for t in range(qc.dc_max):
+        rows = cn_rows[:, t]
+        gone = rows < 0
+        slots.append((
+            dev(np.maximum(rows, 0)),
+            torch.as_tensor(gone[:, None], device=device) if gone.any()
+            else None,
+            dev(np.where(gone, spare, rows)),
+        ))
     return QCPlan(
         z=z,
         nb=nb,
@@ -182,9 +253,67 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
         cn_rows=torch.as_tensor(cn_rows.astype(np.int32), device=device),
         check_cols=dev(check_cols),
         row_col=dev((np.asarray(plane_block)[:, None] * z + off).reshape(-1)),
-        fold=tuple(fold),
+        fold=fold,
         absent_rows=dev(absent) if absent else None,
+        fold_phys=fold_of(phys_rows) if qc.extra_edges else fold,
+        row_check=dev(row_check),
+        slots=tuple(slots),
+        layers=tuple(layers),
     )
+
+
+def _layer_plan(z, ents, gone, firsts, dev) -> LayerPlan:
+    """The :class:`LayerPlan` of one base row: ``ents`` its (bj, shift)
+    circulants, ``gone[t]`` the [z] mask of circulant t's absent edges,
+    ``firsts`` the indices of the pairs' first members."""
+    off = np.arange(z)
+    dc = len(ents)
+    paired = {k + i for k in firsts for i in (0, 1)}
+    local = [t * z + off for t in range(dc)]
+    cols = np.concatenate([bj * z + (off + s) % z for bj, s in ents])
+    scan = np.stack([np.where(gone[t], -1, local[t]) for t in range(dc)], 1)
+    absent = np.concatenate([local[t][gone[t]] for t in range(dc)])
+    single = [local[t] for t in range(dc) if t not in paired]
+    # the pair's second member, column for column: the first's row r holds
+    # column (r + s1) % z, which the second holds in row (r + s1 - s2) % z
+    second = [(k + 1) * z + (off + ents[k][1] - ents[k + 1][1]) % z
+              for k in firsts]
+    return LayerPlan(
+        dc=dc,
+        cols=dev(cols),
+        scan_rows=dev(scan).to(torch.int32).contiguous(),
+        absent=dev(absent) if len(absent) else None,
+        single_rows=(None if not paired else
+                     dev(np.concatenate(single)) if single else dev([])),
+        pair_first=dev(np.concatenate([local[k] for k in firsts]))
+        if firsts else None,
+        pair_second=dev(np.concatenate(second)) if firsts else None,
+    )
+
+
+def assert_layered_compatible(qc: QCCode) -> None:
+    """The layered decoders take pairs and absent edges, but not an absent
+    edge INSIDE a pair (the pair's accumulate would need a third posterior
+    term there): raise early with a clear message."""
+    minus = {(bi, bj, s) for bi, bj, s, _ in qc.minus_edges}
+    for bi, ents in enumerate(qc.cn_blocks):
+        for k in _pairs([bj for bj, _ in ents]):
+            if (bi, *ents[k]) in minus or (bi, *ents[k + 1]) in minus:
+                raise NotImplementedError("minus edge inside a pair block")
+
+
+def qc_fold(fold, msgs: torch.Tensor, acc=None) -> torch.Tensor:
+    """Left fold of the message rows ``msgs [P*z, B]`` into ``[N, B]``
+    through a fold table (``QCPlan.fold`` or ``fold_phys``): position by
+    position, ``acc`` first when given."""
+    for cols, rows in fold:
+        if acc is None:  # position 0: every column has a term
+            acc = msgs[rows]
+        elif cols is None:
+            acc = acc + msgs[rows]
+        else:
+            acc[cols] = acc[cols] + msgs[rows]
+    return acc
 
 
 def qc_check_satisfied(qc: QCCode, d: torch.Tensor) -> torch.Tensor:
@@ -212,14 +341,7 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
         c2v = minsum_cn_scan(v2c, plan.cn_rows, variant, alpha, delta)
         if plan.absent_rows is not None:  # rows B1 does not write
             c2v.index_fill_(0, plan.absent_rows, 0.0)
-        _, rows = plan.fold[0]  # every column has a position 0
-        acc = c2v[rows]
-        for cols, rows in plan.fold[1:]:
-            if cols is None:
-                acc = acc + c2v[rows]
-            else:
-                acc[cols] = acc[cols] + c2v[rows]
-        total = yb + acc
+        total = yb + qc_fold(plan.fold, c2v)
         v2c_new = storage_cast(total[plan.row_col] - c2v, sdt)
         return v2c_new, total
 

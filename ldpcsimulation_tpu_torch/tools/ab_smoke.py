@@ -8,6 +8,14 @@ Each DIR's ``chip_smoke.py`` runs in a process of its own, from DIR (so it
 builds and loads DIR's kernels), with its module-level ``time_ms`` replaced
 by this checkout's; its output passes through.  Exits with the first
 non-zero exit code, after running every DIR.
+
+    python -m ldpcsimulation_tpu_torch.tools.ab_smoke --phase \
+        phase_generic_main --repeat 5 DIR [DIR ...]
+
+runs, in place of the whole script, one phase function of the signature
+``phase(device, timer)`` several times in each DIR's process: the host-clock
+rates of one path, with their spread inside a process, free of what the other
+phases leave behind.
 """
 
 from __future__ import annotations
@@ -27,7 +35,13 @@ spec.loader.exec_module(timer_source)
 sys.path.insert(0, ".")
 import chip_smoke
 chip_smoke.time_ms = timer_source.time_ms
-sys.exit(chip_smoke.main())
+phase, repeat = {phase!r}, {repeat!r}
+if phase is None:
+    sys.exit(chip_smoke.main())
+import torch
+for i in range(repeat):
+    print(f"-- {{phase}} run {{i}}", flush=True)
+    getattr(chip_smoke, phase)(torch.device("cuda", 0), chip_smoke.time_ms)
 """
 
 
@@ -35,8 +49,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+", type=Path,
                     help="checkouts holding a chip_smoke.py")
+    ap.add_argument("--phase", help="run only this phase(device, timer) "
+                    "function of each chip_smoke.py")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="times to run --phase in each process")
     args = ap.parse_args(argv)
-    code = _RUN.format(timer=str(TIMER))
+    code = _RUN.format(timer=str(TIMER), phase=args.phase,
+                       repeat=args.repeat)
     rcs = []
     for d in args.dirs:
         print(f"== {d} (timer: {TIMER})", flush=True)

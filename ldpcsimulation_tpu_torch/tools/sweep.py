@@ -1,4 +1,4 @@
-"""Sweep CLI — the min-sum and GDBF routes of
+"""Sweep CLI — the min-sum, BP, DD-BMP and GDBF routes of
 ``ldpcsimulation_tpu.tools.sweep``.
 
 The CLI runs the JAX CLI's cartesian grid (SNR × ymax × nq × alpha × delta
@@ -20,13 +20,26 @@ Examples (one H100):
         --code qc_1008_504 --snr 3.0:3.5:0.25 -T 300 --theta -0.9 \\
         --noise-scale 0.975 --lam 0.988 --alpha 0.75 --window 64 \\
         --ymax 2.5 --batch 32768 --log smngdbf.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep bp --code qc_1008_504 \\
+        --snr 2.0 -T 20 --early-termination --msg-dtype f16 \\
+        --batch 32768 --log bp.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep minsum \\
+        --code wifi_1944_972 --schedule layered --snr 1.5 -T 10 \\
+        --batch 32768 --log layered.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep ddbmp \\
+        --code reg4_4000_2000 --snr 3.9 -T 100 --ymax 1.6 --nq 8 \\
+        --batch 32768 --log ddbmp.log
 
 Ported so far: the min-sum family (plain, offset and normalized, the
-fixed-point variants on ``quantize_no_zero`` samples; flooding schedule)
-and the GDBF/NGDBF presets, on every named code and on ``--alist`` files.
-QC codes (named, or detected in an alist in natural order) take the QC
-decoder and the QC graph operations, the others the slot-array ones.  The
-other decoders and drivers exit with an error naming their ROADMAP item.
+fixed-point variants on ``quantize_no_zero`` samples), sum-product BP (on
+``llr_from_channel`` LLRs), both in the flooding and, on QC codes, the
+row-layered schedule (``--schedule layered``; ``--msg-dtype f16`` reaches
+flooding BP and layered min-sum, not layered BP), DD-BMP (on
+``quantize_no_zero`` samples, Ymax 1.5 and 8 levels unless given) and the
+GDBF/NGDBF presets, on every named code and on ``--alist`` files.  QC codes
+(named, or detected in an alist in natural order) take the QC decoders and
+the QC graph operations, the others the slot-array ones.  The other decoders
+and run modes exit with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,18 +52,31 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..channel import quantize_no_zero, quantize_round, saturate, snr_to_sigma
+from ..channel import (
+    llr_from_channel,
+    quantize_no_zero,
+    quantize_round,
+    saturate,
+    snr_to_n0,
+    snr_to_sigma,
+)
 from ..codes.alist import load_alist
 from ..codes.code import build_code
 from ..codes.library import NAMED_CODES, load_named_code, load_named_qc
 from ..codes.qc_detect import detect_qc
 from ..decoders.base import syndrome_from_hard
+from ..decoders.bp import decode_bp
+from ..decoders.bp_layered import decode_bp_layered_qc
+from ..decoders.bp_qc import decode_bp_qc
+from ..decoders.ddbmp import decode_ddbmp, decode_ddbmp_qc
 from ..decoders.gdbf import PRESETS, decode_gdbf, preset
 from ..decoders.minsum import decode_minsum
+from ..decoders.minsum_layered import decode_minsum_layered_qc
 from ..decoders.minsum_qc import decode_minsum_qc, qc_check_satisfied
 from ..harness import (
     StopRule,
     append_row,
+    bp_log_row,
     default_min_word_errors,
     fmt,
     gdbf_log_row,
@@ -66,8 +92,6 @@ _MINSUM = {"minsum": "plain", "offsetminsum": "offset",
            "normalizedminsum": "normalized"}
 #: decoders of the JAX CLI that are not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "bp": "A8",
-    "ddbmp": "A11",
     "ngdbfhw": "A11",
     "nbqspa": "A12",
 }
@@ -112,7 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("decoder",
-                   choices=[*_MINSUM, "gdbf", *sorted(_NOT_PORTED)])
+                   choices=[*_MINSUM, "bp", "ddbmp", "gdbf",
+                            *sorted(_NOT_PORTED)])
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--code", choices=sorted(NAMED_CODES), help="named code")
     src.add_argument("--alist", help="path to an alist file (binary)")
@@ -178,8 +203,6 @@ def _refuse_unported(args) -> None:
 
     if args.decoder in _NOT_PORTED:
         no(f"decoder {args.decoder!r}", _NOT_PORTED[args.decoder])
-    if args.schedule == "layered" and args.decoder in _MINSUM:
-        no("--schedule layered", "A9")
     if args.stream:
         no("--stream", "A10")
     if args.distributed:
@@ -196,6 +219,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             "(pass --device cpu to run the plain PyTorch path)"
         )
     code, qc, alist_name = _load_code(args, device)
+    if (args.schedule == "layered" and qc is None
+            and args.decoder in (*_MINSUM, "bp")):
+        raise SystemExit(
+            "sweep: error: --schedule layered requires a "
+            "QC-structured --code"
+        )
     rate = args.rate if args.rate is not None else code.rate
     codewords = (
         load_codeword_file(args.codewords, n=code.n)
@@ -277,6 +306,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.decoder in _MINSUM:
             stats, row = _minsum_point(args, code, qc, alist_name, run_point,
                                        T, point)
+        elif args.decoder == "bp":
+            stats, row = _bp_point(args, code, qc, alist_name, rate,
+                                   run_point, T, point)
+        elif args.decoder == "ddbmp":
+            stats, row = _ddbmp_point(code, qc, alist_name, run_point, T,
+                                      point)
         else:
             stats, row = _gdbf_point(args, code, qc, alist_name, rate,
                                      run_point, T, point)
@@ -338,7 +373,10 @@ def _minsum_point(args, code, qc, alist_name, run_point, T, point):
         early_termination=args.early_termination,
         storage_dtype=torch.float16 if args.msg_dtype == "f16" else None,
     )
-    if qc is not None:
+    if args.schedule == "layered":
+        dec = lambda y, key: decode_minsum_layered_qc(  # noqa: E731
+            qc, y, T, **kw)
+    elif qc is not None:
         dec = lambda y, key: decode_minsum_qc(qc, y, T, **kw)  # noqa: E731
     else:
         dec = lambda y, key: decode_minsum(code, y, T, **kw)  # noqa: E731
@@ -350,6 +388,43 @@ def _minsum_point(args, code, qc, alist_name, run_point, T, point):
         delta=delta if variant == "offset" else None,
     )
     return stats, row
+
+
+def _bp_point(args, code, qc, alist_name, rate, run_point, T, point):
+    """One grid point of the BP route: LLRs ``llr_from_channel(y, N0)``,
+    the layered decoder under ``--schedule layered`` (no storage type
+    there), else the QC or the slot-array flooding decoder."""
+    snr = point[0]
+    n0 = float(snr_to_n0(snr, rate))
+    et = args.early_termination
+    sdt = torch.float16 if args.msg_dtype == "f16" else None
+    if args.schedule == "layered":
+        dec = lambda llr, key: decode_bp_layered_qc(  # noqa: E731
+            qc, llr, T, early_termination=et)
+    elif qc is not None:
+        dec = lambda llr, key: decode_bp_qc(  # noqa: E731
+            qc, llr, T, early_termination=et, storage_dtype=sdt)
+    else:
+        dec = lambda llr, key: decode_bp(  # noqa: E731
+            code, llr, T, early_termination=et, storage_dtype=sdt)
+    stats = run_point(snr, dec,
+                      preprocess=lambda y: llr_from_channel(y, n0))
+    return stats, bp_log_row(snr, stats, T, alist_name)
+
+
+def _ddbmp_point(code, qc, alist_name, run_point, T, point):
+    """One grid point of the DD-BMP route: ``quantize_no_zero`` samples
+    (Ymax 1.5 and 8 levels unless given); the row carries Ymax."""
+    (snr, ymax, nq, *_rest) = point
+    ym = ymax if ymax is not None else 1.5
+    nql = nq if nq is not None else 8.0
+    if qc is not None:
+        dec = lambda yq, key: decode_ddbmp_qc(qc, yq, T)  # noqa: E731
+    else:
+        dec = lambda yq, key: decode_ddbmp(code, yq, T)  # noqa: E731
+    stats = run_point(snr, dec,
+                      preprocess=lambda y: quantize_no_zero(y, ym, nql))
+    return stats, minsum_log_row(snr, stats, T, alist_name, ymax=ym)
 
 
 def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point):

@@ -4,8 +4,11 @@ standard error from the run's per-frame error histogram.
 
     JAX_PLATFORMS=cpu python -m tests.jax_reference_stats minsum_peg
 
-Runs on the CPU (seed 0, batches of 4096, 131072 frames) and prints one
-JSON object; ``chip_smoke.py`` holds the constants it printed.
+Runs on the CPU (seed 0) and prints one JSON object; ``chip_smoke.py`` holds
+the constants it printed.  ``minsum_peg`` runs 131072 frames in batches of
+4096; the other points (``bp_peg``, ``bp_qc``, ``minsum_layered_wifi``,
+``ddbmp_reg4``) run the frame counts in ``POINT_FRAMES``, chosen so that each
+takes a few minutes at most on the CPU.
 """
 
 from __future__ import annotations
@@ -17,24 +20,47 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 
-from ldpcsimulation_tpu.codes.library import load_named_code
+from ldpcsimulation_tpu.channel import (
+    llr_from_channel,
+    quantize_no_zero,
+    snr_to_n0,
+)
+from ldpcsimulation_tpu.codes.library import load_named_code, load_named_qc
+from ldpcsimulation_tpu.decoders.bp import decode_bp
+from ldpcsimulation_tpu.decoders.bp_qc import decode_bp_qc
+from ldpcsimulation_tpu.decoders.ddbmp import decode_ddbmp
 from ldpcsimulation_tpu.decoders.minsum import decode_minsum
+from ldpcsimulation_tpu.decoders.minsum_layered import (
+    decode_minsum_layered_qc,
+)
 from ldpcsimulation_tpu.harness.montecarlo import StopRule, simulate
 
 FRAMES = 131072
 BATCH = 4096
+#: (frames, batch) of the points added after ``minsum_peg``
+POINT_FRAMES = {
+    "bp_peg": (131072, 4096),
+    "bp_qc": (131072, 4096),
+    "minsum_layered_wifi": (65536, 2048),
+    "ddbmp_reg4": (16384, 1024),
+}
 
 
 def moments(stats) -> dict:
-    """(value, standard error) of BER and FER, as ``chip_smoke.mc_moments``
-    computes them."""
+    """(value, standard error) of BER, FER and average iterations, as
+    ``chip_smoke.mc_moments`` computes them."""
     f, n = stats.total_words, stats.n
     w = np.arange(1, n + 1)
     h = stats.error_weight_hist
     mean_e = stats.errors / f
     ber_se = math.sqrt(((w**2 * h).sum() / f - mean_e**2) / (f - 1)) / n
     fer_se = math.sqrt(stats.fer * (1 - stats.fer) / f)
+    ith = stats.iteration_hist
+    it = np.arange(len(ith))
+    mean_i = (it * ith).sum() / f
+    it_se = math.sqrt(((it**2 * ith).sum() / f - mean_i**2) / (f - 1))
     return dict(ber=(stats.ber, ber_se), fer=(stats.fer, fer_se),
+                avg_iterations=(stats.avg_iterations, it_se),
                 errors=stats.errors, word_errors=stats.word_errors,
                 frames=f)
 
@@ -49,6 +75,59 @@ def minsum_peg() -> dict:
         2.0, stop=StopRule.fixed_frames(FRAMES), batch_size=BATCH, seed=0,
     )
     return moments(stats)
+
+
+def _point(name, code, decode_fn, snr_db, preprocess=None):
+    frames, batch = POINT_FRAMES[name]
+    stats = simulate(
+        code, decode_fn, snr_db, stop=StopRule.fixed_frames(frames),
+        batch_size=batch, seed=0, preprocess=preprocess,
+    )
+    return moments(stats)
+
+
+def bp_peg() -> dict:
+    """Sum-product BP on peg_1008_504, 1.6 dB, T=20, f32."""
+    code = load_named_code("peg_1008_504")
+    n0 = float(snr_to_n0(1.6, code.rate))
+    return _point(
+        "bp_peg", code, lambda llr, key: decode_bp(code, llr, 20), 1.6,
+        preprocess=lambda y: llr_from_channel(y, n0),
+    )
+
+
+def bp_qc() -> dict:
+    """QC sum-product BP on qc_1008_504, 2.0 dB, T=20, early termination,
+    f16 message storage."""
+    qc = load_named_qc("qc_1008_504")
+    code = qc.to_code()
+    n0 = float(snr_to_n0(2.0, code.rate))
+    return _point(
+        "bp_qc", code,
+        lambda llr, key: decode_bp_qc(qc, llr, 20, early_termination=True,
+                                      storage_dtype=jnp.float16),
+        2.0, preprocess=lambda y: llr_from_channel(y, n0),
+    )
+
+
+def minsum_layered_wifi() -> dict:
+    """Row-layered plain min-sum on wifi_1944_972, 2.0 dB, T=10, f32, early
+    termination."""
+    qc = load_named_qc("wifi_1944_972")
+    return _point(
+        "minsum_layered_wifi", qc.to_code(),
+        lambda y, key: decode_minsum_layered_qc(
+            qc, y, 10, early_termination=True), 2.0,
+    )
+
+
+def ddbmp_reg4() -> dict:
+    """DD-BMP on reg4_4000_2000, 3.9 dB, Ymax 1.6, 8 levels, T=100."""
+    code = load_named_code("reg4_4000_2000")
+    return _point(
+        "ddbmp_reg4", code, lambda yq, key: decode_ddbmp(code, yq, 100), 3.9,
+        preprocess=lambda y: quantize_no_zero(y, 1.6, 8.0),
+    )
 
 
 if __name__ == "__main__":

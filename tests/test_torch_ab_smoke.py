@@ -18,6 +18,10 @@ def main():
     print("cwd", os.path.basename(os.getcwd()))
     print("patched", time_ms.__module__ == "timer_source")
     return {rc}
+
+
+def phase_x(device, timer):
+    print("phase_x on", device, timer.__module__)
 """
 
 
@@ -34,3 +38,13 @@ def test_ab_smoke_runs_each_checkout_with_this_timer(tmp_path, capfd):
     assert out.count("patched True") == 2
     assert f"== {tmp_path / 'new'}: exit 3" in out
     assert f"== {tmp_path / 'old'}: exit 0" in out
+
+
+def test_ab_smoke_runs_one_phase_repeatedly(tmp_path, capfd):
+    (tmp_path / "new").mkdir()
+    (tmp_path / "new" / "chip_smoke.py").write_text(FAKE.format(rc=3))
+    args = ["--phase", "phase_x", "--repeat", "2"]
+    assert ab_smoke.main(args + [str(tmp_path / "new")]) == 0
+    out = capfd.readouterr().out
+    assert out.count("phase_x on cuda:0 timer_source") == 2 and "cwd" not in out
+    assert "-- phase_x run 1" in out

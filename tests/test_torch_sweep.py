@@ -1,6 +1,8 @@
 """The port's sweep CLI: the min-sum routes (plain, offset, normalized; named
-codes and --alist files) and the GDBF route write the JAX CLI's row format
-and resume keys; everything not ported exits naming its ROADMAP item."""
+codes and --alist files; flooding and layered), the BP routes (slot-array,
+QC, layered), the DD-BMP route and the GDBF route write the JAX CLI's row
+format and resume keys; everything not ported exits naming its ROADMAP
+item."""
 
 import numpy as np
 import pytest
@@ -88,9 +90,10 @@ def test_codeword_fixture_route(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--schedule", "layered"], "A9"),
     (["--stream"], "A10"),
     (["--distributed"], "A13"),
+    (["--schedule", "layered", "--stream"], "A10"),
+    (["--schedule", "layered", "--distributed"], "A13"),
 ])
 def test_unported_options_name_roadmap_item(tmp_path, extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
@@ -98,13 +101,70 @@ def test_unported_options_name_roadmap_item(tmp_path, extra, item):
 
 
 @pytest.mark.parametrize("decoder,item", [
-    ("bp", "A8"), ("ddbmp", "A11"), ("nbqspa", "A12"),
-    ("ngdbfhw", "A11"),
+    ("nbqspa", "A12"), ("ngdbfhw", "A11"),
 ])
 def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         main([decoder] + BASE[1:] + ["--snr", "2.0", "--log",
                                      str(tmp_path / "x")])
+
+
+@pytest.mark.parametrize("decoder", ["bp", "ddbmp"])
+@pytest.mark.parametrize("extra,item", [
+    (["--stream"], "A10"), (["--distributed"], "A13"),
+])
+def test_ported_decoders_still_refuse_stream_and_distributed(
+        tmp_path, decoder, extra, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        main([decoder] + BASE[1:] + ["--snr", "2.0", "--log",
+                                     str(tmp_path / "x")] + extra)
+
+
+@pytest.mark.parametrize("decoder", ["bp", "minsum", "normalizedminsum"])
+def test_layered_needs_a_qc_code(tmp_path, decoder):
+    """The JAX CLI's message, from both CLIs."""
+    args = [decoder, "--code", "peg_96_48", "--schedule", "layered", "-T",
+            "2", "--snr", "2.0", "--log", str(tmp_path / "x")]
+    msg = "--schedule layered requires a QC-structured --code"
+    with pytest.raises(SystemExit, match=msg):
+        main(args + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match=msg):
+        jax_main(args)
+
+
+@pytest.mark.parametrize("args,width,et", [
+    (["bp", "--code", "peg_96_48"], 6, False),
+    (["bp", "--code", "qc_1008_504", "--msg-dtype", "f16",
+      "--early-termination"], 6, True),
+    (["bp", "--code", "qc_1008_504", "--schedule", "layered",
+      "--early-termination", "--msg-dtype", "f16"], 6, True),
+    (["minsum", "--code", "qc_1008_504", "--schedule", "layered",
+      "--msg-dtype", "f16"], 6, False),
+    (["normalizedminsum", "--code", "wifi_648_324", "--schedule", "layered",
+      "--alpha", "1.25", "--early-termination"], 7, True),
+    (["offsetminsum", "--code", "qc_1008_504", "--schedule", "layered",
+      "--ymax", "2.0", "--delta", "0.15"], 8, False),
+    (["ddbmp", "--code", "peg_96_48"], 7, True),
+    (["ddbmp", "--code", "qc_1008_504", "--ymax", "1.6", "1.4", "--nq",
+      "8"], 7, True),
+])
+def test_bp_ddbmp_and_layered_rows_and_keys_equal_jax_cli(tmp_path, args,
+                                                          width, et):
+    """The routes of this slice through both CLIs: rows equal column for
+    column apart from the Monte-Carlo statistics (the packages draw other
+    noise), the same ``<log>.done`` keys.  BP logs ``bp_log_row``; DD-BMP
+    logs its Ymax (1.5 unless given) and a data-dependent iteration
+    average; ``--msg-dtype f16`` is accepted and ignored by layered BP."""
+    common = args + ["-T", "4", "--snr", "3.0", "--batch", "32",
+                     "--max-frames", "32"]
+    rows = _assert_rows_and_keys_equal(tmp_path, common,
+                                       stats=(1, 2, 3) if et else (1, 3))
+    assert all(len(r) == width for r in rows)
+    assert all(r[0] == "3" and r[4] == "4" for r in rows)
+    if args[0] == "ddbmp":
+        assert [r[5] for r in rows] == (["1.6", "1.4"] if "--ymax" in args
+                                        else ["1.5"])
+        assert all(0.0 <= float(r[2]) <= 4.0 for r in rows)
 
 
 @pytest.mark.parametrize("args,smoothing", [
