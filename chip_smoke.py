@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, checks each
 against its plain PyTorch twin on the card, drives the min-sum main path,
-the SMNGDBF bit-flip path and the BP, layered and DD-BMP paths at full
-width, and measures every kernel against its bounds.
+the SMNGDBF bit-flip path, the BP, layered and DD-BMP paths and the
+hardware-model bit-flip paths (NGDBFhw, the SystemC model) at full width,
+and measures every kernel against its bounds.
 
     python3 chip_smoke.py
 
@@ -107,7 +108,29 @@ the exit code is non-zero):
      on reg4_4000_2000 at 3.9 dB, Ymax 1.6, 8 levels, T=100; decoded info
      bits/s, ms per iteration, peak memory and a breakdown for each;
  22. the sweep CLI's ``bp``, ``bp --schedule layered``, ``minsum --schedule
-     layered`` and ``ddbmp`` routes, one point each.
+     layered`` and ``ddbmp`` routes, one point each;
+ 23. the fixed-point NGDBFhw on the card against the CPU plain path under
+     ``torch.equal`` on hard decisions, iterations, flags, least errors and
+     ring pointers: qc_1008_504 (QC row gathers; 256 frames) and
+     highrate_2048_384 (generic; 128), one and three phases, with and
+     without per-lane ``qpointer0``, T=60; the ring drawn by B4 once per
+     decode on the card, copied to the CPU and injected there;
+ 24. the SystemC-model NGDBF on the card against the CPU plain path under
+     ``torch.equal``: peg_1008_504, 3.0 dB, T=100, smoothed and unsmoothed,
+     256 frames, the source stream drawn by B4 on the card and injected on
+     the CPU;
+ 25. both at full width through ``simulate`` (B=32768, 2 batches after a
+     warm-up, counters reset just before and read just after: B2 and B4 once
+     per batch each): NGDBFhw on highrate_2048_384 at 4.25 dB, T=600, the
+     802.3an defaults, one phase; the SystemC model on peg_1008_504 at 3.0
+     dB, T=300, additive channel, smoothed; BER, FER and average iterations
+     within 4 joint standard errors of the JAX package's CPU runs
+     (``JAX_POINTS``); decoded info bits/s, ms per step, peak memory; then
+     B4 at the ring's [2648 x 32768] and the source's [1308 x 32768] shapes
+     against its twin, with times and bounds;
+ 26. the sweep CLI's ``ngdbfhw`` route with ``--persistent-qpointer`` and
+     ``--itdist-biased`` (its row and its itdist file), and its refusal of
+     ``--stream``.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -185,6 +208,14 @@ JAX_POINTS = dict(
         ber=(0.00205279541015625, 6.742019045496297e-05),
         fer=(0.17010498046875, 0.002935351567318561),
         avg_iterations=(50.1552734375, 0.22792395690114237)),
+    ngdbfhw_highrate=dict(  # 65536 frames
+        ber=(0.0004718899726867676, 1.846390349252273e-05),
+        fer=(0.0110015869140625, 0.0004074604862350933),
+        avg_iterations=(48.49998474121094, 0.30050957640179926)),
+    systemc_peg=dict(  # 65536 frames
+        ber=(0.003871675521608383, 7.604523978040917e-05),
+        fer=(0.0428619384765625, 0.0007911944503361386),
+        avg_iterations=(68.33592224121094, 0.23725365977424873)),
 )
 WIFI_CODE = "wifi_1944_972"
 REG4_CODE = "reg4_4000_2000"
@@ -195,6 +226,16 @@ REG4_CODE = "reg4_4000_2000"
 # decisions must agree in every bit.
 BP_RTOL, BP_ATOL = 2e-5, 2e-5
 BP_FRAME_AGREEMENT = 0.97
+
+# The hardware-model paths [23]-[26]: NGDBFhw on the registry's
+# 802.3an-class code with the 802.3an defaults (the JAX CPU run counts 721
+# word errors there), and the SystemC model at docs/VALIDATION.md's
+# operating point.
+HW_CODE = "highrate_2048_384"
+HW_SNR_DB, HW_T = 4.25, 600
+SYSTEMC_SNR_DB, SYSTEMC_T = 3.0, 300
+SYSTEMC_KW = dict(theta=-0.5, lam=0.975, alpha=0.95, ymax=3.0, nq_levels=16,
+                  smoothed=True)
 
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and FP32 vector rate).
 HBM_BYTES_PER_S = 3.35e12
@@ -1437,7 +1478,8 @@ def phase_b1_layer(device, lib_path, timer):
 
 
 def gated_simulate(label, point, code, k_info, dec, rounds_of, snr, batches,
-                   device, preprocess=None, gate=True):
+                   device, preprocess=None, gate=True,
+                   awgn_form="multiplicative"):
     """One full-width ``simulate`` run after a warm-up batch: launch counters
     reset just before and read just after, the statistics held within 4
     joint standard errors of the JAX package's (``JAX_POINTS[point]``).
@@ -1455,7 +1497,7 @@ def gated_simulate(label, point, code, k_info, dec, rounds_of, snr, batches,
     def run(frames):
         return simulate(code, counted, snr, stop=StopRule.fixed_frames(frames),
                         batch_size=BATCH, seed=SEED, device=device,
-                        preprocess=preprocess)
+                        preprocess=preprocess, awgn_form=awgn_form)
 
     run(BATCH)  # warm-up batch
     torch.cuda.synchronize()
@@ -1661,6 +1703,358 @@ def phase_new_sweep(device, batch):
     return rows
 
 
+HW_FIELDS = ("hard", "iterations", "satisfied", "least_errors", "qpointer")
+
+
+def phase_hw_card_vs_cpu(device, frames=256):
+    """NGDBFhw on the card against the CPU plain path under ``torch.equal``,
+    on the card's samples and its keyed ring (B4, one launch per decode)."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero, snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import (
+        NGDBFHwConfig,
+        NoiseKey,
+        decode_ngdbf_hw,
+        keyed_ring,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    qc = load_named_qc(CODE)
+    hw = load_named_code(HW_CODE, device)
+    gen = torch.Generator().manual_seed(SEED)
+    counted = {}
+    for name, code_d, code_c, q, snr, b in (
+        (CODE, qc.to_code(device), qc.to_code("cpu"), qc, 3.0, frames),
+        (HW_CODE, hw, hw.to("cpu"), None, 4.0, frames // 2),
+    ):
+        n = code_d.n
+        sigma = snr_to_sigma(snr, code_d.rate)
+        for phases in (1, 3):
+            cfg = NGDBFHwConfig(num_iterations=60, max_phases=phases,
+                                ring_len=max(2648, n + 600))
+            for with_qp in (False, True):
+                frame0 = 13 * b + 7 * phases + with_qp
+                y = awgn_all_zero(SEED, frame0, b, n, sigma, device)
+                key = NoiseKey(SEED, frame0)
+                qp = (torch.randint(0, cfg.ring_len - n, (b,), generator=gen,
+                                    dtype=torch.int32) if with_qp else None)
+                build.LAUNCHES.clear()
+                res = decode_ngdbf_hw(
+                    code_d, y, sigma, cfg, key=key, qc=q,
+                    qpointer0=None if qp is None else qp.to(device))
+                launched = dict(build.LAUNCHES)
+                what = f"{name} x{phases}{' qpointer0' if with_qp else ''}"
+                check(launched == {"gauss_philox": 1},
+                      f"NGDBFhw {what}: launches {launched}")
+                ring = keyed_ring(cfg, sigma, key, b, device)
+                cpu = decode_ngdbf_hw(code_c, y.cpu(), sigma, cfg,
+                                      ring_noise=ring.cpu(), qc=q,
+                                      qpointer0=qp)
+                for f in HW_FIELDS:
+                    check(torch.equal(getattr(res, f).cpu(), getattr(cpu, f)),
+                          f"NGDBFhw {what} {f}: card != CPU plain path")
+                counted[what] = launched.get("gauss_philox", 0)
+                unsat = float((~res.satisfied).float().mean())
+                print(f"  {what}: card == CPU for {b} frames ({res.steps} "
+                      f"steps, unsatisfied {unsat:.3g}, least errors "
+                      f"{int(res.least_errors.sum())}); B4 launched once")
+    return counted
+
+
+def phase_systemc_card_vs_cpu(device, frames=256):
+    """The SystemC model on the card against the CPU plain path under
+    ``torch.equal``, on the card's samples and keyed source stream."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero, snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import (
+        NoiseKey,
+        SystemCNGDBFConfig,
+        decode_ngdbf_systemc,
+        keyed_source,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    peg_d = load_named_code(PEG_CODE, device)
+    peg_c = peg_d.to("cpu")
+    sigma = snr_to_sigma(SYSTEMC_SNR_DB, peg_d.rate)
+    counted = {}
+    for smoothed in (True, False):
+        cfg = SystemCNGDBFConfig(num_iterations=100, **dict(
+            SYSTEMC_KW, smoothed=smoothed))
+        frame0 = 17 * frames + smoothed
+        # all-(+1) word: the additive sample is the multiplicative one
+        y = awgn_all_zero(SEED, frame0, frames, peg_d.n, sigma, device)
+        key = NoiseKey(SEED, frame0)
+        build.LAUNCHES.clear()
+        res = decode_ngdbf_systemc(peg_d, y, sigma, cfg, key=key)
+        launched = dict(build.LAUNCHES)
+        what = f"{PEG_CODE} {'smoothed' if smoothed else 'unsmoothed'}"
+        check(launched == {"gauss_philox": 1},
+              f"SystemC {what}: launches {launched}")
+        src = keyed_source(cfg, sigma, key, peg_d.n, frames, device)
+        cpu = decode_ngdbf_systemc(peg_c, y.cpu(), sigma, cfg,
+                                   noise_stream=src.cpu())
+        for f in ("hard", "iterations", "satisfied"):
+            check(torch.equal(getattr(res, f).cpu(), getattr(cpu, f)),
+                  f"SystemC {what} {f}: card != CPU plain path")
+        counted[what] = launched.get("gauss_philox", 0)
+        unsat = float((~res.satisfied).float().mean())
+        print(f"  {what}: card == CPU for {frames} frames (T=100, "
+              f"unsatisfied {unsat:.3g}); B4 launched once")
+    return counted
+
+
+def b4_at_shape(device, lib_path, timer, rows, stream, scale, label):
+    """B4 against its twin at a decoder's draw shape [rows, BATCH] (layout
+    "nb"), with its time, its twin's and its bounds."""
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        gauss_philox,
+        gauss_philox_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    y, k = gauss_philox(SEED, 0, BATCH, rows, stream, 0.0, scale, device,
+                        with_bits=True)
+    y_p, k_p = gauss_philox_plain(SEED, 0, BATCH, rows, stream, 0.0, scale,
+                                  "nb", device, with_bits=True)
+    check(torch.equal(k, k_p) and torch.equal(y, y_p),
+          f"B4 {label}: kernel != plain")
+    fin = torch.isfinite(y_p)
+    err = float((y[fin] - y_p[fin]).abs().max())
+    infinite = int((~fin).sum())
+    del y, k, y_p, k_p, fin
+    ms = timer(lambda: gauss_philox(SEED, 0, BATCH, rows, stream, 0.0, scale,
+                                    device))
+    plain_ms = timer(lambda: gauss_philox_plain(SEED, 0, BATCH, rows, stream,
+                                                0.0, scale, "nb", device), 2)
+    _, top = sm_clocks()
+    kern = sass_count.find(sass_count.parse(sass_count.disassemble(lib_path)),
+                           "philox_draw_kernelILb1ELi1ELb1ELb0EE")
+    threads = (rows + 3) // 4 * (BATCH // 2)
+    path = kern.path_length()
+    nbytes, ops = rows * BATCH * 4, rows * BATCH * 8
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    issue = sass_count.issue_ms(threads, path, top, SMS)
+    print(f"  B4 at the {label} [{rows} x {BATCH}]: equal to its twin "
+          f"({infinite} infinite draws); {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms; memory {mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB, share "
+          f"{mem_ms / ms:.1%}), operations {ops_ms:.4f} ms, issue "
+          f"{issue:.4f} ms ({path:g} SASS, share {issue / ms:.1%})")
+    return dict(shape=[rows, BATCH], ms=ms, plain_ms=plain_ms,
+                bound_ms=max(mem_ms, ops_ms),
+                bound_by="bytes" if mem_ms >= ops_ms else "operations",
+                issue_ms=issue, memory_share=mem_ms / ms, infinite=infinite,
+                max_abs_err=err)
+
+
+def hw_breakdown(code, cfg, sigma, device, timer):
+    """Device time of each layer of one NGDBFhw step at full width (the
+    generic graph, per-lane ring pointers)."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero
+    from ldpcsimulation_tpu_torch.decoders import NoiseKey
+    from ldpcsimulation_tpu_torch.decoders import ngdbf_hw as hw
+
+    y_t = awgn_all_zero(SEED, 0, BATCH, code.n, sigma, device).t()
+    d = (y_t <= 0).to(torch.uint8)
+    yint = hw.hw_quantize_int(y_t, cfg.nl, cfg.lmax).to(torch.int16)
+    neg_yint = -yint
+    key = NoiseKey(SEED, 0)
+    qint = hw._ring_integers(cfg, hw.keyed_ring(cfg, sigma, key, BATCH,
+                                                device))
+    ring_mod = cfg.ring_len - code.n
+    window = qint.as_strided((ring_mod, code.n, BATCH), (BATCH, BATCH, 1))
+    rows = torch.arange(code.n, device=device)[:, None]
+    lanes = torch.arange(BATCH, device=device)[None, :]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    qptr = torch.randint(0, ring_mod, (BATCH,), generator=gen,
+                         device=device, dtype=torch.int32)
+    syndrome01, satsum = hw.hw_graph_ops(code)
+    syn = syndrome01(d)
+    ss = satsum(syn)
+    act = torch.ones(BATCH, dtype=torch.bool, device=device)
+
+    def metric_and_flip():
+        e = (torch.where(d.bool(), neg_yint, yint) + ss * cfg.smult
+             + qint[5:5 + code.n])
+        return torch.where(act[None, :] & (e <= cfg.theta_int), 1 - d, d)
+
+    parts = {
+        "ring draw (B4) + integers": timer(lambda: hw._ring_integers(
+            cfg, hw.keyed_ring(cfg, sigma, key, BATCH, device))),
+        "syndrome (row gathers)": timer(lambda: syndrome01(d)),
+        "syndrome test (all zero)": timer(lambda: (syn == 0).all(dim=0)),
+        "satisfied-neighbour sum": timer(lambda: satsum(syn)),
+        "metric + flip (ring slice)": timer(metric_and_flip),
+        "ring gather (per-lane pointers)": timer(
+            lambda: window[qptr.long()[None, :], rows, lanes]),
+        "pointer advance": timer(lambda: torch.where(
+            act, (qptr + 1) % ring_mod, qptr)),
+    }
+    for k, v in parts.items():
+        print(f"    {k:34s} {v:9.4f} ms")
+    return parts
+
+
+def systemc_breakdown(code, cfg, sigma, device, timer):
+    """Device time of each layer of one SystemC-model step at full
+    width."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero
+    from ldpcsimulation_tpu_torch.channel.quantize import (
+        quantize_threshold_table,
+    )
+    from ldpcsimulation_tpu_torch.decoders import NoiseKey, keyed_source
+    from ldpcsimulation_tpu_torch.decoders.qc_ops import (
+        slot_graph,
+        syndrome_bipolar,
+        syndrome_sum_per_vn,
+    )
+
+    def qz(v):
+        return quantize_threshold_table(v, cfg.ymax, cfg.nq_levels)
+
+    y_t = awgn_all_zero(SEED, 0, BATCH, code.n, sigma, device).t()
+    r = qz(y_t)
+    x = torch.where(r > 0, 1, -1).to(torch.int8)
+    theta = torch.full_like(r, cfg.theta)
+    lam = torch.tensor(cfg.lam, device=device)
+    w = (torch.tensor(cfg.alpha * cfg.ymax, device=device)
+         / code.vn_deg.float())[:, None]
+    gq = qz(keyed_source(cfg, sigma, NoiseKey(SEED, 0), code.n, BATCH,
+                         device))
+    graph = slot_graph(code, device)
+    syn = syndrome_bipolar(graph, x)
+    ssum = syndrome_sum_per_vn(graph, syn).float()
+    act = torch.ones((1, BATCH), dtype=torch.bool, device=device)
+
+    def metric_flip_adapt():
+        e = x.float() * r + gq[5:5 + code.n].flip(0) + w * ssum
+        flip = e < qz(theta)
+        return (torch.where(act & flip, -x, x),
+                torch.where(act, torch.where(flip, theta / lam,
+                                             theta * lam), theta))
+
+    parts = {
+        "source draw (B4) + quantizer": timer(lambda: qz(keyed_source(
+            cfg, sigma, NoiseKey(SEED, 0), code.n, BATCH, device))),
+        "syndrome (row gathers)": timer(
+            lambda: syndrome_bipolar(graph, x)),
+        "syndrome test (all > 0)": timer(lambda: (syn > 0).all(dim=0)),
+        "per-VN syndrome sum": timer(
+            lambda: syndrome_sum_per_vn(graph, syn).float()),
+        "quantizer of theta": timer(lambda: qz(theta)),
+        "metric + flip + adaptation": timer(metric_flip_adapt),
+    }
+    for k, v in parts.items():
+        print(f"    {k:34s} {v:9.4f} ms")
+    return parts
+
+
+def phase_hw_paths(device, lib_path, timer):
+    """NGDBFhw and the SystemC model at full width through ``simulate``,
+    each gated against the JAX package's statistics, then B4 at both draw
+    shapes."""
+    from ldpcsimulation_tpu_torch.channel import snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import (
+        NGDBFHwConfig,
+        SystemCNGDBFConfig,
+        decode_ngdbf_hw,
+        decode_ngdbf_systemc,
+    )
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        NGDBFHW_RING_STREAM,
+        SYSTEMC_STREAM,
+    )
+
+    out = {}
+    hw = load_named_code(HW_CODE, device)
+    cfg = NGDBFHwConfig(num_iterations=HW_T, ring_len=max(2648, hw.n + 600))
+    sigma = snr_to_sigma(HW_SNR_DB, hw.rate)
+    out["ngdbfhw_highrate"] = gated_simulate(
+        f"(a) decode_ngdbf_hw {HW_CODE} {HW_SNR_DB} dB T={HW_T} 802.3an "
+        "defaults", "ngdbfhw_highrate", hw, hw.k,
+        lambda y, key: decode_ngdbf_hw(hw, y, sigma, cfg, key=key),
+        lambda res: res.steps, HW_SNR_DB, 2, device)
+    peg = load_named_code(PEG_CODE, device)
+    scfg = SystemCNGDBFConfig(num_iterations=SYSTEMC_T, **SYSTEMC_KW)
+    ssigma = snr_to_sigma(SYSTEMC_SNR_DB, peg.rate)
+
+    def systemc_rounds(res):
+        return (SYSTEMC_T if bool((res.iterations == SYSTEMC_T).any())
+                else int(res.iterations.max()) + 1)
+
+    out["systemc_peg"] = gated_simulate(
+        f"(b) decode_ngdbf_systemc {PEG_CODE} {SYSTEMC_SNR_DB} dB "
+        f"T={SYSTEMC_T} additive, smoothed", "systemc_peg", peg, peg.k,
+        lambda y, key: decode_ngdbf_systemc(peg, y, ssigma, scfg, key=key),
+        systemc_rounds, SYSTEMC_SNR_DB, 2, device, awgn_form="additive")
+    for label, path in out.items():
+        check(path["launches"] == {"awgn_philox": 2, "gauss_philox": 2},
+              f"{label}: launches {path['launches']}")
+    print("  (a) one NGDBFhw step:")
+    out["ngdbfhw_highrate"]["breakdown_ms"] = hw_breakdown(
+        hw, cfg, sigma, device, timer)
+    print("  (b) one SystemC-model step:")
+    out["systemc_peg"]["breakdown_ms"] = systemc_breakdown(
+        peg, scfg, ssigma, device, timer)
+    out["b4_shapes"] = {
+        "ngdbfhw ring": b4_at_shape(
+            device, lib_path, timer, cfg.ring_len, NGDBFHW_RING_STREAM,
+            float(np.float32(sigma * cfg.noise_scale)), "NGDBFhw ring"),
+        "systemc source": b4_at_shape(
+            device, lib_path, timer, peg.n + SYSTEMC_T, SYSTEMC_STREAM,
+            float(np.float32(ssigma)), "SystemC source"),
+    }
+    return out
+
+
+def phase_hw_sweep(device, batch):
+    """The sweep CLI's ngdbfhw route with the pointer carry and the biased
+    itdist estimator, and its refusal of --stream."""
+    from ldpcsimulation_tpu_torch.harness import fmt
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    args = ["ngdbfhw", "--code", CODE, "--snr", "3.5", "-T", "100",
+            "--frames", str(2 * batch), "--batch", str(batch),
+            "--persistent-qpointer", "--itdist-biased", "--device",
+            str(device)]
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        log_path = f"{tmp}/hw.log"
+        build.LAUNCHES.clear()
+        rc = sweep_main(args + ["--log", log_path])
+        launches = dict(build.LAUNCHES)
+        with open(log_path) as f:
+            row = f.read().splitlines()
+        with open(f"{log_path}_3.5_itdist.dat") as f:
+            itdist = [line.split("\t") for line in f.read().splitlines()]
+        try:
+            sweep_main(args + ["--stream", "--log", log_path])
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+    check(rc == 0 and len(row) == 1, "ngdbfhw sweep wrote one row")
+    cols = row[0].split("\t")
+    want = ["3.5", None, None, None, None, None, str(2 * batch * 1008),
+            str(2 * batch), "100", fmt(-0.525), fmt(0.95), fmt(0.185),
+            fmt(1.625), "5", "1", "0"]
+    check(len(cols) == len(want) and all(
+        w is None or c == w for c, w in zip(cols, want)),
+        f"ngdbfhw sweep row {cols}")
+    check(0.0 <= float(cols[3]) < 0.5, f"BER {cols[3]}")
+    vals = [float(v) for _, v in itdist]
+    check([int(i) for i, _ in itdist] == list(range(len(itdist)))
+          and vals[0] == 1.0 and len(vals) > 1, f"itdist {itdist[:3]}")
+    check(launches == {"awgn_philox": 2, "gauss_philox": 2},
+          f"ngdbfhw sweep launches {launches}")
+    check("ROADMAP A10" in refused, f"--stream refusal {refused!r}")
+    print(f"  row: {row[0]}; itdist {len(itdist)} lines from "
+          f"{itdist[0]} to {itdist[-1]}; launches {launches}; --stream: "
+          f"{refused}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1793,6 +2187,14 @@ def main() -> int:
     new_paths = phase_new_paths(device, time_ms)
     header("[22] sweep CLI, the bp, layered and ddbmp routes")
     phase_new_sweep(device, 8192)
+    header("[23] NGDBFhw: card vs CPU plain path on the keyed ring")
+    hw_counted = phase_hw_card_vs_cpu(device)
+    header("[24] SystemC model: card vs CPU plain path on the keyed source")
+    sc_counted = phase_systemc_card_vs_cpu(device)
+    header(f"[25] NGDBFhw and SystemC paths: simulate at B={BATCH}")
+    hw_paths = phase_hw_paths(device, path, time_ms)
+    header("[26] sweep CLI, the ngdbfhw route")
+    hw_sweep = phase_hw_sweep(device, 8192)
 
     summary = {
         "card": card,
@@ -1829,6 +2231,7 @@ def main() -> int:
         "b1_layer_forms": layer_forms,
         "bp_card_vs_cpu": bp_seen,
         "new_paths": new_paths,
+        "hw_paths": hw_paths,
     }
     print(json.dumps(summary))
     print(card)
@@ -1843,7 +2246,10 @@ def main() -> int:
         ("uniform_philox", "uniform_philox.cu", "channel_pallas.py:89",
          s_launches["uniform_philox"], b3_err, f"torch.rand [{n}, {BATCH}]"),
         ("gauss_philox", "uniform_philox.cu", "channel_pallas.py:114",
-         g_launches["gauss_philox"], b4_err, f"torch.randn [{n}, {BATCH}]"),
+         g_launches["gauss_philox"],
+         max(b4_err, *(v["max_abs_err"]
+                       for v in hw_paths["b4_shapes"].values())),
+         f"torch.randn [{n}, {BATCH}]"),
     ]
     # B1's launches on each min-sum path of this run, and its other forms
     extra = {"minsum_cn_scan": {
@@ -1855,7 +2261,22 @@ def main() -> int:
                                  "launches"]["minsum_cn_scan"],
                              **{f"layered [18] {k}": v
                                 for k, v in layered_counted.items()}},
-        "forms": forms, "layer_forms": layer_forms}}
+        "forms": forms, "layer_forms": layer_forms},
+        # B4's launches on each bit-flip path of this run, and its draws at
+        # the hardware-model paths' shapes
+        "gauss_philox": {
+            "launches_by_path": {
+                "smngdbf [10]": g_launches["gauss_philox"],
+                **{f"ngdbfhw card vs cpu [23] {k}": v
+                   for k, v in hw_counted.items()},
+                **{f"systemc card vs cpu [24] {k}": v
+                   for k, v in sc_counted.items()},
+                "ngdbfhw [25]": hw_paths["ngdbfhw_highrate"]["launches"][
+                    "gauss_philox"],
+                "systemc [25]": hw_paths["systemc_peg"]["launches"][
+                    "gauss_philox"],
+                "ngdbfhw sweep [26]": hw_sweep["gauss_philox"]},
+            "shapes": hw_paths["b4_shapes"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",

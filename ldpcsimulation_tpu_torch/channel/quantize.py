@@ -72,7 +72,9 @@ def quantize_round(x: torch.Tensor, ymax: float, nq_bits: int) -> torch.Tensor:
 def quantize_threshold_table(x: torch.Tensor, ymax: float,
                              nq_levels: int) -> torch.Tensor:
     """SystemC quantizer: an explicit threshold table and a strict-compare
-    count, so ties take the lower level without derived arithmetic."""
+    count, so ties take the lower level without derived arithmetic.  The
+    count of thresholds below x is a binary search (``bucketize``), the
+    same integer as the JAX function's comparison sum."""
     delta = 2.0 * ymax / (nq_levels - 1.0)
     thresholds = (
         -ymax * (nq_levels - 2.0) / (nq_levels - 1.0)
@@ -80,5 +82,5 @@ def quantize_threshold_table(x: torch.Tensor, ymax: float,
     )
     values = np.concatenate([-ymax + np.arange(nq_levels - 1) * delta, [ymax]])
     thr = torch.tensor(thresholds, dtype=x.dtype, device=x.device)
-    k = (x[..., None] > thr).sum(dim=-1)
+    k = torch.bucketize(x.contiguous(), thr)  # #{thresholds < x}
     return torch.tensor(values, dtype=x.dtype, device=x.device)[k]

@@ -1,6 +1,7 @@
 """Decoders: min-sum (slot-array, QC, row-layered), sum-product BP (slot-array,
-QC, row-layered), DD-BMP, the GDBF/NGDBF bit-flip family, and their shared
-machinery."""
+QC, row-layered), DD-BMP, the GDBF/NGDBF bit-flip family, the hardware-model
+bit-flip decoders (fixed-point NGDBFhw, the SystemC-model NGDBF), and their
+shared machinery."""
 
 from .base import (
     DecodeResult,
@@ -49,6 +50,19 @@ from .minsum_qc import (
     qc_minsum_step,
     qc_plan,
     qc_ragged_init,
+)
+from .ngdbf_hw import (
+    NGDBFHwConfig,
+    NGDBFHwResult,
+    decode_ngdbf_hw,
+    hw_graph_ops,
+    hw_quantize_int,
+    keyed_ring,
+)
+from .ngdbf_systemc import (
+    SystemCNGDBFConfig,
+    decode_ngdbf_systemc,
+    keyed_source,
 )
 
 __all__ = [
@@ -99,4 +113,13 @@ __all__ = [
     "qc_minsum_step",
     "qc_plan",
     "qc_ragged_init",
+    "NGDBFHwConfig",
+    "NGDBFHwResult",
+    "decode_ngdbf_hw",
+    "hw_graph_ops",
+    "hw_quantize_int",
+    "keyed_ring",
+    "SystemCNGDBFConfig",
+    "decode_ngdbf_systemc",
+    "keyed_source",
 ]

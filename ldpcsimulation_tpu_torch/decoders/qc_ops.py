@@ -12,6 +12,10 @@ Multi-edge blocks (``extra_edges``) are further slots.  A defect edge
 (``minus_edges`` entry ``(bi, bj, s, r)``) is an absent slot: the table
 points it at a sentinel row (+1 for the product, 0 for the sum), where the
 rolls multiplied the spurious factor out again and subtracted it.
+
+:func:`slot_graph` reads the same two tables off any code's slot arrays
+(padding slots point at the sentinel rows), so a decoder that takes either
+graph runs :func:`syndrome_bipolar` and :func:`syndrome_sum_per_vn` on it.
 """
 
 from __future__ import annotations
@@ -24,13 +28,14 @@ import torch
 
 from ..codes.qc import QCCode
 
-__all__ = ["QCGraph", "qc_graph", "qc_syndrome_bipolar",
+__all__ = ["QCGraph", "qc_graph", "slot_graph", "syndrome_bipolar",
+           "syndrome_sum_per_vn", "qc_syndrome_bipolar",
            "qc_syndrome_sum_per_vn"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class QCGraph:
-    """Row tables of one QC code on one device.
+    """Row tables of one code on one device.
 
     check_cols: [M, dc_max] int64 — the column of check (bi, r)'s slot t,
                 ``N`` (a sentinel row) for an absent slot.
@@ -68,6 +73,20 @@ def qc_graph(qc: QCCode, device) -> QCGraph:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def slot_graph(code, device) -> QCGraph:
+    """Row tables of any :class:`..codes.code.Code` on ``device``, from its
+    slot arrays (built once, cached)."""
+    return QCGraph(
+        check_cols=torch.where(code.cn_mask, code.cn_vn, code.n).long().to(
+            device),
+        vn_checks=torch.where(code.vn_mask, code.vn_cn, code.m).long().to(
+            device),
+        padded_checks=bool((~code.cn_mask).any()),
+        padded_vns=bool((~code.vn_mask).any()),
+    )
+
+
 def _gather_rows(x, table, padded, fill, combine):
     """combine over slots t of x[table[:, t]], with row ``len(x)`` = fill."""
     if padded:
@@ -79,13 +98,21 @@ def _gather_rows(x, table, padded, fill, combine):
     return out
 
 
+def syndrome_bipolar(g: QCGraph, d: torch.Tensor) -> torch.Tensor:
+    """d: [N, B] ±1 -> bipolar syndrome [M, B] (+1 satisfied), d's dtype."""
+    return _gather_rows(d, g.check_cols, g.padded_checks, 1, torch.mul)
+
+
+def syndrome_sum_per_vn(g: QCGraph, syn: torch.Tensor) -> torch.Tensor:
+    """syn: [M, B] -> per-variable neighbour syndrome sums [N, B]."""
+    return _gather_rows(syn, g.vn_checks, g.padded_vns, 0, torch.add)
+
+
 def qc_syndrome_bipolar(qc: QCCode, d: torch.Tensor) -> torch.Tensor:
     """d: [N, B] ±1 -> bipolar syndrome [M, B] (+1 satisfied), d's dtype."""
-    g = qc_graph(qc, d.device)
-    return _gather_rows(d, g.check_cols, g.padded_checks, 1, torch.mul)
+    return syndrome_bipolar(qc_graph(qc, d.device), d)
 
 
 def qc_syndrome_sum_per_vn(qc: QCCode, syn: torch.Tensor) -> torch.Tensor:
     """syn: [M, B] -> per-variable neighbour syndrome sums [N, B]."""
-    g = qc_graph(qc, syn.device)
-    return _gather_rows(syn, g.vn_checks, g.padded_vns, 0, torch.add)
+    return syndrome_sum_per_vn(qc_graph(qc, syn.device), syn)

@@ -16,12 +16,15 @@ error counting, adaptive stopping, statistics, incremental reports.
     (:class:`..decoders.base.NoiseKey`: the run seed and the batch's first
     frame), so a decoder that draws noise keys it per (seed, frame, step)
     and any frame's decode replays too.
+  * The additive channel form (``awgn_form="additive"``, y = x + σn) is
+    ``y₊₁ + (x − 1)`` from the same keyed draw: for the all-(+1) word the
+    two forms are the same samples.
   * The bit-flip extras of the JAX ``simulate`` are surfaced when the
-    result has them: the total of ``smoothing_used`` and the ``phase_hist``
-    of the redecode phases, in ``MCStats.extra``.
-
-The decoder-state carry (``decode_carry0``) is not here: it comes with
-NGDBFhw (ROADMAP A11).
+    result has them: the totals of ``smoothing_used`` and ``least_errors``
+    and the ``phase_hist`` of the redecode phases, in ``MCStats.extra``.
+  * A decoder with state across frames (NGDBFhw's ring pointer) takes a
+    carry: ``decode_carry0`` is its initial value, one entry per batch
+    lane, kept on the device between batches.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..decoders.base import DecodeResult, NoiseKey
 from .fixtures import cycle_indices
 
 __all__ = [
+    "AWGN_FORMS",
     "StopRule",
     "default_min_word_errors",
     "MCStats",
@@ -48,7 +52,10 @@ __all__ = [
 
 
 #: decoder-family fields surfaced per frame when the result has them
-_EXTRA_FIELDS = ("smoothing_used", "phases")
+_EXTRA_FIELDS = ("smoothing_used", "phases", "least_errors")
+#: channel forms: y = x·(1 + σn) (the reference's C decoders) and
+#: y = x + σn (the SystemC model)
+AWGN_FORMS = ("multiplicative", "additive")
 
 
 def default_min_word_errors(n: int) -> int:
@@ -180,9 +187,12 @@ def simulate(
     seed: int = 0,
     preprocess: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     codewords: Optional[np.ndarray] = None,
+    awgn_form: str = "multiplicative",
     device="cuda",
     verbose: bool = False,
+    report_every_batches: int = 1,
     max_batches: int = 100000,
+    decode_carry0: Optional[torch.Tensor] = None,
 ) -> MCStats:
     """Run the Monte-Carlo loop for one operating point.
 
@@ -191,11 +201,19 @@ def simulate(
     identity if None) and ``key`` the batch's :class:`NoiseKey`.
     ``codewords``: optional [L, N] bit matrix cycled frame by frame (copied
     to the device once), else all-zero codewords.  ``rate`` defaults to the
-    design rate k/n.
+    design rate k/n.  ``awgn_form``: one of :data:`AWGN_FORMS`.
+    ``decode_carry0``: optional initial decoder state, a tensor with one
+    entry per batch lane ([batch_size, ...]); the decoder is then
+    ``decode_fn(inp, key, carry) -> (DecodeResult, carry')`` and the carry
+    stays on the device from batch to batch (a short final batch takes
+    ``carry[:b]`` and writes it back).
     Counting happens on the device; each batch brings four [B] vectors to
-    the host (six with the bit-flip extras).  ``device`` defaults to the
-    card; ``device="cpu"`` runs the kernels' plain twins.
+    the host (more with the bit-flip extras).  ``device`` defaults to the
+    card; ``device="cpu"`` runs the kernels' plain twins.  With
+    ``verbose``, an incremental report every ``report_every_batches``.
     """
+    if awgn_form not in AWGN_FORMS:
+        raise ValueError(f"awgn_form {awgn_form!r} not in {AWGN_FORMS}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -217,6 +235,7 @@ def simulate(
     t0 = time.perf_counter()
     batch_idx = 0
     frame_offset = 0
+    carry = decode_carry0
     while not stop.done(stats.errors, stats.word_errors, stats.total_words):
         if batch_idx >= max_batches:
             break
@@ -229,11 +248,18 @@ def simulate(
         if codewords is not None:
             idx = cycle_indices(frame_offset, b, num_words)
             c = bpsk(codewords[torch.as_tensor(idx, device=device)])  # ±1
-            y = c * y
+            y = c * y if awgn_form == "multiplicative" else y + (c - 1.0)
         else:
             c = 1
         inp = preprocess(y) if preprocess is not None else y
-        res = decode_fn(inp, NoiseKey(seed, frame_offset))
+        key = NoiseKey(seed, frame_offset)
+        if carry is None:
+            res = decode_fn(inp, key)
+        elif b == batch_size:
+            res, carry = decode_fn(inp, key, carry)
+        else:
+            res, tail = decode_fn(inp, key, carry[:b])
+            carry = torch.cat([tail, carry[b:]])
         frame_errs = (res.hard != c).sum(dim=1)
         uncoded = ((y > 0) != (c > 0)).sum(dim=1)
         frame_errs, uncoded, iters, satisfied = (
@@ -277,10 +303,14 @@ def simulate(
                 grown[: len(hist)] += hist
             np.add.at(grown, ph - 1, 1)
             stats.extra["phase_hist"] = grown
+        if "least_errors" in extras:
+            stats.extra["least_errors_sum"] = stats.extra.get(
+                "least_errors_sum", 0
+            ) + int(extras["least_errors"].sum())
 
         batch_idx += 1
         frame_offset += b
-        if verbose:
+        if verbose and batch_idx % report_every_batches == 0:
             print(stats.incremental_report())
 
     stats.wall_seconds = time.perf_counter() - t0

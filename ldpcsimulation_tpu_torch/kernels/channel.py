@@ -30,7 +30,8 @@ card the two give equal samples).  Above k = 2²³ the f32 sum ``k + 0.5`` round
 even, so k = 2²⁴ − 1 gives u = 1.0 and a Gaussian of +inf, once in 2²⁴
 draws — as the TPU functions do.  The decoders key their draws with
 :func:`noise_stream`; stream 0 is B2's, so no decoder draw repeats a
-channel draw.  Both layouts are written directly: ``"nb"`` is the
+channel draw, and the two top streams are the NGDBFhw noise ring's and the
+SystemC model's source stream.  Both layouts are written directly: ``"nb"`` is the
 decoders' ``[n, batch]``, ``"bn"`` the TPU functions' ``[batch, n]``.
 """
 
@@ -48,6 +49,8 @@ __all__ = [
     "awgn_philox_plain",
     "LAYOUTS",
     "noise_stream",
+    "NGDBFHW_RING_STREAM",
+    "SYSTEMC_STREAM",
     "uniform_philox",
     "uniform_philox_plain",
     "gauss_philox",
@@ -161,10 +164,18 @@ def awgn_philox(seed: int, frame0: int, batch: int, n: int, sigma: float,
     return (y, bits) if with_bits else y
 
 
+#: the NGDBFhw noise ring's stream (one draw per frame), and the SystemC
+#: model's source stream; :func:`noise_stream` never returns either
+NGDBFHW_RING_STREAM = _MASK32
+SYSTEMC_STREAM = _MASK32 - 1
+
+
 def noise_stream(step: int, domain: int) -> int:
     """Philox stream of a decoder draw: ``1 + 2·step + domain`` (domain 0
-    the perturbation, 1 the stochastic flips; stream 0 is the channel's)."""
-    if domain not in (0, 1) or not 0 <= step < (1 << 31) - 1:
+    the perturbation, 1 the stochastic flips; stream 0 is the channel's).
+    Steps stop below 2³¹ − 2, so the streams stop below
+    :data:`SYSTEMC_STREAM`."""
+    if domain not in (0, 1) or not 0 <= step < (1 << 31) - 2:
         raise ValueError(f"no noise stream for step {step}, domain {domain}")
     return 1 + 2 * step + domain
 

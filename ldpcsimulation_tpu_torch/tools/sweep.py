@@ -1,4 +1,4 @@
-"""Sweep CLI — the min-sum, BP, DD-BMP and GDBF routes of
+"""Sweep CLI — the min-sum, BP, DD-BMP, GDBF and NGDBFhw routes of
 ``ldpcsimulation_tpu.tools.sweep``.
 
 The CLI runs the JAX CLI's cartesian grid (SNR × ymax × nq × alpha × delta
@@ -29,14 +29,19 @@ Examples (one H100):
     python -m ldpcsimulation_tpu_torch.tools.sweep ddbmp \\
         --code reg4_4000_2000 --snr 3.9 -T 100 --ymax 1.6 --nq 8 \\
         --batch 32768 --log ddbmp.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep ngdbfhw \\
+        --code highrate_2048_384 --snr 4.25 -T 600 --frames 65536 \\
+        --batch 32768 --persistent-qpointer --log hw.log
 
 Ported so far: the min-sum family (plain, offset and normalized, the
 fixed-point variants on ``quantize_no_zero`` samples), sum-product BP (on
 ``llr_from_channel`` LLRs), both in the flooding and, on QC codes, the
 row-layered schedule (``--schedule layered``; ``--msg-dtype f16`` reaches
 flooding BP and layered min-sum, not layered BP), DD-BMP (on
-``quantize_no_zero`` samples, Ymax 1.5 and 8 levels unless given) and the
-GDBF/NGDBF presets, on every named code and on ``--alist`` files.  QC codes
+``quantize_no_zero`` samples, Ymax 1.5 and 8 levels unless given), the
+GDBF/NGDBF presets and the fixed-point NGDBFhw (a fixed ``--frames`` count,
+the 802.3an defaults unless given, with its ``<log>_<snr>_itdist.dat``
+completion file), on every named code and on ``--alist`` files.  QC codes
 (named, or detected in an alist in natural order) take the QC decoders and
 the QC graph operations, the others the slot-array ones.  The other decoders
 and run modes exit with an error naming their ROADMAP item.
@@ -73,6 +78,7 @@ from ..decoders.gdbf import PRESETS, decode_gdbf, preset
 from ..decoders.minsum import decode_minsum
 from ..decoders.minsum_layered import decode_minsum_layered_qc
 from ..decoders.minsum_qc import decode_minsum_qc, qc_check_satisfied
+from ..decoders.ngdbf_hw import NGDBFHwConfig, decode_ngdbf_hw
 from ..harness import (
     StopRule,
     append_row,
@@ -81,6 +87,7 @@ from ..harness import (
     fmt,
     gdbf_log_row,
     minsum_log_row,
+    ngdbfhw_log_row,
     simulate,
 )
 from ..harness.fixtures import load_codeword_file
@@ -92,7 +99,6 @@ _MINSUM = {"minsum": "plain", "offsetminsum": "offset",
            "normalizedminsum": "normalized"}
 #: decoders of the JAX CLI that are not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "ngdbfhw": "A11",
     "nbqspa": "A12",
 }
 
@@ -136,7 +142,7 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("decoder",
-                   choices=[*_MINSUM, "bp", "ddbmp", "gdbf",
+                   choices=[*_MINSUM, "bp", "ddbmp", "gdbf", "ngdbfhw",
                             *sorted(_NOT_PORTED)])
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--code", choices=sorted(NAMED_CODES), help="named code")
@@ -176,10 +182,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--theta", type=float, nargs="+", default=[None])
     p.add_argument("--noise-scale", type=float, nargs="+", default=[None])
     p.add_argument("--lam", type=float, nargs="+", default=[None])
+    # ngdbfhw
     p.add_argument("--w", type=float, nargs="+", default=[None],
-                   help="ngdbfhw (not ported; a grid axis all the same)")
+                   help="ngdbfhw channel scale w (default 0.185)")
     p.add_argument("--theta0", type=float, nargs="+", default=[None],
-                   help="ngdbfhw (not ported; a grid axis all the same)")
+                   help="ngdbfhw noise offset theta0 (default -0.525)")
+    p.add_argument("--frames", type=int, default=10000,
+                   help="fixed frame count for ngdbfhw")
+    p.add_argument(
+        "--persistent-qpointer", action="store_true",
+        help="ngdbfhw: carry the noise-ring pointer across frames, per "
+             "batch lane (the reference's pointer outlives a frame)",
+    )
+    p.add_argument(
+        "--itdist-biased", action="store_true",
+        help="ngdbfhw: write the *_itdist.dat completion CDF with the "
+             "reference's own running-mean estimator, bias included "
+             "(default: the unbiased complement CDF)",
+    )
     # gdbf family
     p.add_argument("--preset", choices=sorted(PRESETS), default="SMNGDBF")
     p.add_argument("--window", type=int, default=64)
@@ -255,11 +275,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         max_frames=args.max_frames,
     )
 
-    def run_point(snr, decode_fn, preprocess=None):
+    def run_point(snr, decode_fn, preprocess=None, stop_override=None,
+                  carry0=None):
         return simulate(
-            code, decode_fn, snr_db=snr, rate=rate, stop=stop,
-            batch_size=args.batch, seed=args.seed, preprocess=preprocess,
-            codewords=codewords, device=device, verbose=args.verbose,
+            code, decode_fn, snr_db=snr, rate=rate,
+            stop=stop_override or stop, batch_size=args.batch,
+            seed=args.seed, preprocess=preprocess, codewords=codewords,
+            device=device, verbose=args.verbose, decode_carry0=carry0,
         )
 
     grid = list(itertools.product(
@@ -312,6 +334,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif args.decoder == "ddbmp":
             stats, row = _ddbmp_point(code, qc, alist_name, run_point, T,
                                       point)
+        elif args.decoder == "ngdbfhw":
+            stats, row = _ngdbfhw_point(args, code, qc, rate, run_point, T,
+                                        point, device)
         else:
             stats, row = _gdbf_point(args, code, qc, alist_name, rate,
                                      run_point, T, point)
@@ -477,6 +502,60 @@ def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point):
         window_size=cfg.window_size if cfg.output_smoothing else None,
         ymax=ymax,
     )
+    return stats, row
+
+
+def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
+    """One grid point of the NGDBFhw route: ``--frames`` frames, the
+    802.3an defaults where a flag is absent, ``ring_len = max(2648, n +
+    600)``, the ring pointer carried across frames with
+    ``--persistent-qpointer``; writes the iteration-completion CDF beside
+    the log, the swept parameters in its name, as the JAX CLI does."""
+    (snr, ymax, _nq, _alpha, _delta, _theta, nscale, _lam, w, theta0) = point
+    cfg = NGDBFHwConfig(
+        num_iterations=T,
+        w=w if w is not None else 0.185,
+        ymax=ymax if ymax is not None else 1.625,
+        noise_scale=nscale if nscale is not None else 0.95,
+        theta0=theta0 if theta0 is not None else -0.525,
+        max_phases=args.max_phases or 1,
+        ring_len=max(2648, code.n + 600),
+    )
+    sigma = snr_to_sigma(snr, rate)
+    frames = StopRule.fixed_frames(args.frames)
+    if args.persistent_qpointer:
+        def dec(y, key, carry):
+            res = decode_ngdbf_hw(code, y, sigma, cfg, key=key, qc=qc,
+                                  qpointer0=carry)
+            return res, res.qpointer
+
+        stats = run_point(snr, dec, stop_override=frames,
+                          carry0=torch.zeros((args.batch,),
+                                             dtype=torch.int32,
+                                             device=device))
+    else:
+        stats = run_point(
+            snr,
+            lambda y, key: decode_ngdbf_hw(code, y, sigma, cfg, key=key,
+                                           qc=qc),
+            stop_override=frames,
+        )
+    row = ngdbfhw_log_row(
+        snr, stats, T, cfg.theta0, cfg.noise_scale, cfg.w, cfg.ymax,
+        cfg.nq, cfg.max_phases, args.seed,
+    )
+    suffix = "".join(
+        f"_{name}{val:g}"
+        for name, val in (("theta0", cfg.theta0), ("w", cfg.w),
+                          ("noise_scale", cfg.noise_scale),
+                          ("ymax", cfg.ymax))
+        if len(getattr(args, name)) > 1
+    )
+    cdf = (stats.iteration_cdf_biased() if args.itdist_biased
+           else stats.iteration_cdf())
+    with open(f"{args.log}_{snr:g}{suffix}_itdist.dat", "w") as f:
+        for idx, v in enumerate(cdf):
+            f.write(f"{idx}\t{v:.6g}\n")
     return stats, row
 
 

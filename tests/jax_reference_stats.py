@@ -7,8 +7,9 @@ standard error from the run's per-frame error histogram.
 Runs on the CPU (seed 0) and prints one JSON object; ``chip_smoke.py`` holds
 the constants it printed.  ``minsum_peg`` runs 131072 frames in batches of
 4096; the other points (``bp_peg``, ``bp_qc``, ``minsum_layered_wifi``,
-``ddbmp_reg4``) run the frame counts in ``POINT_FRAMES``, chosen so that each
-takes a few minutes at most on the CPU.
+``ddbmp_reg4``, ``ngdbfhw_highrate``, ``systemc_peg``) run the frame counts
+in ``POINT_FRAMES``, chosen so that each takes a few minutes at most on the
+CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ldpcsimulation_tpu.channel import (
     llr_from_channel,
     quantize_no_zero,
     snr_to_n0,
+    snr_to_sigma,
 )
 from ldpcsimulation_tpu.codes.library import load_named_code, load_named_qc
 from ldpcsimulation_tpu.decoders.bp import decode_bp
@@ -33,16 +35,24 @@ from ldpcsimulation_tpu.decoders.minsum import decode_minsum
 from ldpcsimulation_tpu.decoders.minsum_layered import (
     decode_minsum_layered_qc,
 )
+from ldpcsimulation_tpu.decoders.ngdbf_hw import NGDBFHwConfig, decode_ngdbf_hw
+from ldpcsimulation_tpu.decoders.ngdbf_systemc import (
+    SystemCNGDBFConfig,
+    decode_ngdbf_systemc,
+)
 from ldpcsimulation_tpu.harness.montecarlo import StopRule, simulate
 
 FRAMES = 131072
 BATCH = 4096
+NGDBFHW_FRAMES = 65536
 #: (frames, batch) of the points added after ``minsum_peg``
 POINT_FRAMES = {
     "bp_peg": (131072, 4096),
     "bp_qc": (131072, 4096),
     "minsum_layered_wifi": (65536, 2048),
     "ddbmp_reg4": (16384, 1024),
+    "ngdbfhw_highrate": (NGDBFHW_FRAMES, 2048),
+    "systemc_peg": (65536, 4096),
 }
 
 
@@ -77,11 +87,11 @@ def minsum_peg() -> dict:
     return moments(stats)
 
 
-def _point(name, code, decode_fn, snr_db, preprocess=None):
+def _point(name, code, decode_fn, snr_db, preprocess=None, **kw):
     frames, batch = POINT_FRAMES[name]
     stats = simulate(
         code, decode_fn, snr_db, stop=StopRule.fixed_frames(frames),
-        batch_size=batch, seed=0, preprocess=preprocess,
+        batch_size=batch, seed=0, preprocess=preprocess, **kw,
     )
     return moments(stats)
 
@@ -127,6 +137,39 @@ def ddbmp_reg4() -> dict:
     return _point(
         "ddbmp_reg4", code, lambda yq, key: decode_ddbmp(code, yq, 100), 3.9,
         preprocess=lambda y: quantize_no_zero(y, 1.6, 8.0),
+    )
+
+
+#: NGDBFhw's operating point: the 802.3an defaults (w 0.185, Ymax 1.625,
+#: noise scale 0.95, theta0 -0.525, NQ 5), one phase, T=600
+NGDBFHW_SNR_DB = 4.25
+
+
+def ngdbfhw_highrate() -> dict:
+    """NGDBFhw on highrate_2048_384 (the registry's 802.3an-class code),
+    ``NGDBFHW_SNR_DB``, T=600, the 802.3an defaults, one phase, generic
+    graph operations."""
+    code = load_named_code("highrate_2048_384")
+    sigma = float(snr_to_sigma(NGDBFHW_SNR_DB, code.rate))
+    cfg = NGDBFHwConfig(num_iterations=600, ring_len=max(2648, code.n + 600))
+    return _point(
+        "ngdbfhw_highrate", code,
+        lambda y, key: decode_ngdbf_hw(code, y, sigma, cfg, key=key),
+        NGDBFHW_SNR_DB,
+    )
+
+
+def systemc_peg() -> dict:
+    """The SystemC-model NGDBF on peg_1008_504, 3.0 dB, T=300, theta -0.5,
+    lambda 0.975, alpha 0.95, Ymax 3, 16 levels, smoothed, additive
+    channel (docs/VALIDATION.md's SystemC operating point)."""
+    code = load_named_code("peg_1008_504")
+    sigma = float(snr_to_sigma(3.0, code.rate))
+    cfg = SystemCNGDBFConfig(num_iterations=300, theta=-0.5)
+    return _point(
+        "systemc_peg", code,
+        lambda y, key: decode_ngdbf_systemc(code, y, sigma, cfg, key),
+        3.0, awgn_form="additive",
     )
 
 

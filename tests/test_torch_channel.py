@@ -43,6 +43,8 @@ from ldpcsimulation_tpu_torch.kernels.channel import (
     awgn_philox,
     gauss_philox,
     gauss_philox_plain,
+    NGDBFHW_RING_STREAM,
+    SYSTEMC_STREAM,
     noise_stream,
     philox4x32_10,
     uniform_philox,
@@ -204,7 +206,7 @@ def _same_bits(got, want):
 
 
 @pytest.mark.parametrize("ymax,nq", [(2.5, 3), (2.25, 4), (1.5, 8),
-                                     (2.0, 5), (1.625, 6)])
+                                     (2.0, 5), (1.625, 6), (3.0, 16)])
 def test_quantizers_equal_jax(ymax, nq):
     x = _quantizer_inputs(ymax)
     t = torch.from_numpy(x)
@@ -289,6 +291,23 @@ def test_decoder_streams_are_disjoint_from_the_channel():
         noise_stream(-1, 0)
     with pytest.raises(ValueError):
         noise_stream(0, 2)
+
+
+def test_noise_stream_never_returns_the_reserved_streams():
+    """The NGDBFhw ring and the SystemC source own the two top streams;
+    the last step noise_stream accepts stops below them, and every earlier
+    stream keeps its number."""
+    assert (NGDBFHW_RING_STREAM, SYSTEMC_STREAM) == (2**32 - 1, 2**32 - 2)
+    last = (1 << 31) - 3
+    top = {noise_stream(last, dom) for dom in (0, 1)}
+    assert top == {2**32 - 5, 2**32 - 4}
+    assert noise_stream(5, 0) == 11 and noise_stream(5, 1) == 12
+    with pytest.raises(ValueError):
+        noise_stream(last + 1, 0)
+    # the reserved streams draw other numbers than the decoders' and B2's
+    ring = _u(0, 0, 64, 64, NGDBFHW_RING_STREAM)
+    for other in (SYSTEMC_STREAM, noise_stream(last, 1), 0):
+        assert not (ring == _u(0, 0, 64, 64, other)).all(dim=1).any()
 
 
 @pytest.mark.parametrize("offset,scale", [(1.0, 0.5), (0.0, 0.7)])

@@ -182,6 +182,71 @@ def test_simulate_defaults_to_the_card(small, monkeypatch):
                     stop=mc.StopRule.fixed_frames(8), batch_size=8)
 
 
+def test_simulate_additive_form_on_codewords(small):
+    """``awgn_form="additive"``: the sample is x + σn from the same keyed
+    draw — the multiplicative sample where x = +1, and y₊₁ − 2 where
+    x = −1; the two forms are the same run for the all-(+1) word."""
+    jqc, qc = small
+    enc = make_encoder(jqc.to_code())
+    cw = np.asarray(random_codewords(enc, jax.random.key(5), 6), np.uint8)
+    seen = {}
+
+    def record(form):
+        def dec(y, key):
+            seen.setdefault(form, []).append(y.clone())
+            return decode_minsum_qc(qc, y, 4)
+        return dec
+
+    stop = mc.StopRule.fixed_frames(80)
+    for form in mc.AWGN_FORMS:
+        mc.simulate(qc.to_code(), record(form), 3.0, stop=stop,
+                    batch_size=48, seed=7, codewords=cw, awgn_form=form,
+                    device="cpu")
+    x = torch.tensor(1 - 2 * cw[mc.cycle_indices(0, 80, len(cw))].astype(
+        np.float32))
+    mul, add = (torch.cat(seen[f]) for f in mc.AWGN_FORMS)
+    assert torch.equal(add[x > 0], mul[x > 0])
+    assert torch.equal(add[x < 0], -mul[x < 0] - 2.0)
+    assert (x < 0).any()
+    zero = [_summary(mc.simulate(qc.to_code(), record(f), 3.0, stop=stop,
+                                 batch_size=48, seed=7, awgn_form=f,
+                                 device="cpu")) for f in mc.AWGN_FORMS]
+    assert zero[0] == zero[1]
+    with pytest.raises(ValueError, match="awgn_form"):
+        mc.simulate(qc.to_code(), record("x"), 3.0, stop=stop,
+                    awgn_form="product", device="cpu")
+
+
+class _HwLike:
+    """A result with NGDBFhw's ``least_errors`` field."""
+
+    def __init__(self, y):
+        self.hard = torch.where(y > 0, 1, -1).to(torch.int32)
+        self.iterations = torch.zeros(len(y), dtype=torch.int32)
+        self.satisfied = torch.ones(len(y), dtype=torch.bool)
+        self.least_errors = torch.arange(len(y), dtype=torch.int32)
+
+
+def test_least_errors_extra_and_report_cadence(small, capsys):
+    """``least_errors`` is summed into ``extra["least_errors_sum"]`` over
+    every batch (the short last one included), as the JAX harness does;
+    with ``verbose`` the incremental report comes every
+    ``report_every_batches`` batches."""
+    _, qc = small
+    stats = mc.simulate(qc.to_code(), lambda y, key: _HwLike(y), 3.0,
+                        stop=mc.StopRule.fixed_frames(70), batch_size=16,
+                        device="cpu", verbose=True, report_every_batches=2)
+    assert stats.extra["least_errors_sum"] == 4 * sum(range(16)) + sum(
+        range(6))
+    out = capsys.readouterr().out
+    assert out.count("Incremental result:") == 2  # after batches 2 and 4
+    assert "Final result:" in out
+    params = inspect.signature(mc.simulate).parameters
+    jparams = inspect.signature(jmc.simulate).parameters
+    for name in ("awgn_form", "report_every_batches", "decode_carry0"):
+        assert params[name].default == jparams[name].default
+
+
 def test_simulate_stops_on_errors_and_reports(small, capsys):
     _, qc = small
     stats = _run(qc, stop=mc.StopRule(min_bit_errors=50, min_word_errors=5),

@@ -1,8 +1,8 @@
 """The port's sweep CLI: the min-sum routes (plain, offset, normalized; named
 codes and --alist files; flooding and layered), the BP routes (slot-array,
-QC, layered), the DD-BMP route and the GDBF route write the JAX CLI's row
-format and resume keys; everything not ported exits naming its ROADMAP
-item."""
+QC, layered), the DD-BMP route, the GDBF route and the NGDBFhw route (with
+its itdist file) write the JAX CLI's row format and resume keys; everything
+not ported exits naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -101,7 +101,7 @@ def test_unported_options_name_roadmap_item(tmp_path, extra, item):
 
 
 @pytest.mark.parametrize("decoder,item", [
-    ("nbqspa", "A12"), ("ngdbfhw", "A11"),
+    ("nbqspa", "A12"),
 ])
 def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
@@ -109,7 +109,7 @@ def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
                                      str(tmp_path / "x")])
 
 
-@pytest.mark.parametrize("decoder", ["bp", "ddbmp"])
+@pytest.mark.parametrize("decoder", ["bp", "ddbmp", "ngdbfhw"])
 @pytest.mark.parametrize("extra,item", [
     (["--stream"], "A10"), (["--distributed"], "A13"),
 ])
@@ -195,6 +195,51 @@ def test_gdbf_rows_and_keys_equal_jax_cli(tmp_path, args, smoothing):
         assert 0.0 <= float(p[1]) <= 0.5 and float(p[2]) <= 6
     assert (tmp_path / "p.log.done").read_text() == (
         (tmp_path / "j.log.done").read_text())
+    assert main(common + ["--device", "cpu", "--log", str(jlog),
+                          "--resume"]) == 0
+    assert len(_rows(jlog)) == len(jrows)
+
+
+def _itdist(path):
+    lines = path.read_text().splitlines()
+    return [(int(i), float(v)) for i, v in (ln.split("\t") for ln in lines)]
+
+
+@pytest.mark.parametrize("args,files", [
+    (["--code", "peg_96_48", "--snr", "4.0"], ["4"]),
+    (["--code", "qc_1008_504", "--snr", "3.5", "--persistent-qpointer",
+      "--itdist-biased"], ["3.5"]),
+    (["--code", "peg_96_48", "--snr", "4.0", "--w", "0.185", "0.2",
+      "--max-phases", "2", "--persistent-qpointer"],
+     ["4_w0.185", "4_w0.2"]),
+])
+def test_ngdbfhw_rows_keys_and_itdist_equal_jax_cli(tmp_path, args, files):
+    """The NGDBFhw route through both CLIs: the same rows column for column
+    apart from the Monte-Carlo statistics (errors, word errors, BER,
+    iterations, FER), the same resume keys, the same itdist files (the
+    swept parameters in their names), each a completion CDF from 1 down,
+    and the port resumes the JAX CLI's sidecar."""
+    common = ["ngdbfhw", "-T", "12", "--batch", "16", "--frames", "32"] + args
+    plog, jlog = tmp_path / "p.log", tmp_path / "j.log"
+    assert main(common + ["--device", "cpu", "--log", str(plog)]) == 0
+    assert jax_main(common + ["--log", str(jlog)]) == 0
+    prows, jrows = _rows(plog), _rows(jlog)
+    assert len(prows) == len(jrows) == len(files)
+    stats = {1, 2, 3, 4, 5}
+    for p, j in zip(prows, jrows):
+        assert len(p) == len(j) == 16
+        assert [v for i, v in enumerate(p) if i not in stats] == [
+            v for i, v in enumerate(j) if i not in stats]
+        assert p[7] == "32" and 0.0 <= float(p[3]) <= 0.5
+    assert (tmp_path / "p.log.done").read_text() == (
+        (tmp_path / "j.log.done").read_text())
+    for name in files:
+        pit = _itdist(tmp_path / f"p.log_{name}_itdist.dat")
+        jit = _itdist(tmp_path / f"j.log_{name}_itdist.dat")
+        for it in (pit, jit):
+            assert it[0] == (0, 1.0) and [i for i, _ in it] == list(
+                range(len(it)))
+            assert all(a >= b for (_, a), (_, b) in zip(it, it[1:]))
     assert main(common + ["--device", "cpu", "--log", str(jlog),
                           "--resume"]) == 0
     assert len(_rows(jlog)) == len(jrows)
