@@ -1,8 +1,9 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, checks each
 against its plain PyTorch twin on the card, drives the min-sum main path,
-the SMNGDBF bit-flip path, the BP, layered and DD-BMP paths and the
-hardware-model bit-flip paths (NGDBFhw, the SystemC model) at full width,
-and measures every kernel against its bounds.
+the SMNGDBF bit-flip path, the BP, layered and DD-BMP paths, the
+hardware-model bit-flip paths (NGDBFhw, the SystemC model) and the
+streaming refill harness at full width, and measures every kernel against
+its bounds.
 
     python3 chip_smoke.py
 
@@ -130,7 +131,33 @@ the exit code is non-zero):
      against its twin, with times and bounds;
  26. the sweep CLI's ``ngdbfhw`` route with ``--persistent-qpointer`` and
      ``--itdist-biased`` (its row and its itdist file), and its refusal of
-     ``--stream``.
+     ``--stream``;
+ 27. the streaming harness on the card against the CPU plain path: every
+     binary stream adapter (QC and slot-array min-sum, layered min-sum, QC
+     and slot-array DD-BMP, QC, slot-array and layered BP) and the GDBF
+     stream (SMNGDBF, RSMNGDBF with 3 phases, StochasticNGDBF), 64 lanes
+     over a pool of 256 frames drawn by B2 on the card: the recorded
+     frames (gid, iterations, errors, decisions; phases, satisfied flags
+     and smoothing uses for GDBF) and the counters equal under
+     ``torch.equal``, BP by frame agreement; then B3/B4's per-lane
+     instances against their twins (scattered int64 gids and steps, both
+     domains and layouts, with the integers) at [1008 x 32768] and
+     [33 x 1007], and against the contiguous kernels on contiguous gids,
+     with times and bounds;
+ 28. the stream paths at full width (32768 lanes), counters reset just
+     before and read just after: ``bp_qc_stream`` (qc_1008_504, 2.0 dB,
+     T=20, f16), ``minsum_layered_qc_stream`` (wifi_1944_972, 2.0 dB,
+     T=10), ``ddbmp_stream`` (reg4_4000_2000, 3.9 dB, T=100) and
+     ``simulate_stream_gdbf`` SMNGDBF ([10]'s point), each gated within 4
+     joint standard errors of the JAX package's CPU run, its integer
+     totals equal to the batch decoder's on the card over the same 4096+
+     frame prefix (2048 lanes), with decoded info bits/s, lane-iterations
+     per counted frame against the batch path's rounds, peak memory, the
+     launches, and one normal call's steady state and host syncs (zero,
+     ``torch.cuda.set_sync_debug_mode``);
+ 29. the sweep CLI's ``--stream`` routes (QC min-sum, QC and layered BP,
+     DD-BMP, ``gdbf --uniform-noise``), one row each, and the NGDBFhw
+     stream's refusal naming ROADMAP A11.4.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -2048,11 +2075,584 @@ def phase_hw_sweep(device, batch):
           and vals[0] == 1.0 and len(vals) > 1, f"itdist {itdist[:3]}")
     check(launches == {"awgn_philox": 2, "gauss_philox": 2},
           f"ngdbfhw sweep launches {launches}")
-    check("ROADMAP A10" in refused, f"--stream refusal {refused!r}")
+    check("ROADMAP A11.4" in refused, f"--stream refusal {refused!r}")
     print(f"  row: {row[0]}; itdist {len(itdist)} lines from "
           f"{itdist[0]} to {itdist[-1]}; launches {launches}; --stream: "
           f"{refused}")
     return launches
+
+
+# The stream paths [27]-[29] (ROADMAP A10 and the GDBF half of A11.4): the
+# refill cadence of the sweep (2 rounds; 8 for the bit-flip family at
+# T >= 64), lanes at full width.
+STREAM_GDBF_K = 8
+STREAM_FIELDS = ("gid", "iters", "errs", "hard")
+GDBF_STREAM_FIELDS = STREAM_FIELDS + ("phases", "sat", "smooth")
+
+
+def lanes_draws(device, lib_path, timer):
+    """B3/B4's per-lane instances against their twins under ``torch.equal``
+    (scattered int64 gids and steps, both domains and layouts, with the
+    integers) at [1008 x 32768] and an edge shape, and against the
+    contiguous kernels on contiguous gids and one step; each one's time,
+    its twin's, the contiguous kernel's and its bounds."""
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        gauss_philox,
+        gauss_philox_lanes,
+        gauss_philox_lanes_plain,
+        noise_stream,
+        uniform_philox,
+        uniform_philox_lanes,
+        uniform_philox_lanes_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    n, scale = 1008, 0.6817
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    kinds = {
+        "uniform_philox_lanes": (
+            lambda *a, **k: uniform_philox_lanes(*a, **k),
+            lambda *a, **k: uniform_philox_lanes_plain(*a, **k), (),
+            lambda f0, b, nn, s: uniform_philox(SEED, f0, b, nn, s, device),
+            "ILb0ELi1ELb1ELb0EE", 2),
+        "gauss_philox_lanes": (
+            lambda *a, **k: gauss_philox_lanes(*a, **k),
+            lambda *a, **k: gauss_philox_lanes_plain(*a, **k), (0.0, scale),
+            lambda f0, b, nn, s: gauss_philox(SEED, f0, b, nn, s, 0.0, scale,
+                                              device),
+            "ILb1ELi1ELb1ELb0EE", 8),
+    }
+    kernels = sass_count.parse(sass_count.disassemble(lib_path))
+    _, top = sm_clocks()
+    build.PATHS.clear()
+    out = {}
+    for name, (fn, plain, extra, contiguous, key, ops_per) in kinds.items():
+        err = 0.0
+        for nn, b in ((n, BATCH), (1007, 33)):
+            gid = torch.randint(-1, 2**40, (b,), generator=gen, device=device)
+            step = torch.randint(0, 2**31 - 2, (b,), generator=gen,
+                                 device=device, dtype=torch.int32)
+            for domain in (0, 1):
+                for layout in ("nb", "bn"):
+                    got, k = fn(SEED, gid, step, nn, domain, *extra, layout,
+                                with_bits=True)
+                    want, k_p = plain(SEED, gid, step, nn, domain, *extra,
+                                      layout, with_bits=True)
+                    fin = torch.isfinite(want)
+                    err = max(err, float((got[fin] - want[fin]).abs().max()))
+                    check(torch.equal(k, k_p) and torch.equal(got, want),
+                          f"{name} [{b} x {nn}] {layout} domain {domain}: "
+                          "kernel != plain")
+            # contiguous gids from below 2^32, one step: the contiguous
+            # kernel's bits
+            f0 = 2**32 - 100
+            cg = f0 + torch.arange(b, device=device)
+            cs = torch.full((b,), 37, dtype=torch.int32, device=device)
+            check(torch.equal(fn(SEED, cg, cs, nn, 1, *extra),
+                              contiguous(f0, b, nn, noise_stream(37, 1))),
+                  f"{name} [{b} x {nn}]: per-lane != contiguous kernel")
+        gid = torch.randint(0, 2**40, (BATCH,), generator=gen, device=device)
+        step = torch.randint(0, 600, (BATCH,), generator=gen, device=device,
+                             dtype=torch.int32)
+        ms = timer(lambda: fn(SEED, gid, step, n, 0, *extra))
+        plain_ms = timer(lambda: plain(SEED, gid, step, n, 0, *extra), 2)
+        cont_ms = timer(lambda: contiguous(0, BATCH, n, noise_stream(5, 0)))
+        k = sass_count.find(kernels, "philox_lanes_kernel" + key)
+        path = k.path_length()
+        threads = (n + 3) // 4 * (BATCH // 2)
+        nbytes = n * BATCH * 4 + BATCH * (8 + 4)
+        ops = n * BATCH * ops_per
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        issue = sass_count.issue_ms(threads, path, top, SMS)
+        out[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, contiguous_ms=cont_ms,
+            bound_ms=max(mem_ms, ops_ms),
+            bound_by="bytes" if mem_ms >= ops_ms else "operations",
+            issue_ms=issue, sass_path=path, sass_static=k.static_count,
+            threads=threads, bytes=nbytes, operations=ops,
+            share=max(mem_ms, ops_ms, issue) / ms, memory_share=mem_ms / ms)
+        print(f"  {name}: kernel == plain at [{n} x {BATCH}] and [33 x "
+              f"1007], both domains and layouts, and == the contiguous "
+              f"kernel on contiguous gids; {ms:.4f} ms (contiguous "
+              f"{cont_ms:.4f} ms), plain {plain_ms:.4f} ms; memory "
+              f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB, share "
+              f"{mem_ms / ms:.1%}), operations {ops_ms:.4f} ms, issue "
+              f"{issue:.4f} ms ({path:g} SASS on one thread's path of "
+              f"{k.static_count}), share {max(mem_ms, issue) / ms:.1%}")
+    paths = {k: v for k, v in build.PATHS.items() if "lanes" in k[0]}
+    check(all(paths.get((nm, p), 0) > 0 for nm in kinds
+              for p in ("fast", "tail")), f"per-lane instances {paths}")
+    return out
+
+
+def stream_cases(device):
+    """(label, adapter, code n, pool preprocess, SNR, T, refill_every, is BP)
+    of the binary adapters, on the main path's codes."""
+    from ldpcsimulation_tpu_torch.channel import (
+        llr_from_channel,
+        quantize_no_zero,
+        snr_to_n0,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.harness import stream
+
+    qc = load_named_qc(CODE)
+    peg = load_named_code(PEG_CODE, device)
+    f16 = torch.float16
+    rate = (qc.n - qc.m) / qc.n
+
+    def llr(snr):
+        n0 = float(snr_to_n0(snr, rate))
+        return lambda y: llr_from_channel(y, n0)
+
+    quant = lambda y: quantize_no_zero(y, 1.6, 8.0)  # noqa: E731
+    return [
+        ("minsum qc f16", stream.minsum_qc_stream(qc, storage_dtype=f16),
+         qc.n, None, 2.0, 10, 2, False),
+        ("minsum slot-array f16", stream.minsum_stream(
+            peg, storage_dtype=f16), peg.n, None, 2.0, 10, 2, False),
+        ("minsum layered qc", stream.minsum_layered_qc_stream(qc), qc.n,
+         None, 2.0, 10, 2, False),
+        ("ddbmp qc", stream.ddbmp_qc_stream(qc), qc.n, quant, 3.9, 20, 2,
+         False),
+        ("ddbmp slot-array", stream.ddbmp_stream(peg), peg.n, quant, 3.9,
+         20, 2, False),
+        ("bp qc f16", stream.bp_qc_stream(qc, storage_dtype=f16), qc.n,
+         llr(2.0), 2.0, 20, 2, True),
+        ("bp slot-array", stream.bp_stream(peg), peg.n, llr(1.6), 1.6, 20,
+         2, True),
+        ("bp layered qc", stream.bp_layered_qc_stream(qc), qc.n, llr(2.0),
+         2.0, 10, 2, True),
+    ]
+
+
+def records_of(acc, rec, fields):
+    """A recorded call's valid records on the CPU."""
+    rc = int(acc["rc"])
+    return {f: rec[f][:rc].cpu() for f in fields}
+
+
+def bp_records_agree(got, want, label):
+    """BP card against CPU: the share of frames (by gid) whose iterations,
+    errors and decisions agree, at least BP_FRAME_AGREEMENT."""
+    def per(r):
+        return {int(g): (int(i), int(e), h.numpy().tobytes()) for g, i, e, h
+                in zip(r["gid"], r["iters"], r["errs"], r["hard"])}
+
+    a, b = per(got), per(want)
+    same = sum(a.get(g) == v for g, v in b.items()) / max(len(b), 1)
+    check(set(a) == set(b) and same >= BP_FRAME_AGREEMENT,
+          f"{label}: {len(a)} vs {len(b)} frames, agreement {same:.4f}")
+    return same
+
+
+def phase_streams_card_vs_cpu(device, lib_path, timer, lanes=64,
+                              frames=256):
+    """Every stream adapter and the GDBF stream, recorded on the card and on
+    the CPU plain path over the same pool (kernel B2's rows on the card):
+    records and counters equal under ``torch.equal`` (BP by agreement, as
+    in [19]); then B3/B4's per-lane instances."""
+    from ldpcsimulation_tpu_torch.channel import saturate, snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import preset
+    from ldpcsimulation_tpu_torch.harness import stream, stream_gdbf
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    counted = {}
+    rate = 0.5
+    for label, dec, n, pre, snr, t_max, k, is_bp in stream_cases(device):
+        pool = stream.build_channel_pool(dec, SEED, 5 * frames, frames, n,
+                                         snr_to_sigma(snr, rate), pre,
+                                         device=device)
+        rounds = 2 * t_max // k
+        got = {}
+        for dev, rows in ((device, pool), ("cpu", [p.cpu() for p in pool])):
+            call = stream.make_stream_call(dec, n, t_max, rounds, k,
+                                           record=True,
+                                           rec_cap=frames + lanes)
+            state = stream.stream_init(dec, lanes, n, device=dev)
+            build.LAUNCHES.clear()
+            state, acc, rec = call(state, *rows, 5 * frames)
+            if dev == device:
+                launched = dict(build.LAUNCHES)
+            got[str(dev)] = (stream.fetch(acc), records_of(acc, rec,
+                                                           STREAM_FIELDS))
+        (a, r), (a_c, r_c) = got[str(device)], got["cpu"]
+        check(a["rc"] > lanes, f"{label}: {a['rc']} frames retired")
+        if is_bp:
+            same = bp_records_agree(r, r_c, label)
+            note = f"agreement {same:.4f}"
+        else:
+            for f in STREAM_FIELDS:
+                check(torch.equal(r[f], r_c[f]), f"{label} {f}: card != CPU")
+            for key in a:
+                check(np.array_equal(a[key], a_c[key]),
+                      f"{label} acc {key}: card != CPU")
+            note = "records and counters equal"
+        counted[label] = launched
+        print(f"  {label} T={t_max} K={k}: {a['rc']} frames retired of "
+              f"{a['consumed']} taken, {lanes} lanes, card vs CPU: {note}; "
+              f"launches {launched}")
+
+    qc = load_named_qc(CODE)
+    code_d = qc.to_code(device)
+    sat = lambda y: saturate(y, GDBF_YMAX)  # noqa: E731
+    for name, snr, t_max, extra in (
+        ("SMNGDBF", 3.25, 48, {}),
+        ("RSMNGDBF", 3.0, 16, dict(max_phases=3)),
+        ("StochasticNGDBF", 3.5, 32, {}),
+    ):
+        cfg = preset(name, t_max, **GDBF_KW, **extra)
+        sigma = snr_to_sigma(snr, rate)
+        pool = stream_gdbf.build_channel_pool_gdbf(
+            code_d, SEED, 7 * frames, frames, sigma, sat, qc=qc,
+            device=device)
+        rounds = 2 * cfg.max_phases * t_max // STREAM_GDBF_K
+        got = {}
+        for dev, rows in ((device, pool), ("cpu", [p.cpu() for p in pool])):
+            call = stream_gdbf.make_gdbf_stream_call(
+                code_d, rounds, STREAM_GDBF_K, qc=qc, record=True,
+                rec_cap=frames + lanes)
+            state = stream_gdbf.gdbf_stream_init(code_d, cfg, lanes,
+                                                 device=dev)
+            build.LAUNCHES.clear()
+            state, acc, rec = call(state, *rows, 7 * frames, SEED, sigma,
+                                   cfg)
+            if dev == device:
+                launched = dict(build.LAUNCHES)
+            got[str(dev)] = (stream.fetch(acc),
+                             records_of(acc, rec, GDBF_STREAM_FIELDS))
+        (a, r), (a_c, r_c) = got[str(device)], got["cpu"]
+        for f in GDBF_STREAM_FIELDS:
+            check(torch.equal(r[f], r_c[f]), f"{name} {f}: card != CPU")
+        for key in a:
+            check(np.array_equal(a[key], a_c[key]),
+                  f"{name} acc {key}: card != CPU")
+        draws = rounds * STREAM_GDBF_K
+        want = ({"gauss_philox_lanes": draws} if cfg.add_noise else
+                {"uniform_philox_lanes": draws})
+        check(launched == want, f"{name}: launches {launched} != {want}")
+        counted[name] = launched
+        print(f"  {name} T={t_max} x{cfg.max_phases} K={STREAM_GDBF_K}: "
+              f"{a['rc']} frames retired, card == CPU (records, counters); "
+              f"max phases {int(r['phases'].max())}; launches {launched}")
+    return counted, lanes_draws(device, lib_path, timer)
+
+
+def count_steps(dec, steps):
+    """``dec`` with each iteration counted in ``steps[0]``."""
+    import dataclasses
+
+    def counted(fn):
+        if fn is None:
+            return None
+
+        def wrapped(*a):
+            steps[0] += 1
+            return fn(*a)
+
+        return wrapped
+
+    return dataclasses.replace(dec, step=counted(dec.step),
+                               step_fresh=counted(dec.step_fresh))
+
+
+def stream_steady(make_call, init, pool_of, lanes, rounds, k, extra=()):
+    """Frames retired per second and lane-iterations per frame in a normal
+    call after a warm one (the lanes filled, their finishing times spread),
+    and the host syncs of that call (``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+
+    from ldpcsimulation_tpu_torch.harness.stream import fetch
+
+    call = make_call(rounds, k)
+    state = init()
+    base = 0
+    pool = pool_of(base)
+    state, acc, _ = call(state, *pool, base, *extra)
+    base += fetch(acc)["consumed"]
+    pool = pool_of(base)
+    torch.cuda.synchronize()
+    def sync_warnings(caught):
+        # the warning of each sync; the mode's own first warning (that it is
+        # a prototype which does not see every sync) is none
+        return [w for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        state, acc, _ = call(state, *pool, base, *extra)
+        torch.cuda.set_sync_debug_mode("default")
+    a = fetch(acc)
+    secs = time.perf_counter() - t0
+    syncs = sync_warnings(caught)
+    for w in syncs:
+        print(f"  host sync: {w.filename}:{w.lineno}: {w.message}")
+    with warnings.catch_warnings(record=True) as control:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        bool(state["idle"].all())  # a sync the mode must see
+        torch.cuda.set_sync_debug_mode("default")
+    check(len(sync_warnings(control)) == 1, "the sync detector saw no sync")
+    syncs = len(syncs)
+    return dict(frames=a["frames"], seconds=secs,
+                frames_per_s=a["frames"] / secs,
+                lane_iterations_per_frame=rounds * k * lanes / a["frames"],
+                syncs=syncs)
+
+
+def stream_path(label, jax_point, k_info, run, exact, steady, batch_rounds,
+                device):
+    """One stream path at full width: the gated run (launch counters reset
+    just before and read just after, statistics within 4 joint s.e. of the
+    JAX package's CPU run), the exactness run (integer totals equal to the
+    batch decoder's over the same gid prefix) and the steady state."""
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    steps = [0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    stats = run(steps)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rate_bits = stats.total_words * k_info / stats.wall_seconds
+    per_frame = steps[0] * BATCH / stats.total_words
+    print(f"  {label}: BER {stats.ber!r} FER {stats.fer!r} avg iterations "
+          f"{stats.avg_iterations!r} over {stats.total_words} frames in "
+          f"{stats.wall_seconds:.4f} s (drain included): {rate_bits:.6g} "
+          f"decoded info bits/s; {steps[0]} stream iterations, "
+          f"{per_frame:.4g} lane-iterations per counted frame (the batch "
+          f"path: {batch_rounds}); peak device memory {peak:.2f} GiB; "
+          f"launches {launches}")
+    check(launches.get("awgn_philox", 0) >= 1, f"{label}: B2 {launches}")
+    got = mc_moments(stats, len(stats.error_weight_hist))
+    for key, (want, want_se) in jax_point.items():
+        val, se = got[key]
+        bound = 4 * math.hypot(se, want_se)
+        print(f"  {key}: port {val:.6g} (se {se:.3g}), JAX {want:.6g} (se "
+              f"{want_se:.3g}), |diff| {abs(val - want):.3g} <= {bound:.3g}")
+        check(abs(val - want) <= bound, f"{label} {key} outside 4 joint s.e.")
+    s_stats, b_stats = exact()
+    totals = [(s.errors, s.word_errors, s.total_iterations)
+              for s in (s_stats, b_stats)]
+    print(f"  exactness: stream and batch decoder over gids 0 .. "
+          f"{s_stats.total_words - 1}: (bit errors, word errors, "
+          f"iterations) {totals[0]} and {totals[1]}")
+    check(s_stats.total_words == b_stats.total_words
+          and totals[0] == totals[1], f"{label}: stream != batch {totals}")
+    st = steady()
+    st_bits = st["frames_per_s"] * k_info
+    print(f"  steady state: {st['frames']} frames in one normal call of "
+          f"{st['seconds']:.4f} s: {st_bits:.6g} decoded info bits/s, "
+          f"{st['lane_iterations_per_frame']:.4g} lane-iterations per "
+          f"frame; {st['syncs']} host syncs in the call")
+    check(st["syncs"] == 0, f"{label}: {st['syncs']} syncs in a normal call")
+    return dict(
+        ber=stats.ber, fer=stats.fer, avg_iterations=stats.avg_iterations,
+        frames=stats.total_words, decoded_info_bits_per_s=rate_bits,
+        stream_iterations=steps[0], lane_iterations_per_frame=per_frame,
+        batch_rounds_per_frame=batch_rounds, peak_gib=peak,
+        launches=launches, exact_totals=totals[0], exact_frames=
+        s_stats.total_words, steady_bits_per_s=st_bits,
+        steady_lane_iterations_per_frame=st["lane_iterations_per_frame"],
+        syncs_in_a_normal_call=st["syncs"])
+
+
+def phase_stream_paths(device):
+    """The four stream paths at full width (lanes = 32768) at the operating
+    points of [21] and [10]."""
+    from ldpcsimulation_tpu_torch.channel import (
+        llr_from_channel,
+        quantize_no_zero,
+        saturate,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_bp_qc,
+        decode_ddbmp,
+        decode_gdbf,
+        decode_minsum_layered_qc,
+        preset,
+    )
+    from ldpcsimulation_tpu_torch.harness import (
+        StopRule,
+        simulate,
+        stream,
+        stream_gdbf,
+    )
+
+    f16 = torch.float16
+    exact_lanes, exact_frames = 2048, 4096
+    out = {}
+
+    def binary(label, point, code, k_info, dec, pre, snr, t_max, frames,
+               batch_dec, batch_rounds, pool_dtype=None):
+        rate = k_info / code.n
+
+        def run_stream(steps, lanes, n_frames, pool_bytes=None):
+            return stream.simulate_stream(
+                code.n, count_steps(dec, steps), snr, rate, t_max,
+                stop=StopRule.fixed_frames(n_frames), lanes=lanes,
+                refill_every=2, seed=SEED, preprocess=pre,
+                pool_dtype=pool_dtype, pool_bytes=pool_bytes, device=device)
+
+        def exact():
+            s = run_stream([0], exact_lanes, exact_frames,
+                           pool_bytes=code.n * 4 * 3 * exact_lanes)
+            b = simulate(code, lambda y, key: batch_dec(y), snr, rate=rate,
+                         stop=StopRule.fixed_frames(s.total_words),
+                         batch_size=exact_frames, seed=SEED,
+                         preprocess=pre, device=device)
+            return s, b
+
+        sigma = snr_to_sigma(snr, rate)
+        # a normal call of about a frame's average iterations
+        rounds = math.ceil(JAX_POINTS[point]["avg_iterations"][0] / 2) + 1
+
+        def steady():
+            return stream_steady(
+                lambda r, k: stream.make_stream_call(dec, code.n, t_max, r,
+                                                     k),
+                lambda: stream.stream_init(dec, BATCH, code.n, device=device),
+                lambda base: stream.build_channel_pool(
+                    dec, SEED, base, 3 * BATCH, code.n, sigma, pre,
+                    device=device),
+                BATCH, rounds, 2)
+
+        out[point] = stream_path(
+            label, JAX_POINTS[point], k_info,
+            lambda steps: run_stream(steps, BATCH, frames), exact, steady,
+            batch_rounds, device)
+
+    qc = load_named_qc(CODE)
+    code = qc.to_code(device)
+    n0 = float(snr_to_n0(2.0, 0.5))
+    llr = lambda y: llr_from_channel(y, n0)  # noqa: E731
+    binary(f"(a) bp_qc_stream {CODE} 2.0 dB T=20 f16", "bp_qc", code,
+           qc.n - qc.m, stream.bp_qc_stream(qc, storage_dtype=f16), llr, 2.0,
+           20, 8 * BATCH,
+           lambda y: decode_bp_qc(qc, y, 20, early_termination=True,
+                                  storage_dtype=f16), 20)
+    wifi = load_named_qc(WIFI_CODE)
+    binary(f"(b) minsum_layered_qc_stream {WIFI_CODE} 2.0 dB T={T} f32",
+           "minsum_layered_wifi", wifi.to_code(device), wifi.n - wifi.m,
+           stream.minsum_layered_qc_stream(wifi), None, 2.0, T, 8 * BATCH,
+           lambda y: decode_minsum_layered_qc(wifi, y, T,
+                                              early_termination=True), T)
+    reg4 = load_named_code(REG4_CODE, device)
+    binary(f"(c) ddbmp_stream {REG4_CODE} 3.9 dB Ymax 1.6 nq 8 T=100",
+           "ddbmp_reg4", reg4, reg4.k, stream.ddbmp_stream(reg4),
+           lambda y: quantize_no_zero(y, 1.6, 8.0), 3.9, 100, BATCH,
+           lambda y: decode_ddbmp(reg4, y, 100), 100)
+
+    # (d) SMNGDBF, the reference's PEGReg504x1008 point ([10])
+    cfg = preset("SMNGDBF", GDBF_T, **GDBF_KW)
+    sat = lambda y: saturate(y, GDBF_YMAX)  # noqa: E731
+    rate = (qc.n - qc.m) / qc.n
+    sigma = snr_to_sigma(GDBF_SNR_DB, rate)
+
+    def run_gdbf(lanes, n_frames, pool_bytes=None):
+        return stream_gdbf.simulate_stream_gdbf(
+            code, cfg, GDBF_SNR_DB, stop=StopRule.fixed_frames(n_frames),
+            lanes=lanes, refill_every=STREAM_GDBF_K, seed=SEED,
+            preprocess=sat, qc=qc, pool_bytes=pool_bytes, device=device)
+
+    def exact_gdbf():
+        s = run_gdbf(exact_lanes, exact_frames, qc.n * 4 * 3 * exact_lanes)
+        b = simulate(code, lambda yq, key: decode_gdbf(code, yq, sigma, cfg,
+                                                       key=key, qc=qc),
+                     GDBF_SNR_DB, stop=StopRule.fixed_frames(s.total_words),
+                     batch_size=exact_frames, seed=SEED, preprocess=sat,
+                     device=device)
+        return s, b
+
+    def gdbf_counted(steps):
+        from ldpcsimulation_tpu_torch.kernels import build
+
+        stats = run_gdbf(BATCH, 4 * BATCH)
+        steps[0] = build.LAUNCHES["gauss_philox_lanes"]  # one per step
+        return stats
+
+    out["smngdbf"] = stream_path(
+        f"(d) simulate_stream_gdbf SMNGDBF {CODE} {GDBF_SNR_DB} dB "
+        f"T={GDBF_T}", JAX_SMNGDBF, qc.n - qc.m, gdbf_counted, exact_gdbf,
+        lambda: stream_steady(
+            lambda r, k: stream_gdbf.make_gdbf_stream_call(code, r, k,
+                                                           qc=qc),
+            lambda: stream_gdbf.gdbf_stream_init(code, cfg, BATCH,
+                                                 device=device),
+            lambda base: stream_gdbf.build_channel_pool_gdbf(
+                code, SEED, base, 3 * BATCH, sigma, sat, qc=qc,
+                device=device),
+            BATCH, math.ceil(JAX_SMNGDBF["avg_iterations"][0]
+                             / STREAM_GDBF_K) + 1,
+            STREAM_GDBF_K, extra=(SEED, sigma, cfg)),
+        GDBF_T, device)
+    return out
+
+
+def phase_stream_sweep(device, batch):
+    """The sweep CLI's --stream routes, one row each, then the NGDBFhw
+    stream's refusal."""
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    common = ["--batch", str(batch), "--max-frames", str(batch), "--device",
+              str(device), "--stream"]
+    et = ["--early-termination"]
+    runs = (
+        (["minsum", "--code", CODE, "--snr", "2.0", "-T", "10",
+          "--msg-dtype", "f16", *et], 6, "10", "minsum_cn_scan"),
+        (["bp", "--code", CODE, "--snr", "2.0", "-T", "20", "--msg-dtype",
+          "f16", *et], 6, "20", None),
+        (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
+          "-T", "10", *et], 6, "10", None),
+        (["ddbmp", "--code", CODE, "--snr", "3.9", "-T", "100", "--ymax",
+          "1.6"], 7, "100", None),
+        (["gdbf", "--preset", "SMNGDBF", "--uniform-noise", "--code", CODE,
+          "--snr", "3.25", "-T", "100", "--theta", "-0.9", "--noise-scale",
+          "0.975", "--lam", "0.988", "--alpha", "0.75", "--ymax", "2.5"], 16,
+         "100", "uniform_philox_lanes"),
+    )
+    launched = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        for i, (args, width, t_col, kernel) in enumerate(runs):
+            log_path = f"{tmp}/stream{i}.log"
+            build.LAUNCHES.clear()
+            rc = sweep_main(args + common + ["--log", log_path])
+            launches = dict(build.LAUNCHES)
+            with open(log_path) as f:
+                row = f.read().splitlines()
+            check(rc == 0 and len(row) == 1, f"{args[:3]} wrote one row")
+            cols = row[0].split("\t")
+            t_at = 6 if args[0] == "gdbf" else 4
+            check(len(cols) == width and cols[t_at] == t_col
+                  and 0.0 <= float(cols[1]) < 0.1, f"{args[:3]} row {cols}")
+            check(launches.get("awgn_philox", 0) >= 1 and (
+                kernel is None or launches.get(kernel, 0) > 0),
+                f"{' '.join(args[:5])}: launches {launches}")
+            for k, v in launches.items():
+                launched[k] = launched.get(k, 0) + v
+            print(f"  {' '.join(args[:5])} --stream: {row[0]}; launches "
+                  f"{launches}")
+    try:
+        sweep_main(["ngdbfhw", "--code", HW_CODE, "--snr", "4.25", "-T",
+                    "600", "--log", "unused.log"] + common)
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        msg = ""
+    check("ROADMAP A11.4" in msg, f"ngdbfhw --stream: {msg!r}")
+    print(f"  ngdbfhw --stream: {msg}")
+    return launched
 
 
 def main() -> int:
@@ -2195,6 +2795,12 @@ def main() -> int:
     hw_paths = phase_hw_paths(device, path, time_ms)
     header("[26] sweep CLI, the ngdbfhw route")
     hw_sweep = phase_hw_sweep(device, 8192)
+    header("[27] streams: card vs CPU plain path; B3/B4 per-lane draws")
+    stream_counted, lanes = phase_streams_card_vs_cpu(device, path, time_ms)
+    header(f"[28] stream paths at full width: {BATCH} lanes")
+    stream_paths = phase_stream_paths(device)
+    header("[29] sweep CLI, the --stream routes")
+    stream_sweep = phase_stream_sweep(device, 8192)
 
     summary = {
         "card": card,
@@ -2232,6 +2838,8 @@ def main() -> int:
         "bp_card_vs_cpu": bp_seen,
         "new_paths": new_paths,
         "hw_paths": hw_paths,
+        "stream_paths": stream_paths,
+        "lanes_draws": lanes,
     }
     print(json.dumps(summary))
     print(card)
@@ -2277,6 +2885,33 @@ def main() -> int:
                     "gauss_philox"],
                 "ngdbfhw sweep [26]": hw_sweep["gauss_philox"]},
             "shapes": hw_paths["b4_shapes"]}}
+    # B1's and B4's launches on the stream paths [27]-[29]
+    extra["minsum_cn_scan"]["launches_by_path"].update({
+        **{f"stream card vs cpu [27] {k}": v.get("minsum_cn_scan", 0)
+           for k, v in stream_counted.items() if "minsum" in k},
+        "layered stream [28]": stream_paths["minsum_layered_wifi"][
+            "launches"]["minsum_cn_scan"],
+        "stream sweep [29]": stream_sweep["minsum_cn_scan"]})
+    # The per-lane instances of B3/B4 (uniform_philox.cu's entries for the
+    # stream's lanes): the same TPU kernels, a key per lane.  B4's runs on
+    # the SMNGDBF stream path [28]; B3's on the --uniform-noise stream route
+    # [29] and the stochastic stream [27].
+    lane_rows = [
+        ("uniform_philox_lanes", "channel_pallas.py:89",
+         stream_sweep["uniform_philox_lanes"], {
+             "stream sweep [29]": stream_sweep["uniform_philox_lanes"],
+             "stochastic stream card vs cpu [27]": stream_counted[
+                 "StochasticNGDBF"]["uniform_philox_lanes"]}),
+        ("gauss_philox_lanes", "channel_pallas.py:114",
+         stream_paths["smngdbf"]["launches"]["gauss_philox_lanes"], {
+             "smngdbf stream [28]": stream_paths["smngdbf"]["launches"][
+                 "gauss_philox_lanes"],
+             **{f"stream card vs cpu [27] {k}": v["gauss_philox_lanes"]
+                for k, v in stream_counted.items()
+                if "gauss_philox_lanes" in v}}),
+    ]
+    for name, _, count, by_path in lane_rows:
+        check(count > 0, f"{name} not launched on its path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",
@@ -2287,6 +2922,13 @@ def main() -> int:
          "yardstick": yard and f"{yard}, same work, not the same function",
          **bounds[name], **extra.get(name, {})}
         for name, src, tpu, count, err, yard in rows
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "ldpcsimulation_tpu_torch/csrc/uniform_philox.cu",
+         "replaces": f"ldpcsimulation_tpu/kernels/{tpu}",
+         "launches": count, "library_ms": None,
+         "launches_by_path": by_path, **lanes[name]}
+        for name, tpu, count, by_path in lane_rows
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,16 @@
 //   * 2-D grids with the frames on x (no cap on the batch) and the quads on
 //     y, so no thread divides: 32-bit indices, 64-bit only in the address.
 // No shared memory, TMA or wgmma: nothing is reused and the stores coalesce
-// as they are.  __launch_bounds__(256): ptxas (-Xptxas -v, the build log)
+// as they are.
+//
+// The per-lane entries (ldpc_uniform_philox_lanes, ldpc_gauss_philox_lanes)
+// serve a streaming decoder whose lanes each hold their own frame at their
+// own step: column b of the draw takes frame gid[b] (int64) and stream
+// 1 + 2*step[b] + domain (step int32, domain 0 or 1), the counter the
+// contiguous entries give frame frame0 + b on stream 1 + 2*step + domain.
+// So on contiguous gids and one step both entries write the same bits.  The
+// same body, layouts and store widths; each thread reads its frames' gid and
+// step once (12 bytes per frame, a re-read from L2 per column quad).  __launch_bounds__(256): ptxas (-Xptxas -v, the build log)
 // gives every instance 16-30 registers (the decoder layout's float2
 // instances 24 for B4 and 18 for B3, without the integers), no spills and
 // no stack, so eight blocks of 256 fit an SM: 64 warps, full occupancy.
@@ -82,21 +91,52 @@ __device__ __forceinline__ void philox_at(uint32_t q, uint64_t frame,
   ldpc::philox4x32_10(ctr, key, x);
 }
 
-template <bool kGauss, int kLayout, bool kVec, bool kBits>
-__global__ void __launch_bounds__(kThreads)
-    philox_draw_kernel(uint32_t key0, uint32_t key1, uint64_t frame0,
-                       uint32_t batch, uint32_t n, uint32_t stream,
-                       float offset, float scale, float* __restrict__ out,
-                       int32_t* __restrict__ bits) {
+// Frame and stream of draw column r: frame0 + r on one stream, or, for the
+// per-lane entries (kLanes), gid[r] on stream 1 + 2 * step[r] + domain.
+struct Keys {
+  uint64_t frame0;
+  uint32_t stream;  // the stream, or the domain with kLanes
+  const int64_t* gid;
+  const int32_t* step;
+};
+
+template <bool kLanes>
+__device__ __forceinline__ void key_of(const Keys& ks, uint32_t r,
+                                       uint64_t* frame, uint32_t* stream) {
+  if constexpr (kLanes) {
+    const long long* g = reinterpret_cast<const long long*>(ks.gid);
+    *frame = (uint64_t)__ldg(g + r);
+    *stream = 1u + 2u * (uint32_t)__ldg(ks.step + r) + ks.stream;
+  } else {
+    *frame = ks.frame0 + r;
+    *stream = ks.stream;
+  }
+}
+
+template <bool kGauss, int kLayout, bool kVec, bool kBits, bool kLanes>
+__device__ __forceinline__ void draw_body(uint32_t key0, uint32_t key1,
+                                          const Keys& ks, uint32_t batch,
+                                          uint32_t n, float offset,
+                                          float scale,
+                                          float* __restrict__ out,
+                                          int32_t* __restrict__ bits) {
   if constexpr (kLayout == kLayoutColMajor) {
     // frames r0 = 2p and r0 + 1 of column quad q = blockIdx.y
     const uint32_t r0 = 2 * (blockIdx.x * kThreads + threadIdx.x);
     const uint32_t q = blockIdx.y;
     if (r0 >= batch) return;
-    const uint64_t f0 = frame0 + r0;
+    uint64_t fa, fb;
+    uint32_t sa, sb;
+    key_of<kLanes>(ks, r0, &fa, &sa);
+    if (kLanes && r0 + 1 >= batch) {
+      fb = fa;  // no second frame: a copy of the first, never stored
+      sb = sa;
+    } else {
+      key_of<kLanes>(ks, r0 + 1, &fb, &sb);
+    }
     uint32_t xa[4], xb[4];
-    philox_at(q, f0, stream, key0, key1, xa);
-    philox_at(q, f0 + 1, stream, key0, key1, xb);
+    philox_at(q, fa, sa, key0, key1, xa);
+    philox_at(q, fb, sb, key0, key1, xb);
 #pragma unroll
     for (int h = 0; h < 4; ++h) {
       const uint32_t col = 4 * q + h;
@@ -123,8 +163,11 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t row = blockIdx.x * kFramesPerBlock + threadIdx.y;
     const uint32_t q = blockIdx.y * kQuadsPerBlock + threadIdx.x;
     if (row >= batch || 4 * q >= n) return;
+    uint64_t frame;
+    uint32_t stream;
+    key_of<kLanes>(ks, row, &frame, &stream);
     uint32_t x[4];
-    philox_at(q, frame0 + row, stream, key0, key1, x);
+    philox_at(q, frame, stream, key0, key1, x);
     uint32_t k[4];
     float v[4];
 #pragma unroll
@@ -151,6 +194,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kGauss, int kLayout, bool kVec, bool kBits>
+__global__ void __launch_bounds__(kThreads)
+    philox_draw_kernel(uint32_t key0, uint32_t key1, uint64_t frame0,
+                       uint32_t batch, uint32_t n, uint32_t stream,
+                       float offset, float scale, float* __restrict__ out,
+                       int32_t* __restrict__ bits) {
+  const Keys ks{frame0, stream, nullptr, nullptr};
+  draw_body<kGauss, kLayout, kVec, kBits, false>(key0, key1, ks, batch, n,
+                                                 offset, scale, out, bits);
+}
+
+template <bool kGauss, int kLayout, bool kVec, bool kBits>
+__global__ void __launch_bounds__(kThreads)
+    philox_lanes_kernel(uint32_t key0, uint32_t key1,
+                        const int64_t* __restrict__ gid,
+                        const int32_t* __restrict__ step, uint32_t batch,
+                        uint32_t n, uint32_t domain, float offset,
+                        float scale, float* __restrict__ out,
+                        int32_t* __restrict__ bits) {
+  const Keys ks{0, domain, gid, step};
+  draw_body<kGauss, kLayout, kVec, kBits, true>(key0, key1, ks, batch, n,
+                                                offset, scale, out, bits);
+}
+
 bool aligned(const void* p, uintptr_t bytes) {
   return ((uintptr_t)p & (bytes - 1)) == 0;
 }
@@ -158,17 +225,25 @@ bool aligned(const void* p, uintptr_t bytes) {
 struct Draw {
   uint32_t key0, key1;
   uint64_t frame0;
-  uint32_t batch, n, stream;
+  uint32_t batch, n, stream;  // stream: the domain for the per-lane draw
   float offset, scale;
   float* out;
   int32_t* bits;
+  const int64_t* gid;  // non-null: the per-lane draw
+  const int32_t* step;
 };
 
 template <bool kGauss, int kLayout, bool kVec, bool kBits>
 void start(const Draw& d, dim3 grid, dim3 block, cudaStream_t s) {
-  philox_draw_kernel<kGauss, kLayout, kVec, kBits><<<grid, block, 0, s>>>(
-      d.key0, d.key1, d.frame0, d.batch, d.n, d.stream, d.offset, d.scale,
-      d.out, d.bits);
+  if (d.gid != nullptr) {
+    philox_lanes_kernel<kGauss, kLayout, kVec, kBits><<<grid, block, 0, s>>>(
+        d.key0, d.key1, d.gid, d.step, d.batch, d.n, d.stream, d.offset,
+        d.scale, d.out, d.bits);
+  } else {
+    philox_draw_kernel<kGauss, kLayout, kVec, kBits><<<grid, block, 0, s>>>(
+        d.key0, d.key1, d.frame0, d.batch, d.n, d.stream, d.offset, d.scale,
+        d.out, d.bits);
+  }
 }
 
 template <bool kGauss, int kLayout>
@@ -192,7 +267,8 @@ void start_layout(const Draw& d, bool vec, dim3 grid, dim3 block,
 template <bool kGauss>
 int launch(uint64_t seed, uint64_t frame0, int64_t batch, int64_t n,
            uint32_t stream, int layout, float offset, float scale, float* out,
-           int32_t* bits, int device, void* cuda_stream, int* fast) {
+           int32_t* bits, int device, void* cuda_stream, int* fast,
+           const int64_t* gid = nullptr, const int32_t* step = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool col_major = layout == kLayoutColMajor;
@@ -207,7 +283,7 @@ int launch(uint64_t seed, uint64_t frame0, int64_t batch, int64_t n,
   if (batch == 0 || n == 0) return (int)cudaSuccess;
   const Draw d{(uint32_t)seed, (uint32_t)(seed >> 32), frame0,
                (uint32_t)batch, (uint32_t)n, stream, offset, scale, out,
-               bits};
+               bits, gid, step};
   const uintptr_t width = col_major ? 8 : 16;
   const bool vec_shape = col_major ? batch % 2 == 0 : n % 4 == 0;
   const bool vec = vec_shape && aligned(out, width) &&
@@ -246,4 +322,28 @@ extern "C" int ldpc_gauss_philox(uint64_t seed, uint64_t frame0,
                                  void* cuda_stream, int* fast) {
   return launch<true>(seed, frame0, batch, n, stream, layout, offset, scale,
                       out, bits, device, cuda_stream, fast);
+}
+
+// Per-lane keys: column b draws frame gid[b] on stream
+// 1 + 2 * step[b] + domain (gid and step on the device, batch entries each).
+extern "C" int ldpc_uniform_philox_lanes(uint64_t seed, const int64_t* gid,
+                                         const int32_t* step, int64_t batch,
+                                         int64_t n, uint32_t domain,
+                                         int layout, float* out,
+                                         int32_t* bits, int device,
+                                         void* cuda_stream, int* fast) {
+  if (domain > 1) return (int)cudaErrorInvalidValue;
+  return launch<false>(seed, 0, batch, n, domain, layout, 0.0f, 1.0f, out,
+                       bits, device, cuda_stream, fast, gid, step);
+}
+
+extern "C" int ldpc_gauss_philox_lanes(uint64_t seed, const int64_t* gid,
+                                       const int32_t* step, int64_t batch,
+                                       int64_t n, uint32_t domain, int layout,
+                                       float offset, float scale, float* out,
+                                       int32_t* bits, int device,
+                                       void* cuda_stream, int* fast) {
+  if (domain > 1) return (int)cudaErrorInvalidValue;
+  return launch<true>(seed, 0, batch, n, domain, layout, offset, scale, out,
+                      bits, device, cuda_stream, fast, gid, step);
 }

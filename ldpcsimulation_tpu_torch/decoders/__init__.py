@@ -19,7 +19,12 @@ from .base import (
 from .bp import MAXLLR, bp_cn_update, bp_step, decode_bp, pair_excl_logmags
 from .bp_layered import decode_bp_layered_qc, qc_bp_layered_step
 from .bp_qc import decode_bp_qc, qc_bp_step, qc_cn_bp
-from .ddbmp import decode_ddbmp, decode_ddbmp_qc, qc_ddbmp_round
+from .ddbmp import (
+    ddbmp_round,
+    decode_ddbmp,
+    decode_ddbmp_qc,
+    qc_ddbmp_round,
+)
 from .gdbf import (
     PRESETS,
     GDBFConfig,
@@ -87,6 +92,7 @@ __all__ = [
     "decode_bp_qc",
     "qc_bp_step",
     "qc_cn_bp",
+    "ddbmp_round",
     "decode_ddbmp",
     "decode_ddbmp_qc",
     "qc_ddbmp_round",

@@ -1,4 +1,5 @@
-"""Monte-Carlo harness: simulation loop, stopping rules, stats, log rows."""
+"""Monte-Carlo harness: simulation loop, stopping rules, stats, log rows;
+the streaming refill harness in :mod:`.stream` and :mod:`.stream_gdbf`."""
 
 from .fixtures import cycle_indices, load_codeword_file, save_codeword_file
 from .logging import (

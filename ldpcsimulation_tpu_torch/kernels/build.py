@@ -136,6 +136,16 @@ def library() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_float, _P, _P, ctypes.c_int, _P, _INT_P,
         ]
         lib.ldpc_gauss_philox.restype = ctypes.c_int
+        lanes = [ctypes.c_uint64, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                 ctypes.c_uint32, ctypes.c_int]
+        lib.ldpc_uniform_philox_lanes.argtypes = lanes + [
+            _P, _P, ctypes.c_int, _P, _INT_P,
+        ]
+        lib.ldpc_uniform_philox_lanes.restype = ctypes.c_int
+        lib.ldpc_gauss_philox_lanes.argtypes = lanes + [
+            ctypes.c_float, ctypes.c_float, _P, _P, ctypes.c_int, _P, _INT_P,
+        ]
+        lib.ldpc_gauss_philox_lanes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -33,6 +33,17 @@ draws — as the TPU functions do.  The decoders key their draws with
 channel draw, and the two top streams are the NGDBFhw noise ring's and the
 SystemC model's source stream.  Both layouts are written directly: ``"nb"`` is the
 decoders' ``[n, batch]``, ``"bn"`` the TPU functions' ``[batch, n]``.
+
+Per-lane keys.  A streaming decoder holds one frame per lane, each at its
+own step: :func:`uniform_philox_lanes` and :func:`gauss_philox_lanes` take
+an int64 frame id ``gid[b]`` and an int32 step ``step[b]`` per column, on the
+device, and draw column b with the counter ``(quad j, gid[b] lo, gid[b] hi,
+1 + 2·step[b] + domain)`` — the key :func:`noise_stream` gives frame
+``gid[b]`` at that step.  On contiguous gids and one step they write the
+bits of the contiguous entries, so a streamed frame draws what its batch
+decode draws.  The same kernels' per-lane instances; their twins
+(:func:`uniform_philox_lanes_plain`, :func:`gauss_philox_lanes_plain`)
+run the same Philox on tensor counters.
 """
 
 from __future__ import annotations
@@ -55,6 +66,10 @@ __all__ = [
     "uniform_philox_plain",
     "gauss_philox",
     "gauss_philox_plain",
+    "uniform_philox_lanes",
+    "uniform_philox_lanes_plain",
+    "gauss_philox_lanes",
+    "gauss_philox_lanes_plain",
 ]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -274,3 +289,106 @@ def gauss_philox(seed: int, frame0: int, batch: int, n: int, stream: int,
                                   scale, layout, device, with_bits)
     return _draw("ldpc_gauss_philox", "gauss_philox", seed, frame0, batch,
                  n, stream, layout, device, with_bits, offset, scale)
+
+
+def _check_lanes(gid, step, n, domain, layout):
+    if gid.dim() != 1 or gid.dtype != torch.int64:
+        raise ValueError(f"gid must be [batch] int64, got {tuple(gid.shape)} "
+                         f"{gid.dtype}")
+    if step.shape != gid.shape or step.dtype != torch.int32:
+        raise ValueError(f"step must be [{gid.shape[0]}] int32, got "
+                         f"{tuple(step.shape)} {step.dtype}")
+    if step.device != gid.device:
+        raise ValueError(f"step on {step.device}, gid on {gid.device}")
+    if domain not in (0, 1) or n < 0:
+        raise ValueError(f"bad domain {domain} or n {n}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r} (want one of "
+                         f"{sorted(LAYOUTS)})")
+
+
+def _plain_lane_bits(seed, gid, step, n, domain, layout):
+    """[batch, n] (or [n, batch] for "nb") int64 24-bit integers k of the
+    per-lane keys."""
+    nquads = (n + 3) // 4
+    j = torch.arange(nquads, dtype=torch.int64, device=gid.device)[None, :]
+    g = gid[:, None]
+    stream = (1 + 2 * step.to(torch.int64)[:, None] + domain) & _MASK32
+    words = philox4x32_10(
+        (j, g & _MASK32, (g >> 32) & _MASK32, stream),
+        (seed & _MASK32, seed >> 32),
+    )
+    k = torch.stack(words, dim=-1).reshape(len(gid), 4 * nquads)[:, :n] >> 8
+    return k.t().contiguous() if layout == "nb" else k
+
+
+def uniform_philox_lanes_plain(seed: int, gid: torch.Tensor,
+                               step: torch.Tensor, n: int, domain: int,
+                               layout: str = "nb", with_bits: bool = False):
+    """Plain PyTorch twin of B3's per-lane instance."""
+    _check_lanes(gid, step, n, domain, layout)
+    k = _plain_lane_bits(seed, gid, step, n, domain, layout)
+    u = _plain_uniform(k)
+    return (u, k.to(torch.int32)) if with_bits else u
+
+
+def gauss_philox_lanes_plain(seed: int, gid: torch.Tensor, step: torch.Tensor,
+                             n: int, domain: int, offset: float, scale: float,
+                             layout: str = "nb", with_bits: bool = False):
+    """Plain PyTorch twin of B4's per-lane instance."""
+    _check_lanes(gid, step, n, domain, layout)
+    k = _plain_lane_bits(seed, gid, step, n, domain, layout)
+    nrm = _SQRT2 * torch.erfinv(2.0 * _plain_uniform(k) - 1.0)
+    y = offset + scale * nrm
+    return (y, k.to(torch.int32)) if with_bits else y
+
+
+def _draw_lanes(entry, name, seed, gid, step, n, domain, layout, with_bits,
+                *scalars):
+    device = gid.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    _check_lanes(gid, step, n, domain, layout)
+    if not 0 <= seed < _U64:
+        raise ValueError(f"seed {seed} outside [0, 2^64)")
+    gid, step = gid.contiguous(), step.contiguous()
+    batch = gid.shape[0]
+    shape = (n, batch) if layout == "nb" else (batch, n)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    bits = (torch.empty(shape, dtype=torch.int32, device=device)
+            if with_bits else None)
+    build.launch_philox(
+        entry, name, seed, gid.data_ptr(), step.data_ptr(), batch, n, domain,
+        LAYOUTS[layout], *scalars, out.data_ptr(),
+        bits.data_ptr() if with_bits else None, device.index,
+        build.stream_of(device),
+    )
+    return (out, bits) if with_bits else out
+
+
+def uniform_philox_lanes(seed: int, gid: torch.Tensor, step: torch.Tensor,
+                         n: int, domain: int, layout: str = "nb",
+                         with_bits: bool = False):
+    """Keyed uniforms of lane b's frame ``gid[b]`` at its step ``step[b]``
+    (stream ``1 + 2·step[b] + domain``), in :func:`uniform_philox`'s
+    layouts, on gid's device.  CPU: the plain twin.  CUDA: kernel B3's
+    per-lane instance, or an exception."""
+    if gid.device.type == "cpu":
+        return uniform_philox_lanes_plain(seed, gid, step, n, domain,
+                                          layout, with_bits)
+    return _draw_lanes("ldpc_uniform_philox_lanes", "uniform_philox_lanes",
+                       seed, gid, step, n, domain, layout, with_bits)
+
+
+def gauss_philox_lanes(seed: int, gid: torch.Tensor, step: torch.Tensor,
+                       n: int, domain: int, offset: float, scale: float,
+                       layout: str = "nb", with_bits: bool = False):
+    """Keyed Gaussians ``offset + scale·(√2·erfinv(2u − 1))`` on the
+    per-lane uniforms of :func:`uniform_philox_lanes`.  CPU: the plain
+    twin.  CUDA: kernel B4's per-lane instance, or an exception."""
+    if gid.device.type == "cpu":
+        return gauss_philox_lanes_plain(seed, gid, step, n, domain, offset,
+                                        scale, layout, with_bits)
+    return _draw_lanes("ldpc_gauss_philox_lanes", "gauss_philox_lanes", seed,
+                       gid, step, n, domain, layout, with_bits, offset,
+                       scale)

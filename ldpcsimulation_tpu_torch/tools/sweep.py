@@ -32,6 +32,9 @@ Examples (one H100):
     python -m ldpcsimulation_tpu_torch.tools.sweep ngdbfhw \\
         --code highrate_2048_384 --snr 4.25 -T 600 --frames 65536 \\
         --batch 32768 --persistent-qpointer --log hw.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep bp --code qc_1008_504 \\
+        --snr 2.0 -T 20 --early-termination --msg-dtype f16 --stream \\
+        --batch 32768 --log bp_stream.log
 
 Ported so far: the min-sum family (plain, offset and normalized, the
 fixed-point variants on ``quantize_no_zero`` samples), sum-product BP (on
@@ -43,8 +46,12 @@ GDBF/NGDBF presets and the fixed-point NGDBFhw (a fixed ``--frames`` count,
 the 802.3an defaults unless given, with its ``<log>_<snr>_itdist.dat``
 completion file), on every named code and on ``--alist`` files.  QC codes
 (named, or detected in an alist in natural order) take the QC decoders and
-the QC graph operations, the others the slot-array ones.  The other decoders
-and run modes exit with an error naming their ROADMAP item.
+the QC graph operations, the others the slot-array ones.  ``--stream`` runs
+the streaming refill harness (``harness/stream.py``, ``stream_gdbf.py``;
+lanes = ``--batch``) for min-sum and BP (with ``--early-termination``), the
+layered schedules, DD-BMP (QC codes) and the GDBF presets, with the JAX
+CLI's refusals.  The other decoders and run modes exit with an error naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -91,6 +98,17 @@ from ..harness import (
     simulate,
 )
 from ..harness.fixtures import load_codeword_file
+from ..harness.stream import (
+    bp_layered_qc_stream,
+    bp_qc_stream,
+    bp_stream,
+    ddbmp_qc_stream,
+    minsum_layered_qc_stream,
+    minsum_qc_stream,
+    minsum_stream,
+    simulate_stream,
+)
+from ..harness.stream_gdbf import simulate_stream_gdbf
 
 __all__ = ["main", "build_parser"]
 
@@ -151,8 +169,21 @@ def build_parser() -> argparse.ArgumentParser:
                    default="flooding")
     p.add_argument("--distributed", action="store_true",
                    help="not ported yet (ROADMAP A13)")
-    p.add_argument("--stream", action="store_true",
-                   help="not ported yet (ROADMAP A10)")
+    p.add_argument(
+        "--stream", action="store_true",
+        help="min-sum/BP (with --early-termination; QC, slot-array, or "
+             "--schedule layered QC codes), ddbmp (QC codes), gdbf: run "
+             "the streaming refill harness (persistent lanes refilled from "
+             "a keyed channel pool) instead of the batched loop — the same "
+             "per-frame results, no straggler tax.  All-zero codewords; "
+             "lanes = --batch.",
+    )
+    p.add_argument(
+        "--pool-bytes", type=int, default=None,
+        help="--stream channel-pool byte budget (default 1 GiB): the "
+             "rounds per call shrink so the pool fits it "
+             "(harness.stream.pool_policy)",
+    )
     p.add_argument("--rate", type=float, help="code rate R (default k/n)")
     p.add_argument("--snr", required=True, help="Eb/N0 grid 'a:b:step' dB")
     p.add_argument("-T", "--iterations", type=int, required=True)
@@ -223,10 +254,36 @@ def _refuse_unported(args) -> None:
 
     if args.decoder in _NOT_PORTED:
         no(f"decoder {args.decoder!r}", _NOT_PORTED[args.decoder])
-    if args.stream:
-        no("--stream", "A10")
-    if args.distributed:
+    if args.stream and args.decoder == "ngdbfhw":
+        no("--stream ngdbfhw", "A11.4")
+    if args.distributed and not args.stream:
         no("--distributed", "A13")
+
+
+def _refuse_stream(args, codewords) -> None:
+    """The JAX CLI's refusals of ``--stream`` combinations."""
+    if not args.stream:
+        return
+    if args.decoder not in ("gdbf", "ddbmp") and not args.early_termination:
+        # gdbf and ddbmp always stop early
+        raise SystemExit(
+            "sweep: error: --stream requires --early-termination "
+            "(fixed-trip decodes have no straggler tax to remove)"
+        )
+    if codewords is not None:
+        raise SystemExit(
+            "sweep: error: --stream simulates all-zero codewords"
+        )
+    if args.distributed:
+        raise SystemExit(
+            "sweep: error: --stream runs on one device in the CLI; "
+            "--distributed is the batched operating-point grid engine"
+        )
+    if args.schedule == "layered" and args.decoder not in (*_MINSUM, "bp"):
+        raise SystemExit(
+            "sweep: error: --schedule layered streams min-sum variants and "
+            "BP only"
+        )
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -251,6 +308,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.codewords
         else None
     )
+    _refuse_stream(args, codewords)
     if codewords is not None:
         # Fail fast if the fixture rows are not codewords of this H.
         probe = torch.as_tensor(np.asarray(codewords[:4], np.int32))
@@ -282,6 +340,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             stop=stop_override or stop, batch_size=args.batch,
             seed=args.seed, preprocess=preprocess, codewords=codewords,
             device=device, verbose=args.verbose, decode_carry0=carry0,
+        )
+
+    def run_stream_point(snr, sdec, preprocess=None):
+        return simulate_stream(
+            code.n, sdec, snr, rate, T, stop=stop, lanes=args.batch,
+            refill_every=2, seed=args.seed, preprocess=preprocess,
+            pool_bytes=args.pool_bytes, verbose=args.verbose, device=device,
         )
 
     grid = list(itertools.product(
@@ -327,19 +392,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             continue
         if args.decoder in _MINSUM:
             stats, row = _minsum_point(args, code, qc, alist_name, run_point,
-                                       T, point)
+                                       run_stream_point, T, point)
         elif args.decoder == "bp":
             stats, row = _bp_point(args, code, qc, alist_name, rate,
-                                   run_point, T, point)
+                                   run_point, run_stream_point, T, point)
         elif args.decoder == "ddbmp":
-            stats, row = _ddbmp_point(code, qc, alist_name, run_point, T,
-                                      point)
+            stats, row = _ddbmp_point(args, code, qc, alist_name, run_point,
+                                      run_stream_point, T, point)
         elif args.decoder == "ngdbfhw":
             stats, row = _ngdbfhw_point(args, code, qc, rate, run_point, T,
                                         point, device)
         else:
             stats, row = _gdbf_point(args, code, qc, alist_name, rate,
-                                     run_point, T, point)
+                                     run_point, T, point, stop, device)
         append_row(args.log, row)
         _mark_done(args.log, gkey)
         print(
@@ -380,10 +445,12 @@ def _load_code(args, device):
     return code, det.qc, args.alist
 
 
-def _minsum_point(args, code, qc, alist_name, run_point, T, point):
+def _minsum_point(args, code, qc, alist_name, run_point, run_stream_point,
+                  T, point):
     """One grid point of a min-sum route: the fixed-point variants decode
     ``quantize_no_zero`` samples (Ymax 2.0 and 8 levels unless given), and
-    their rows carry Ymax and alpha or delta, as the JAX CLI's do."""
+    their rows carry Ymax and alpha or delta, as the JAX CLI's do.  With
+    ``--stream``, the stream adapter of the same decoder."""
     (snr, ymax, nq, alpha, delta, *_rest) = point
     variant = _MINSUM[args.decoder]
     pre = None
@@ -398,14 +465,26 @@ def _minsum_point(args, code, qc, alist_name, run_point, T, point):
         early_termination=args.early_termination,
         storage_dtype=torch.float16 if args.msg_dtype == "f16" else None,
     )
-    if args.schedule == "layered":
-        dec = lambda y, key: decode_minsum_layered_qc(  # noqa: E731
-            qc, y, T, **kw)
-    elif qc is not None:
-        dec = lambda y, key: decode_minsum_qc(qc, y, T, **kw)  # noqa: E731
+    if args.stream:
+        skw = {k: v for k, v in kw.items() if k != "early_termination"}
+        if args.schedule == "layered":
+            sdec = minsum_layered_qc_stream(qc, **skw)
+        elif qc is not None:
+            sdec = minsum_qc_stream(qc, **skw)
+        else:
+            sdec = minsum_stream(code, **skw)
+        stats = run_stream_point(snr, sdec, preprocess=pre)
     else:
-        dec = lambda y, key: decode_minsum(code, y, T, **kw)  # noqa: E731
-    stats = run_point(snr, dec, preprocess=pre)
+        if args.schedule == "layered":
+            dec = lambda y, key: decode_minsum_layered_qc(  # noqa: E731
+                qc, y, T, **kw)
+        elif qc is not None:
+            dec = lambda y, key: decode_minsum_qc(  # noqa: E731
+                qc, y, T, **kw)
+        else:
+            dec = lambda y, key: decode_minsum(  # noqa: E731
+                code, y, T, **kw)
+        stats = run_point(snr, dec, preprocess=pre)
     row = minsum_log_row(
         snr, stats, T, alist_name,
         ymax=ymax if variant != "plain" else None,
@@ -415,14 +494,26 @@ def _minsum_point(args, code, qc, alist_name, run_point, T, point):
     return stats, row
 
 
-def _bp_point(args, code, qc, alist_name, rate, run_point, T, point):
+def _bp_point(args, code, qc, alist_name, rate, run_point, run_stream_point,
+              T, point):
     """One grid point of the BP route: LLRs ``llr_from_channel(y, N0)``,
     the layered decoder under ``--schedule layered`` (no storage type
-    there), else the QC or the slot-array flooding decoder."""
+    there), else the QC or the slot-array flooding decoder; with
+    ``--stream``, its stream adapter."""
     snr = point[0]
     n0 = float(snr_to_n0(snr, rate))
     et = args.early_termination
     sdt = torch.float16 if args.msg_dtype == "f16" else None
+    if args.stream:
+        if args.schedule == "layered":
+            sdec = bp_layered_qc_stream(qc)
+        elif qc is not None:
+            sdec = bp_qc_stream(qc, storage_dtype=sdt)
+        else:
+            sdec = bp_stream(code, storage_dtype=sdt)
+        stats = run_stream_point(
+            snr, sdec, preprocess=lambda y: llr_from_channel(y, n0))
+        return stats, bp_log_row(snr, stats, T, alist_name)
     if args.schedule == "layered":
         dec = lambda llr, key: decode_bp_layered_qc(  # noqa: E731
             qc, llr, T, early_termination=et)
@@ -437,12 +528,23 @@ def _bp_point(args, code, qc, alist_name, rate, run_point, T, point):
     return stats, bp_log_row(snr, stats, T, alist_name)
 
 
-def _ddbmp_point(code, qc, alist_name, run_point, T, point):
+def _ddbmp_point(args, code, qc, alist_name, run_point, run_stream_point, T,
+                 point):
     """One grid point of the DD-BMP route: ``quantize_no_zero`` samples
-    (Ymax 1.5 and 8 levels unless given); the row carries Ymax."""
+    (Ymax 1.5 and 8 levels unless given); the row carries Ymax.  With
+    ``--stream``, the QC stream adapter (QC codes only, as in the JAX
+    CLI)."""
     (snr, ymax, nq, *_rest) = point
     ym = ymax if ymax is not None else 1.5
     nql = nq if nq is not None else 8.0
+    if args.stream:
+        if qc is None:
+            raise SystemExit(
+                "sweep: error: --stream ddbmp requires a QC code")
+        stats = run_stream_point(
+            snr, ddbmp_qc_stream(qc),
+            preprocess=lambda y: quantize_no_zero(y, ym, nql))
+        return stats, minsum_log_row(snr, stats, T, alist_name, ymax=ym)
     if qc is not None:
         dec = lambda yq, key: decode_ddbmp_qc(qc, yq, T)  # noqa: E731
     else:
@@ -452,7 +554,8 @@ def _ddbmp_point(code, qc, alist_name, run_point, T, point):
     return stats, minsum_log_row(snr, stats, T, alist_name, ymax=ym)
 
 
-def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point):
+def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point,
+                stop, device):
     """One grid point of the GDBF route: the JAX CLI's defaults (theta
     −0.9, quantizer Ymax 2.25 when only --nq is given), preprocessing
     (saturate, then quantize) and row fields."""
@@ -484,11 +587,22 @@ def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point):
         return out
 
     sigma = snr_to_sigma(snr, rate)
-    stats = run_point(
-        snr,
-        lambda yq, key: decode_gdbf(code, yq, sigma, cfg, key=key, qc=qc),
-        preprocess=pre,
-    )
+    if args.stream:
+        stats = simulate_stream_gdbf(
+            code, cfg, snr, rate=rate, stop=stop, lanes=args.batch,
+            # a boundary costs a syndrome and a refill pass: at the
+            # family's large caps a coarse cadence pays
+            refill_every=8 if T >= 64 else 2, seed=args.seed,
+            preprocess=pre, qc=qc, pool_bytes=args.pool_bytes,
+            verbose=args.verbose, device=device,
+        )
+    else:
+        stats = run_point(
+            snr,
+            lambda yq, key: decode_gdbf(code, yq, sigma, cfg, key=key,
+                                        qc=qc),
+            preprocess=pre,
+        )
     row = gdbf_log_row(
         snr, stats, T, cfg.theta, alist_name,
         noise_scale=(cfg.noise_scale

@@ -42,12 +42,16 @@ from ldpcsimulation_tpu_torch.channel import (
 from ldpcsimulation_tpu_torch.kernels.channel import (
     awgn_philox,
     gauss_philox,
+    gauss_philox_lanes,
+    gauss_philox_lanes_plain,
     gauss_philox_plain,
     NGDBFHW_RING_STREAM,
     SYSTEMC_STREAM,
     noise_stream,
     philox4x32_10,
     uniform_philox,
+    uniform_philox_lanes,
+    uniform_philox_lanes_plain,
     uniform_philox_plain,
 )
 from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
@@ -406,3 +410,85 @@ def test_noise_wrappers_route_and_reject():
         uniform_philox(1, 2, 8, 9, 3, "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         gauss_philox(1, 2, 8, 9, 3, 0.0, 1.0, "meta")
+
+
+# ------------------------------------------------------- per-lane keyed draws
+
+
+def _lanes(kind, seed, gid, step, n, domain, layout, bits=False):
+    if kind == "uniform":
+        return uniform_philox_lanes_plain(seed, gid, step, n, domain, layout,
+                                          bits)
+    return gauss_philox_lanes_plain(seed, gid, step, n, domain, 0.0, 0.6817,
+                                    layout, bits)
+
+
+def _contiguous(kind, seed, frame0, batch, n, stream, layout, bits=False):
+    if kind == "uniform":
+        return uniform_philox_plain(seed, frame0, batch, n, stream, layout,
+                                    with_bits=bits)
+    return gauss_philox_plain(seed, frame0, batch, n, stream, 0.0, 0.6817,
+                              layout, with_bits=bits)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "gauss"])
+@pytest.mark.parametrize("layout", ["nb", "bn"])
+@pytest.mark.parametrize("frame0,batch,n,step,domain", [
+    (0, 64, 1008, 0, 0), (2**32 - 7, 33, 1007, 41, 1),
+    (2**40 + 3, 5, 6, 2**31 - 3, 0),
+])
+def test_lane_twins_equal_the_contiguous_twins(kind, layout, frame0, batch,
+                                               n, step, domain):
+    """On contiguous gids and one step the per-lane twins give the bits of
+    the contiguous twins on stream ``noise_stream(step, domain)`` (gids
+    across 2^32, the last step)."""
+    gid = frame0 + torch.arange(batch, dtype=torch.int64)
+    steps = torch.full((batch,), step, dtype=torch.int32)
+    got = _lanes(kind, 5, gid, steps, n, domain, layout, True)
+    want = _contiguous(kind, 5, frame0, batch, n, noise_stream(step, domain),
+                       layout, True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "gauss"])
+@pytest.mark.parametrize("layout", ["nb", "bn"])
+def test_lane_twins_equal_a_column_loop(kind, layout):
+    """Scattered gids and steps: each lane's column equals the contiguous
+    twin's draw of its own frame at its own step (an idle lane's gid −1
+    draws frame 2^64 − 1)."""
+    gen = torch.Generator().manual_seed(3)
+    gid = torch.randint(0, 2**62, (19,), generator=gen)
+    gid[[2, 7]] = torch.tensor([-1, 2**32])
+    step = torch.randint(0, 2**31 - 2, (19,), generator=gen,
+                         dtype=torch.int32)
+    step[4] = 0
+    for domain in (0, 1):
+        got = _lanes(kind, 11, gid, step, 13, domain, layout)
+        if layout == "nb":
+            got = got.t()
+        for b in range(19):
+            want = _contiguous(kind, 11, int(gid[b]) % 2**64, 1, 13,
+                               noise_stream(int(step[b]), domain), "bn")
+            assert torch.equal(got[b], want[0]), (domain, b)
+
+
+def test_lane_wrappers_route_and_reject():
+    gid = torch.arange(4, 12, dtype=torch.int64)
+    step = torch.full((8,), 3, dtype=torch.int32)
+    assert torch.equal(uniform_philox_lanes(1, gid, step, 9, 1),
+                       uniform_philox_lanes_plain(1, gid, step, 9, 1))
+    assert torch.equal(gauss_philox_lanes(1, gid, step, 9, 0, 0.0, 0.5,
+                                          "bn"),
+                       gauss_philox_lanes_plain(1, gid, step, 9, 0, 0.0, 0.5,
+                                                "bn"))
+    for bad in (dict(gid=gid.int()), dict(step=step.long()),
+                dict(step=step[:3]), dict(domain=2), dict(layout="xy")):
+        kw = dict(gid=gid, step=step, domain=0, layout="nb") | bad
+        with pytest.raises(ValueError):
+            uniform_philox_lanes(1, kw["gid"], kw["step"], 9, kw["domain"],
+                                 kw["layout"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        uniform_philox_lanes(1, gid.to("meta"), step.to("meta"), 9, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gauss_philox_lanes(1, gid.to("meta"), step.to("meta"), 9, 0, 0.0,
+                           1.0)

@@ -1,8 +1,9 @@
 """The port's sweep CLI: the min-sum routes (plain, offset, normalized; named
 codes and --alist files; flooding and layered), the BP routes (slot-array,
 QC, layered), the DD-BMP route, the GDBF route and the NGDBFhw route (with
-its itdist file) write the JAX CLI's row format and resume keys; everything
-not ported exits naming its ROADMAP item."""
+its itdist file), and the ``--stream`` routes, write the JAX CLI's row
+format and resume keys; ``--stream`` refuses what the JAX CLI refuses;
+everything not ported exits naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -90,14 +91,51 @@ def test_codeword_fixture_route(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--stream"], "A10"),
     (["--distributed"], "A13"),
-    (["--schedule", "layered", "--stream"], "A10"),
     (["--schedule", "layered", "--distributed"], "A13"),
 ])
 def test_unported_options_name_roadmap_item(tmp_path, extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         main(BASE + ["--snr", "2.0", "--log", str(tmp_path / "x")] + extra)
+
+
+def _codeword_file(tmp_path):
+    from ldpcsimulation_tpu.codes import make_encoder, random_codewords
+    from ldpcsimulation_tpu.codes.library import load_named_qc
+    from ldpcsimulation_tpu.harness.fixtures import save_codeword_file
+    import jax
+
+    enc = make_encoder(load_named_qc("qc_1008_504").to_code())
+    cw = np.asarray(random_codewords(enc, jax.random.key(9), 4))
+    path = tmp_path / "data.enc"
+    save_codeword_file(str(path), cw)
+    return str(path)
+
+
+@pytest.mark.parametrize("args,msg", [
+    (BASE, "--stream requires --early-termination"),
+    (BASE + ["--schedule", "layered"],
+     "--stream requires --early-termination"),
+    (["bp"] + BASE[1:], "--stream requires --early-termination"),
+    (BASE + ["--early-termination", "--codewords", None],
+     "--stream simulates all-zero codewords"),
+    (BASE + ["--early-termination", "--distributed"],
+     "--stream runs on one device in the CLI"),
+    (["ddbmp"] + BASE[1:] + ["--schedule", "layered"],
+     "--schedule layered streams min-sum variants and BP only"),
+    (["ddbmp", "--code", "peg_96_48", "-T", "4", "--batch", "16",
+      "--max-frames", "16"], "--stream ddbmp requires a QC code"),
+])
+def test_stream_refusals_are_the_jax_clis(tmp_path, args, msg):
+    """``--stream`` refuses what the JAX CLI refuses, with its message."""
+    args = [_codeword_file(tmp_path) if a is None else a for a in args]
+    args = [a for a in args if a not in ("--device", "cpu")]
+    common = args + ["--snr", "2.0", "--stream", "--log",
+                     str(tmp_path / "x")]
+    with pytest.raises(SystemExit, match=msg):
+        main(common + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match=msg):
+        jax_main(common)
 
 
 @pytest.mark.parametrize("decoder,item", [
@@ -111,13 +149,48 @@ def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
 
 @pytest.mark.parametrize("decoder", ["bp", "ddbmp", "ngdbfhw"])
 @pytest.mark.parametrize("extra,item", [
-    (["--stream"], "A10"), (["--distributed"], "A13"),
+    (["--stream", "--early-termination"], "A11.4"),
+    (["--distributed"], "A13"),
 ])
 def test_ported_decoders_still_refuse_stream_and_distributed(
         tmp_path, decoder, extra, item):
+    """``--distributed`` waits for A13; the NGDBFhw stream for A11.4, while
+    the BP and DD-BMP streams run (one row each)."""
+    args = [decoder] + BASE[1:] + ["--snr", "2.0", "--log",
+                                   str(tmp_path / "x")] + extra
+    if item == "A11.4" and decoder != "ngdbfhw":
+        assert main(args) == 0
+        assert len(_rows(tmp_path / "x")) == 1
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        main([decoder] + BASE[1:] + ["--snr", "2.0", "--log",
-                                     str(tmp_path / "x")] + extra)
+        main(args)
+
+
+@pytest.mark.parametrize("args,width", [
+    (["minsum", "--code", "qc_1008_504", "--msg-dtype", "f16"], 6),
+    (["offsetminsum", "--code", "peg_96_48", "--delta", "0.15"], 7),
+    (["bp", "--code", "qc_1008_504", "--msg-dtype", "f16"], 6),
+    (["bp", "--code", "qc_1008_504", "--schedule", "layered"], 6),
+    (["normalizedminsum", "--code", "qc_1008_504", "--schedule", "layered",
+      "--alpha", "1.25"], 7),
+    (["ddbmp", "--code", "qc_1008_504", "--ymax", "1.6"], 7),
+    (["gdbf", "--preset", "SMNGDBF", "--code", "qc_1008_504", "--theta",
+      "-0.7", "--noise-scale", "0.9", "--lam", "0.98", "--alpha", "0.8",
+      "--ymax", "2.5", "--window", "4"], 16),
+])
+def test_stream_rows_and_keys_equal_jax_cli(tmp_path, args, width):
+    """``--stream`` routes through both CLIs (lanes = --batch): the same
+    rows column for column apart from the Monte-Carlo statistics (the
+    packages draw other noise), the same resume keys."""
+    common = args + ["-T", "4", "--snr", "3.0", "--batch", "32",
+                     "--max-frames", "32", "--stream"]
+    if args[0] not in ("ddbmp", "gdbf"):
+        common.append("--early-termination")
+    stats = (1, 2, 3)
+    if args[0] == "gdbf":  # errors, frames and smoothing counts too
+        stats = (1, 2, 3, 4, 5, 11, 12)
+    rows = _assert_rows_and_keys_equal(tmp_path, common, stats=stats)
+    assert all(len(r) == width and r[0] == "3" for r in rows)
 
 
 @pytest.mark.parametrize("decoder", ["bp", "minsum", "normalizedminsum"])
