@@ -1,8 +1,9 @@
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, checks each
 against its plain PyTorch twin on the card, drives the min-sum main path,
 the SMNGDBF bit-flip path, the BP, layered and DD-BMP paths, the
-hardware-model bit-flip paths (NGDBFhw, the SystemC model) and the
-streaming refill harness at full width, and measures every kernel against
+hardware-model bit-flip paths (NGDBFhw, the SystemC model), the
+streaming refill harness (the NGDBFhw stream among them) and the
+non-binary FFT-QSPA paths at full width, and measures every kernel against
 its bounds.
 
     python3 chip_smoke.py
@@ -131,7 +132,7 @@ the exit code is non-zero):
      against its twin, with times and bounds;
  26. the sweep CLI's ``ngdbfhw`` route with ``--persistent-qpointer`` and
      ``--itdist-biased`` (its row and its itdist file), and its refusal of
-     ``--stream``;
+     ``--stream`` with the pointer carry (the JAX CLI's message);
  27. the streaming harness on the card against the CPU plain path: every
      binary stream adapter (QC and slot-array min-sum, layered min-sum, QC
      and slot-array DD-BMP, QC, slot-array and layered BP) and the GDBF
@@ -156,8 +157,46 @@ the exit code is non-zero):
      launches, and one normal call's steady state and host syncs (zero,
      ``torch.cuda.set_sync_debug_mode``);
  29. the sweep CLI's ``--stream`` routes (QC min-sum, QC and layered BP,
-     DD-BMP, ``gdbf --uniform-noise``), one row each, and the NGDBFhw
-     stream's refusal naming ROADMAP A11.4.
+     DD-BMP, ``gdbf --uniform-noise``), one row each;
+ 30. the NGDBFhw stream (``harness/stream_ngdbfhw.py``) recorded on the card
+     and on the CPU plain path over one B2 pool (highrate_2048_384 with one
+     phase, refill every 16 steps and a refill cap of 32 of 64 lanes, and
+     with three phases every 4 steps; qc_1008_504 on the QC graph
+     operations): records (gid, least iterations, least errors,
+     exit-satisfied, ring offset, decisions) and counters equal under
+     ``torch.equal``, B2 once and B4's per-lane entry once per boundary;
+     B4's per-lane entry on the ring's stream (``lane_rings``) against its
+     twin at [2648 x 32768] and [2648 x 33] (gids from 2^31, with the
+     integers), against ``keyed_ring`` on contiguous gids past 2^31, with
+     times and bounds at the refill shapes; the NB decoders card against
+     CPU on ``nb_regular(480, 320, 3, q)`` for q = 4, 8, 16 (the three
+     check-node forms): one check update's normalized probabilities within
+     ``NB_PROB_ATOL`` (f16 storage: plus two f16 ulps of the log values),
+     T=10 decodes agreeing on ``NB_FRAME_AGREEMENT``
+     of 128 frames in f32 and f16 storage, min-sum and min-max under
+     ``torch.equal`` on the same negative logs; the NB stream on the card
+     equal frame by frame to the batch decoder on the card, and agreeing
+     with the CPU stream;
+ 31. at full width, counters reset just before and read just after: (a)
+     ``simulate_stream_ngdbfhw`` on highrate_2048_384 at 4.25 dB, T=600,
+     the 802.3an defaults, one phase, 32768 lanes refilled every 16 steps
+     (4 x 32768 frames), gated within 4 joint s.e. of the JAX CPU run
+     (BER, FER, average iterations), then a 2048-lane recorded stream over
+     4096 frames equal frame by frame to the batch decoder on the card at
+     the recorded ring offsets, the steady state with its host syncs (zero)
+     and one step's and one boundary's device time; (b) the NB path on
+     ``nb_regular(6000, 4000, 3, q=8, seed=0)`` at 1.3 dB, T=20, f16
+     storage: ``simulate_stream_nb`` (512 lanes, refill every iteration,
+     16 x 512 frames) and ``simulate_nb`` (B=512) over the same frames,
+     each gated within 4 joint s.e. of the JAX CPU run (SER, BER, FER,
+     average iterations), their totals equal; bits/s, lane-iterations per
+     frame, ms per iteration, peak memory and the NB layers' times;
+ 32. B2 against its twin at the NB batch [512 x 18000] and at the NB and
+     NGDBFhw stream pools' shapes, with times and bounds;
+ 33. the sweep CLI's ``ngdbfhw --stream`` and ``nbqspa`` routes
+     (``--nb-random``, ``--stream``, an NB alist), one row each, and the
+     refusals of ``--stream --persistent-qpointer`` and ``--distributed
+     nbqspa`` (ROADMAP A13).
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -243,6 +282,11 @@ JAX_POINTS = dict(
         ber=(0.003871675521608383, 7.604523978040917e-05),
         fer=(0.0428619384765625, 0.0007911944503361386),
         avg_iterations=(68.33592224121094, 0.23725365977424873)),
+    nbqspa_gf8=dict(  # 4096 frames, 1393 word errors
+        ser=(0.021400105794270832, 0.0007956466506496585),
+        ber=(0.009873521592881945, 0.00036239711103423815),
+        fer=(0.340087890625, 0.007402163252668095),
+        avg_iterations=(18.515625, 0.02625371543273826)),
 )
 WIFI_CODE = "wifi_1944_972"
 REG4_CODE = "reg4_4000_2000"
@@ -2038,7 +2082,8 @@ def phase_hw_paths(device, lib_path, timer):
 
 def phase_hw_sweep(device, batch):
     """The sweep CLI's ngdbfhw route with the pointer carry and the biased
-    itdist estimator, and its refusal of --stream."""
+    itdist estimator, and its refusal of --stream with the pointer carry
+    (the JAX CLI's)."""
     from ldpcsimulation_tpu_torch.harness import fmt
     from ldpcsimulation_tpu_torch.kernels import build
     from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
@@ -2075,7 +2120,8 @@ def phase_hw_sweep(device, batch):
           and vals[0] == 1.0 and len(vals) > 1, f"itdist {itdist[:3]}")
     check(launches == {"awgn_philox": 2, "gauss_philox": 2},
           f"ngdbfhw sweep launches {launches}")
-    check("ROADMAP A11.4" in refused, f"--stream refusal {refused!r}")
+    check("already chains ring offsets" in refused,
+          f"--stream refusal {refused!r}")
     print(f"  row: {row[0]}; itdist {len(itdist)} lines from "
           f"{itdist[0]} to {itdist[-1]}; launches {launches}; --stream: "
           f"{refused}")
@@ -2600,8 +2646,8 @@ def phase_stream_paths(device):
 
 
 def phase_stream_sweep(device, batch):
-    """The sweep CLI's --stream routes, one row each, then the NGDBFhw
-    stream's refusal."""
+    """The sweep CLI's --stream routes, one row each (the NGDBFhw and NB
+    stream routes in [33])."""
     from ldpcsimulation_tpu_torch.kernels import build
     from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
 
@@ -2643,15 +2689,746 @@ def phase_stream_sweep(device, batch):
                 launched[k] = launched.get(k, 0) + v
             print(f"  {' '.join(args[:5])} --stream: {row[0]}; launches "
                   f"{launches}")
-    try:
-        sweep_main(["ngdbfhw", "--code", HW_CODE, "--snr", "4.25", "-T",
-                    "600", "--log", "unused.log"] + common)
-    except SystemExit as e:
-        msg = str(e)
-    else:
-        msg = ""
-    check("ROADMAP A11.4" in msg, f"ngdbfhw --stream: {msg!r}")
-    print(f"  ngdbfhw --stream: {msg}")
+    return launched
+
+
+# The NGDBFhw stream (ROADMAP A11.4, second half) and the non-binary family
+# (A12).  The NGDBFhw stream refills every 16 steps with
+# lanes = 32768, as the JAX CLI's ``ngdbfhw --stream``; the NB path decodes
+# GF(8) ``nb_regular(6000, 4000, 3, q=8, seed=0)`` (the geometry of the
+# reference's q8.sp.6000.4000.3000.1) at B=512 (the JAX package's documented
+# batch), 1.3 dB (its knee: FER 0.34 in the JAX CPU run), T=20, early
+# termination, f16 message storage; its stream refills every iteration.
+HW_STREAM_K = 16
+NB_CODE = (6000, 4000, 3, 8)
+NB_SNR_DB, NB_T, NB_BATCH = 1.3, 20, 512
+# NB card against CPU: one check update's messages as normalized
+# probabilities p = exp(x - max over the field), |card - cpu| <=
+# NB_PROB_ATOL (f32 storage) or, with f16 storage, <= 1.1 p (u(x) + u(max))
+# + NB_PROB_ATOL with u one f16 ulp at the log value's magnitude -- compared
+# as probabilities because the inverse WHT of a vanishing probability
+# cancels to a residue of either sign, whose log (clamped at 0, plus
+# 1e-30) is -69 or ~-18 -- and the share of frames whose T=10 symbols and
+# iterations agree.
+NB_PROB_ATOL = 1e-5
+NB_FRAME_AGREEMENT = 0.97
+HW_STREAM_FIELDS = ("gid", "iters", "errs", "sat", "qp0", "hard")
+
+
+def nb_moments(stats):
+    """(value, standard error) of SER, BER, FER and average iterations from
+    an NB run's per-frame histograms."""
+    f = stats.total_words
+
+    def hist(h, offset, scale):
+        w = np.arange(len(h)) + offset
+        mean = (w * h).sum() / f
+        var = ((w**2 * h).sum() / f - mean**2) * f / (f - 1)
+        return mean / scale, math.sqrt(var / f) / scale
+
+    m = stats.q.bit_length() - 1
+    return dict(ser=hist(stats.symbol_weight_hist, 1, stats.n),
+                ber=hist(stats.bit_weight_hist, 1, stats.n * m),
+                fer=(stats.fer, math.sqrt(stats.fer * (1 - stats.fer) / f)),
+                avg_iterations=hist(stats.iteration_hist, 0, 1.0))
+
+
+def f16_ulp(x):
+    """One f16 ulp at each element's magnitude, as f32."""
+    return torch.from_numpy(np.spacing(x.abs().numpy().astype(np.float16))
+                            .astype(np.float32))
+
+
+def gate(label, got, point):
+    """Each statistic within 4 joint standard errors of the JAX point."""
+    for key, (want, want_se) in point.items():
+        val, se = got[key]
+        bound = 4 * math.hypot(se, want_se)
+        print(f"  {key}: port {val:.6g} (se {se:.3g}), JAX {want:.6g} (se "
+              f"{want_se:.3g}), |diff| {abs(val - want):.3g} <= {bound:.3g}")
+        check(abs(val - want) <= bound, f"{label} {key} outside 4 joint s.e.")
+
+
+def nb_code(device):
+    from ldpcsimulation_tpu_torch.codes import build_code, nb_regular
+
+    n, m, dv, q = NB_CODE
+    return build_code(nb_regular(n, m, dv, q, seed=0), device)
+
+
+def ring_lanes_draw(device, lib_path, timer):
+    """B4's per-lane entry on the ring's stream (``lane_rings``) against its
+    twin (scattered int64 gids, past 2^31, with the integers), against the
+    contiguous ``keyed_ring`` on contiguous gids, and the CPU twin against
+    the card; its time, its twin's and its bounds at the refill shapes."""
+    from ldpcsimulation_tpu_torch.decoders import NoiseKey
+    from ldpcsimulation_tpu_torch.decoders.ngdbf_hw import (
+        RING_LANE_STEP,
+        NGDBFHwConfig,
+        _ring_integers,
+        keyed_ring,
+        lane_rings,
+    )
+    from ldpcsimulation_tpu_torch.harness.stream_ngdbfhw import (
+        default_refill_cap,
+    )
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        gauss_philox_lanes,
+        gauss_philox_lanes_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    cfg = NGDBFHwConfig(num_iterations=HW_T, ring_len=2648)
+    sigma = 0.5
+    scale = float(np.float32(sigma * cfg.noise_scale))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    err = 0.0
+    for b in (BATCH, 33):
+        gid = torch.randint(2**31 - 2 * b, 2**40, (b,), generator=gen,
+                            device=device)
+        step = torch.full((b,), RING_LANE_STEP, dtype=torch.int32,
+                          device=device)
+        got, k = gauss_philox_lanes(SEED, gid, step, cfg.ring_len, 0, 0.0,
+                                    scale, with_bits=True)
+        want, k_p = gauss_philox_lanes_plain(SEED, gid, step, cfg.ring_len,
+                                             0, 0.0, scale, with_bits=True)
+        check(torch.equal(k, k_p) and torch.equal(got, want),
+              f"ring lanes [{cfg.ring_len} x {b}]: kernel != plain")
+        check(torch.equal(lane_rings(cfg, sigma, SEED, gid), got),
+              "lane_rings != gauss_philox_lanes on the ring step")
+        fin = torch.isfinite(want)
+        err = max(err, float((got[fin] - want[fin]).abs().max()))
+        del got, k, want, k_p, fin
+    f0 = 2**31 - 700
+    cg = f0 + torch.arange(1024, device=device)
+    ring = lane_rings(cfg, sigma, SEED, cg)
+    check(torch.equal(ring, keyed_ring(cfg, sigma, NoiseKey(SEED, f0), 1024,
+                                       device)),
+          "lane_rings != keyed_ring on contiguous gids past 2^31")
+    ring_c = lane_rings(cfg, sigma, SEED, cg.cpu())
+    raw_equal = torch.equal(ring_c, ring.cpu())
+    check(torch.equal(_ring_integers(cfg, ring_c),
+                      _ring_integers(cfg, ring).cpu()),
+          "lane_rings: the CPU twin's ring integers != the card's")
+    kern = sass_count.find(sass_count.parse(sass_count.disassemble(lib_path)),
+                           "philox_lanes_kernelILb1ELi1ELb1ELb0EE")
+    _, top = sm_clocks()
+    hint = JAX_POINTS["ngdbfhw_highrate"]["avg_iterations"][0]
+    out = dict(max_abs_err=err, shapes={})
+    for cols in (default_refill_cap(BATCH, HW_STREAM_K, hint), BATCH):
+        gid = torch.randint(0, 2**40, (cols,), generator=gen, device=device)
+        ms = timer(lambda: lane_rings(cfg, sigma, SEED, gid))
+        step = torch.full((cols,), RING_LANE_STEP, dtype=torch.int32,
+                          device=device)
+        plain_ms = timer(lambda: gauss_philox_lanes_plain(
+            SEED, gid, step, cfg.ring_len, 0, 0.0, scale), 2)
+        threads = (cfg.ring_len + 3) // 4 * ((cols + 1) // 2)
+        path = kern.path_length()
+        nbytes = cfg.ring_len * cols * 4 + cols * (8 + 4)
+        ops = cfg.ring_len * cols * 8
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        issue = sass_count.issue_ms(threads, path, top, SMS)
+        out["shapes"][f"[{cfg.ring_len} x {cols}]"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(mem_ms, ops_ms),
+            bound_by="bytes" if mem_ms >= ops_ms else "operations",
+            issue_ms=issue, memory_share=mem_ms / ms,
+            share=max(mem_ms, ops_ms, issue) / ms, bytes=nbytes,
+            operations=ops, sass_path=path)
+        print(f"  ring lanes [{cfg.ring_len} x {cols}]: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; memory {mem_ms:.4f} ms ({nbytes / 1e6:.1f}"
+              f" MB, share {mem_ms / ms:.1%}), operations {ops_ms:.4f} ms, "
+              f"issue {issue:.4f} ms ({path:g} SASS, share {issue / ms:.1%})")
+    print(f"  ring lanes: kernel == twin at [{cfg.ring_len} x {BATCH}] and "
+          f"[{cfg.ring_len} x 33] (gids from 2^31, step {RING_LANE_STEP}), "
+          "== keyed_ring on contiguous gids; the CPU twin's ring integers =="
+          f" the card's (raw draws equal: {raw_equal})")
+    return out
+
+
+def phase_hw_nb_card_vs_cpu(device, lib_path, timer, lanes=64, frames=256):
+    """[30] The NGDBFhw stream recorded on the card and on the CPU plain path
+    over the same B2 pool (records and counters under ``torch.equal``), B4's
+    per-lane ring draw, the NB decoders card against CPU (QSPA by tolerance
+    and agreement, min-sum/min-max under ``torch.equal`` on the same
+    negative logs) and the NB stream on the card against the batch decoder
+    on the card (``torch.equal`` per frame) and against the CPU stream."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.channel.nb import symbol_priors
+    from ldpcsimulation_tpu_torch.codes import (
+        build_code,
+        load_named_code,
+        load_named_qc,
+        nb_regular,
+    )
+    from ldpcsimulation_tpu_torch.decoders import NGDBFHwConfig
+    from ldpcsimulation_tpu_torch.decoders.nb_minsum import (
+        decode_nb_minsum_nll,
+        nb_nll,
+    )
+    from ldpcsimulation_tpu_torch.decoders.nb_qspa import (
+        decode_nb_qspa,
+        nb_qspa_machine,
+    )
+    from ldpcsimulation_tpu_torch.harness import stream
+    from ldpcsimulation_tpu_torch.harness import stream_ngdbfhw as sh
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    counted = {}
+    qc = load_named_qc(CODE)
+    hw = load_named_code(HW_CODE, device)
+    for label, code_d, q, snr, phases, k, cap in (
+        (f"{HW_CODE} x1 K=16 cap 32", hw, None, HW_SNR_DB, 1, 16, 32),
+        (f"{HW_CODE} x3 K=4", hw, None, 4.0, 3, 4, None),
+        (f"{CODE} (QC ops) x1 K=16", qc.to_code(device), qc, 3.5, 1, 16,
+         None),
+    ):
+        cfg = NGDBFHwConfig(num_iterations=60, max_phases=phases,
+                            ring_len=max(2648, code_d.n + 600))
+        sigma = snr_to_sigma(snr, code_d.rate)
+        rounds = 3 * 60 * phases // k
+        build.LAUNCHES.clear()
+        pool = sh.build_channel_pool_hw(code_d, SEED, 9 * frames, frames,
+                                        sigma, q, device=device)
+        got = {}
+        for dev, rows in ((device, pool), ("cpu", [p.cpu() for p in pool])):
+            code = code_d.to(dev)
+            call = sh.make_hw_stream_call(code, cfg, rounds, k, qc=q,
+                                          record=True,
+                                          rec_cap=frames + lanes,
+                                          refill_cap=cap)
+            state = sh.hw_stream_init(code, cfg, lanes, dev, record=True)
+            state, acc, rec = call(state, *rows, 9 * frames, SEED, sigma)
+            if dev == device:
+                launched = dict(build.LAUNCHES)
+            got[str(dev)] = (stream.fetch(acc),
+                             records_of(acc, rec, HW_STREAM_FIELDS))
+        (a, r), (a_c, r_c) = got[str(device)], got["cpu"]
+        check(a["rc"] > lanes, f"NGDBFhw stream {label}: {a['rc']} retired")
+        for f in HW_STREAM_FIELDS:
+            check(torch.equal(r[f], r_c[f]),
+                  f"NGDBFhw stream {label} {f}: card != CPU")
+        for key in a:
+            check(np.array_equal(a[key], a_c[key]),
+                  f"NGDBFhw stream {label} acc {key}: card != CPU")
+        check(launched == {"awgn_philox": 1, "gauss_philox_lanes": rounds},
+              f"NGDBFhw stream {label}: launches {launched}")
+        counted[label] = launched
+        print(f"  NGDBFhw stream {label}: {a['rc']} frames retired of "
+              f"{a['consumed']} taken, {lanes} lanes, card == CPU (records, "
+              f"counters); {len(set(r['qp0'].tolist()))} ring offsets; "
+              f"launches {launched}")
+    rings = ring_lanes_draw(device, lib_path, timer)
+
+    # the NB decoders: the three check-node forms (q = 4, 8, 16)
+    # points where ~97 % of frames check out within T=10: a frame that does
+    # not wanders, and an ulp sends it elsewhere
+    for q, snr in ((4, 2.6), (8, 2.6), (16, 2.6)):
+        m = q.bit_length() - 1
+        code_c = build_code(nb_regular(480, 320, 3, q, seed=0))
+        code_d = code_c.to(device)
+        n0 = float(snr_to_n0(snr, code_c.rate))
+        y = awgn_all_zero(SEED, 0, 128, code_c.n * m, math.sqrt(n0 / 2),
+                          device).reshape(128, code_c.n, m)
+        pri = symbol_priors(y, n0, q)
+        pri_c = symbol_priors(y.cpu(), n0, q)
+        perr = float((pri.cpu() - pri_c).abs().max())
+        check(perr <= 1e-6, f"NB q={q} priors card vs CPU {perr}")
+        for sdt in (None, torch.float16):
+            M_d = nb_qspa_machine(code_d, q, torch.float32, sdt)
+            M_c = nb_qspa_machine(code_c, q, torch.float32, sdt)
+            lp = M_c["log_of"](pri_c.permute(1, 2, 0).contiguous())
+            v2c = M_c["init"](lp)
+            c2v = M_d["cn_update"](v2c.to(device)).float().cpu()
+            x = M_c["cn_update"](v2c).float()
+            top = x.amax(dim=1, keepdim=True)
+            p_c = torch.exp(x - top)
+            dp = (torch.exp(c2v - c2v.amax(dim=1, keepdim=True)) - p_c).abs()
+            tol = NB_PROB_ATOL
+            if sdt is not None:
+                tol = tol + 1.1 * p_c * (f16_ulp(x) + f16_ulp(top))
+            check(bool((dp <= tol).all()),
+                  f"NB q={q} {sdt} cn_update: card vs CPU {dp.max()}")
+            dp = float(dp.max())
+            res = decode_nb_qspa(code_d, pri, 10, storage_dtype=sdt)
+            ref = decode_nb_qspa(code_c, pri_c, 10, storage_dtype=sdt)
+            same = float(((res.symbols.cpu() == ref.symbols).all(dim=1)
+                          & (res.iterations.cpu() == ref.iterations))
+                         .float().mean())
+            check(same >= NB_FRAME_AGREEMENT,
+                  f"NB q={q} {sdt} decode: agreement {same}")
+            print(f"  NB QSPA q={q} storage {sdt or 'f32'}: one check update "
+                  f"card vs CPU within {dp:.2g}, T=10 decodes agree on "
+                  f"{same:.4f} of 128 frames (satisfied "
+                  f"{float(res.satisfied.float().mean()):.3f}); priors "
+                  f"within {perr:.2g}")
+        nll = nb_nll(pri_c)
+        for variant in ("minsum", "minmax"):
+            res = decode_nb_minsum_nll(code_d, nll.to(device), 10, variant)
+            ref = decode_nb_minsum_nll(code_c, nll, 10, variant)
+            for f in ("symbols", "iterations", "satisfied"):
+                check(torch.equal(getattr(res, f).cpu(), getattr(ref, f)),
+                      f"NB {variant} q={q} {f}: card != CPU")
+        print(f"  NB min-sum and min-max q={q}: card == CPU on the same "
+              "negative logs")
+
+    # the NB stream: card against the card's batch decoder, and the CPU, at
+    # 1.6 dB, where frames check out ([31] holds the 1.3 dB point's totals)
+    code = nb_code(device)
+    q = code.q
+    n0 = float(snr_to_n0(1.6, code.rate))
+    sigma = math.sqrt(n0 / 2)
+    f16 = torch.float16
+    dec = stream.nb_qspa_stream(code, n0, q, f16)
+    nb_frames, nb_lanes = 4 * 64, 64
+    pool = stream.build_channel_pool_nb(dec, SEED, 0, nb_frames, code.n, q,
+                                        sigma, device)
+    got = {}
+    for dev, rows in ((device, pool), ("cpu", [p.cpu() for p in pool])):
+        dec_d = stream.nb_qspa_stream(code.to(dev), n0, q, f16)
+        call = stream.make_stream_call(dec_d, code.n, NB_T, NB_T + 10, 1,
+                                       record=True,
+                                       rec_cap=nb_frames + nb_lanes,
+                                       max_weight=code.n * 3)
+        state = stream.stream_init(dec_d, nb_lanes, code.n * q, device=dev)
+        build.LAUNCHES.clear()
+        state, acc, rec = call(state, *rows, 0)
+        got[str(dev)] = (stream.fetch(acc), records_of(acc, rec,
+                                                       STREAM_FIELDS))
+    (a, r), (_, r_c) = got[str(device)], got["cpu"]
+    m = q.bit_length() - 1
+    y = awgn_all_zero(SEED, 0, nb_frames, code.n * m, sigma, device)
+    res = decode_nb_qspa(code, symbol_priors(y.reshape(nb_frames, code.n, m),
+                                             n0, q), NB_T, storage_dtype=f16)
+    g = r["gid"].long()
+    check(torch.equal(r["iters"], res.iterations.cpu()[g])
+          and torch.equal(r["hard"], res.symbols.cpu()[g].to(torch.int8)),
+          "NB stream on the card != the batch decoder on the card")
+    per = {int(gg): (int(i), int(e)) for gg, i, e in
+           zip(r["gid"], r["iters"], r["errs"])}
+    per_c = {int(gg): (int(i), int(e)) for gg, i, e in
+             zip(r_c["gid"], r_c["iters"], r_c["errs"])}
+    same = sum(per_c.get(gg) == v for gg, v in per.items()) / len(per)
+    check(a["rc"] >= nb_lanes and same >= NB_FRAME_AGREEMENT,
+          f"NB stream card vs CPU: {a['rc']} frames, agreement {same}")
+    print(f"  NB stream GF(8) ({code.n} symbols, f16, 1.6 dB): {a['rc']} "
+          f"frames retired, each equal to the card's batch decode (symbols, "
+          f"iterations); card vs CPU stream agreement {same:.4f}")
+    return counted, rings
+
+
+def hw_stream_path(device, timer):
+    """[31a] ``simulate_stream_ngdbfhw`` at full width, gated on the JAX
+    point; a 2048-lane recorded stream over a 4096-frame prefix equal frame
+    by frame to the batch decoder on the card at the recorded ring offsets;
+    the steady state; one step's and one boundary's device time."""
+    from ldpcsimulation_tpu_torch.channel import snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import (
+        NGDBFHwConfig,
+        NoiseKey,
+        decode_ngdbf_hw,
+    )
+    from ldpcsimulation_tpu_torch.harness import StopRule, stream
+    from ldpcsimulation_tpu_torch.harness import stream_ngdbfhw as sh
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    code = load_named_code(HW_CODE, device)
+    cfg = NGDBFHwConfig(num_iterations=HW_T, ring_len=max(2648, code.n + 600))
+    sigma = snr_to_sigma(HW_SNR_DB, code.rate)
+    hint = JAX_POINTS["ngdbfhw_highrate"]["avg_iterations"][0]
+    label = (f"(a) simulate_stream_ngdbfhw {HW_CODE} {HW_SNR_DB} dB T={HW_T}"
+             f" K={HW_STREAM_K}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    stats = sh.simulate_stream_ngdbfhw(
+        code, cfg, HW_SNR_DB, stop=StopRule.fixed_frames(4 * BATCH),
+        lanes=BATCH, refill_every=HW_STREAM_K, avg_iters_hint=hint,
+        seed=SEED, device=device)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rate_bits = stats.total_words * code.k / stats.wall_seconds
+    steps = stats.extra["steps"]
+    per_frame = steps * BATCH / stats.total_words
+    print(f"  {label}: BER {stats.ber!r} FER {stats.fer!r} avg iterations "
+          f"{stats.avg_iterations!r} over {stats.total_words} frames in "
+          f"{stats.wall_seconds:.4f} s (drain included): {rate_bits:.6g} "
+          f"decoded info bits/s; {steps} stream steps, {per_frame:.4g} "
+          f"lane-iterations per counted frame (the batch path: {HW_T}); "
+          f"peak device memory {peak:.2f} GiB; launches {launches}")
+    check(launches.get("awgn_philox", 0) >= 1
+          and launches.get("gauss_philox_lanes", 0) >= 1
+          and "gauss_philox" not in launches, f"{label}: launches {launches}")
+    gate(label, mc_moments(stats, code.n), JAX_POINTS["ngdbfhw_highrate"])
+
+    # exactness: every frame of a recorded 2048-lane stream equals the batch
+    # decode on the card at its ring offset
+    lanes, frames = 2048, 4096
+    call = sh.make_hw_stream_call(
+        code, cfg, 16, HW_STREAM_K, record=True, rec_cap=frames + lanes,
+        refill_cap=sh.default_refill_cap(lanes, HW_STREAM_K, hint))
+    state = sh.hw_stream_init(code, cfg, lanes, device, record=True)
+    pool = sh.build_channel_pool_hw(code, SEED, 0, frames, sigma,
+                                    device=device)
+    parts = []
+    for ptr0 in (0, *([frames] * (2 + HW_T // (16 * HW_STREAM_K)))):
+        if ptr0 and bool(state["idle"].all()):
+            break
+        state, acc, rec = call(state, *pool, 0, SEED, sigma, ptr0)
+        parts.append(records_of(acc, rec, HW_STREAM_FIELDS))
+    rec = {f: torch.cat([p[f] for p in parts]) for f in HW_STREAM_FIELDS}
+    order = torch.argsort(rec["gid"])
+    rec = {f: v[order] for f, v in rec.items()}
+    check(torch.equal(rec["gid"], torch.arange(frames)),
+          f"exactness stream: frames {len(rec['gid'])} of {frames}")
+    res = decode_ngdbf_hw(code, pool[0], sigma, cfg, key=NoiseKey(SEED, 0),
+                          qpointer0=rec["qp0"].to(device))
+    for f, v in (("iters", res.iterations), ("errs", res.least_errors),
+                 ("sat", res.satisfied), ("hard", res.hard.to(torch.int8))):
+        check(torch.equal(rec[f], v.cpu()), f"exactness stream {f} != batch")
+    totals = (int(rec["errs"].sum()), int((rec["errs"] > 0).sum()),
+              int(rec["iters"].sum()))
+    print(f"  exactness: {frames} frames of a {lanes}-lane stream equal the "
+          f"batch decoder on the card at their ring offsets "
+          f"({len(set(rec['qp0'].tolist()))} offsets): (bit errors, word "
+          f"errors, iterations) {totals}")
+
+    cap = sh.default_refill_cap(BATCH, HW_STREAM_K, hint)
+    st = stream_steady(
+        lambda r, k: sh.make_hw_stream_call(code, cfg, r, k, refill_cap=cap),
+        lambda: sh.hw_stream_init(code, cfg, BATCH, device),
+        lambda base: sh.build_channel_pool_hw(code, SEED, base, 3 * BATCH,
+                                              sigma, device=device),
+        BATCH, math.ceil(hint / HW_STREAM_K) + 1, HW_STREAM_K,
+        extra=(SEED, sigma))
+    st_bits = st["frames_per_s"] * code.k
+    print(f"  steady state: {st['frames']} frames in one normal call of "
+          f"{st['seconds']:.4f} s: {st_bits:.6g} decoded info bits/s, "
+          f"{st['lane_iterations_per_frame']:.4g} lane-iterations per "
+          f"frame; {st['syncs']} host syncs in the call")
+    check(st["syncs"] == 0, f"{label}: {st['syncs']} syncs in a normal call")
+
+    # one step and one boundary: calls of one boundary and 1 or 17 steps
+    pool = sh.build_channel_pool_hw(code, SEED, 0, 4 * BATCH, sigma,
+                                    device=device)
+    state = [sh.hw_stream_init(code, cfg, BATCH, device)]
+    times = {}
+    for k in (1, 17):
+        call = sh.make_hw_stream_call(code, cfg, 1, k, refill_cap=cap)
+
+        def one():
+            state[0], _, _ = call(state[0], *pool, 0, SEED, sigma)
+
+        for _ in range(12):
+            one()  # lanes filled, their finishing times spread
+        times[k] = timer(one, 5)
+    step_ms = (times[17] - times[1]) / 16
+    boundary_ms = times[1] - step_ms
+    print(f"  device time: one step {step_ms:.3f} ms, one boundary "
+          f"{boundary_ms:.3f} ms (refill cap {cap} of {BATCH} lanes)")
+    return dict(
+        ber=stats.ber, fer=stats.fer, avg_iterations=stats.avg_iterations,
+        frames=stats.total_words, decoded_info_bits_per_s=rate_bits,
+        stream_steps=steps, lane_iterations_per_frame=per_frame,
+        batch_rounds_per_frame=HW_T, peak_gib=peak, launches=launches,
+        exact_totals=totals, exact_frames=frames,
+        steady_bits_per_s=st_bits,
+        steady_lane_iterations_per_frame=st["lane_iterations_per_frame"],
+        syncs_in_a_normal_call=st["syncs"], step_ms=step_ms,
+        boundary_ms=boundary_ms, refill_cap=cap)
+
+
+def nb_breakdown(code, device, timer):
+    """Device time of each NB layer at B=512: priors, one check update, one
+    variable update, the decision and the syndrome check."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero, snr_to_n0
+    from ldpcsimulation_tpu_torch.channel.nb import symbol_priors
+    from ldpcsimulation_tpu_torch.decoders.nb_qspa import nb_qspa_machine
+
+    q = code.q
+    m = q.bit_length() - 1
+    n0 = float(snr_to_n0(NB_SNR_DB, code.rate))
+    y = awgn_all_zero(SEED, 0, NB_BATCH, code.n * m, math.sqrt(n0 / 2),
+                      device).reshape(NB_BATCH, code.n, m)
+    M = nb_qspa_machine(code, q, torch.float32, torch.float16)
+    pri = symbol_priors(y, n0, q)
+    lp = M["log_of"](pri.permute(1, 2, 0).contiguous())
+    v2c = M["init"](lp)
+    c2v = M["cn_update"](v2c)
+    _, post = M["vn_update"](c2v, lp)
+    sym = M["decide"](post)
+    parts = {
+        "priors": timer(lambda: M["log_of"](symbol_priors(y, n0, q).permute(
+            1, 2, 0).contiguous()), 5),
+        "cn_update": timer(lambda: M["cn_update"](v2c), 5),
+        "vn_update": timer(lambda: M["vn_update"](c2v, lp), 5),
+        "decide": timer(lambda: M["decide"](post), 5),
+        "syndrome_ok": timer(lambda: M["syndrome_ok"](sym), 5),
+    }
+    print(f"  NB layers at B={NB_BATCH} (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    return parts
+
+
+def nb_paths(device, timer):
+    """[31b] ``simulate_stream_nb`` (512 lanes, refill every iteration) and
+    ``simulate_nb`` (B=512) at the NB point, each gated on the JAX point,
+    their totals equal over the same frames; the batch decode's ms per
+    iteration, the stream's steady state and the layers' times."""
+    import contextlib
+
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        snr_to_n0,
+    )
+    from ldpcsimulation_tpu_torch.channel.nb import symbol_priors
+    from ldpcsimulation_tpu_torch.decoders.nb_qspa import decode_nb_qspa
+    from ldpcsimulation_tpu_torch.harness import StopRule, stream
+    from ldpcsimulation_tpu_torch.harness.montecarlo_nb import simulate_nb
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    code = nb_code(device)
+    q = code.q
+    m = q.bit_length() - 1
+    k_info = (code.n - code.m) * m
+    n0 = float(snr_to_n0(NB_SNR_DB, code.rate))
+    f16 = torch.float16
+    point = JAX_POINTS["nbqspa_gf8"]
+    out = {}
+
+    @contextlib.contextmanager
+    def counting(steps):
+        orig = stream.nb_qspa_stream
+        stream.nb_qspa_stream = lambda *a, **k: count_steps(orig(*a, **k),
+                                                            steps)
+        try:
+            yield
+        finally:
+            stream.nb_qspa_stream = orig
+
+    def measured(label, run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        build.LAUNCHES.clear()
+        stats = run()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        rate_bits = stats.total_words * k_info / stats.wall_seconds
+        print(f"  {label}: SER {stats.ser!r} BER {stats.ber!r} FER "
+              f"{stats.fer!r} avg iterations {stats.avg_iterations!r} over "
+              f"{stats.total_words} frames in {stats.wall_seconds:.4f} s: "
+              f"{rate_bits:.6g} decoded info bits/s; peak device memory "
+              f"{peak:.2f} GiB; launches {launches}")
+        check(launches.get("awgn_philox", 0) >= 1 and set(launches) == {
+            "awgn_philox"}, f"{label}: launches {launches}")
+        gate(label, nb_moments(stats), point)
+        return stats, dict(
+            ser=stats.ser, ber=stats.ber, fer=stats.fer,
+            avg_iterations=stats.avg_iterations, frames=stats.total_words,
+            decoded_info_bits_per_s=rate_bits, peak_gib=peak,
+            launches=launches)
+
+    steps = [0]
+    with counting(steps):
+        s_stats, out["stream"] = measured(
+            f"(b) simulate_stream_nb GF(8) {NB_SNR_DB} dB T={NB_T} f16, "
+            f"{NB_BATCH} lanes", lambda: stream.simulate_stream_nb(
+                code, NB_SNR_DB, NB_T, stop=StopRule.fixed_frames(
+                    16 * NB_BATCH), lanes=NB_BATCH, refill_every=1,
+                seed=SEED, storage_dtype=f16, device=device))
+    per_frame = steps[0] * NB_BATCH / s_stats.total_words
+    out["stream"].update(stream_iterations=steps[0],
+                         lane_iterations_per_frame=per_frame)
+    print(f"  {steps[0]} stream iterations: {per_frame:.4g} lane-iterations "
+          f"per counted frame (the batch path runs {NB_T} while any frame "
+          "of a batch fails)")
+    simulate_nb(code, NB_SNR_DB, NB_T, stop=StopRule.fixed_frames(NB_BATCH),
+                batch_size=NB_BATCH, seed=SEED, storage_dtype=f16,
+                device=device)  # warm-up batch
+    b_stats, out["batch"] = measured(
+        f"(c) simulate_nb GF(8) {NB_SNR_DB} dB T={NB_T} f16, B={NB_BATCH}",
+        lambda: simulate_nb(code, NB_SNR_DB, NB_T, stop=StopRule.fixed_frames(
+            s_stats.total_words), batch_size=NB_BATCH, seed=SEED,
+            storage_dtype=f16, device=device))
+    keys = ("bit_errors", "symbol_errors", "word_errors", "total_iterations")
+    totals = [tuple(getattr(s, k) for k in keys) for s in (s_stats, b_stats)]
+    print(f"  exactness: stream and batch over gids 0 .. "
+          f"{s_stats.total_words - 1}: (bit, symbol, word errors, "
+          f"iterations) {totals[0]} and {totals[1]}")
+    check(totals[0] == totals[1], f"NB stream != batch {totals}")
+    out["exact_totals"] = totals[0]
+
+    # one batch decode: ms per executed iteration
+    y = awgn_all_zero(SEED, 0, NB_BATCH, code.n * m, math.sqrt(n0 / 2),
+                      device).reshape(NB_BATCH, code.n, m)
+    pri = symbol_priors(y, n0, q)
+    res = decode_nb_qspa(code, pri, NB_T, storage_dtype=f16)
+    executed = (NB_T if not bool(res.satisfied.all())
+                else int(res.iterations.max()))
+    ms = timer(lambda: decode_nb_qspa(code, pri, NB_T, storage_dtype=f16), 3)
+    out["batch"].update(decode_ms=ms, ms_per_iteration=ms / executed)
+    print(f"  one decode of {NB_BATCH} frames: {ms:.2f} ms for {executed} "
+          f"iterations, {ms / executed:.3f} ms per iteration")
+    dec = stream.nb_qspa_stream(code, n0, q, f16)
+    st = stream_steady(
+        lambda r, k: stream.make_stream_call(dec, code.n, NB_T, r, k,
+                                             max_weight=code.n * m),
+        lambda: stream.stream_init(dec, NB_BATCH, code.n * q, device=device),
+        lambda base: stream.build_channel_pool_nb(
+            dec, SEED, base, 3 * NB_BATCH, code.n, q, math.sqrt(n0 / 2),
+            device),
+        NB_BATCH, math.ceil(point["avg_iterations"][0]) + 1, 1)
+    st_bits = st["frames_per_s"] * k_info
+    print(f"  stream steady state: {st['frames']} frames in one normal call "
+          f"of {st['seconds']:.4f} s: {st_bits:.6g} decoded info bits/s, "
+          f"{st['lane_iterations_per_frame']:.4g} lane-iterations per "
+          f"frame; {st['syncs']} host syncs in the call")
+    check(st["syncs"] == 0, f"NB stream: {st['syncs']} syncs in a call")
+    out["stream"].update(
+        steady_bits_per_s=st_bits,
+        steady_lane_iterations_per_frame=st["lane_iterations_per_frame"],
+        syncs_in_a_normal_call=st["syncs"])
+    out["breakdown_ms"] = nb_breakdown(code, device, timer)
+    return out
+
+
+def b2_at_shape(device, lib_path, timer, batch, n, label):
+    """B2 against its twin (on the card) at [batch, n]: samples and
+    integers under ``torch.equal``; its time, its twin's and its bounds."""
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        awgn_philox,
+        awgn_philox_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    sigma = 0.7
+    y, bits = awgn_philox(SEED, 3 * batch, batch, n, sigma, device,
+                          with_bits=True)
+    y_p, bits_p = awgn_philox_plain(SEED, 3 * batch, batch, n, sigma, device,
+                                    with_bits=True)
+    check(torch.equal(bits, bits_p) and torch.equal(y, y_p),
+          f"B2 {label} [{batch} x {n}]: kernel != plain")
+    err = float((y - y_p).abs().max())
+    del y, bits, y_p, bits_p
+    ms = timer(lambda: awgn_philox(SEED, 0, batch, n, sigma, device))
+    plain_ms = timer(lambda: awgn_philox_plain(SEED, 0, batch, n, sigma,
+                                               device), 2)
+    _, top = sm_clocks()
+    kern = sass_count.find(sass_count.parse(sass_count.disassemble(lib_path)),
+                           "awgn_philox_kernelILb1ELb0EE")
+    threads = batch * ((n + 3) // 4)
+    path = kern.path_length()
+    nbytes, ops = batch * n * 4, batch * n * 12
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    issue = sass_count.issue_ms(threads, path, top, SMS)
+    print(f"  B2 at the {label} [{batch} x {n}]: equal to its twin; "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; memory {mem_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), operations "
+          f"{ops_ms:.4f} ms, issue {issue:.4f} ms ({path:g} SASS, share "
+          f"{issue / ms:.1%})")
+    return dict(shape=[batch, n], ms=ms, plain_ms=plain_ms,
+                bound_ms=max(mem_ms, ops_ms),
+                bound_by="bytes" if mem_ms >= ops_ms else "operations",
+                issue_ms=issue, memory_share=mem_ms / ms,
+                share=max(mem_ms, ops_ms, issue) / ms, max_abs_err=err)
+
+
+def phase_b2_shapes(device, lib_path, timer):
+    """[32] B2 at the NB batch [512 x 18000] and at the two new pools' shapes
+    (the NB stream's and the NGDBFhw stream's, by ``pool_policy``)."""
+    from ldpcsimulation_tpu_torch.harness.stream import pool_policy
+
+    n, _, _, q = NB_CODE
+    m = q.bit_length() - 1
+    _, nb_pool = pool_policy(NB_BATCH, 1, None, 6.0, n * q * 4,
+                             default_rounds=32)
+    hint = JAX_POINTS["ngdbfhw_highrate"]["avg_iterations"][0]
+    _, hw_pool = pool_policy(BATCH, HW_STREAM_K, None, hint, 2048 * 4,
+                             default_rounds=32)
+    return {
+        "nb batch": b2_at_shape(device, lib_path, timer, NB_BATCH, n * m,
+                                "NB batch"),
+        "nb stream pool": b2_at_shape(device, lib_path, timer, nb_pool,
+                                      n * m, "NB stream pool"),
+        "ngdbfhw stream pool": b2_at_shape(device, lib_path, timer, hw_pool,
+                                           2048, "NGDBFhw stream pool"),
+    }
+
+
+def phase_hw_nb_sweep(device):
+    """[33] The sweep CLI's ``ngdbfhw --stream`` and ``nbqspa`` routes
+    (``--nb-random``, ``--stream``, an NB alist written here), one row each
+    with the JAX CLI's columns, and the refusals."""
+    from ldpcsimulation_tpu_torch.codes import nb_regular, save_alist
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    nb_spec = ":".join(map(str, NB_CODE))
+    common = ["--device", str(device)]
+    nb = ["-T", str(NB_T), "--msg-dtype", "f16", "--batch", str(NB_BATCH),
+          "--max-frames", str(2 * NB_BATCH)]
+    launched = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        alist = f"{tmp}/gf16.alist"
+        save_alist(nb_regular(960, 640, 3, 16, seed=1), alist)
+        runs = (
+            (["ngdbfhw", "--code", HW_CODE, "--snr", str(HW_SNR_DB), "-T",
+              str(HW_T), "--frames", "16384", "--batch", "8192", "--stream"],
+             16, "gauss_philox_lanes"),
+            (["nbqspa", "--nb-random", nb_spec, "--snr", str(NB_SNR_DB),
+              "--early-termination", *nb], 7, None),
+            (["nbqspa", "--nb-random", nb_spec, "--snr", str(NB_SNR_DB),
+              "--stream", *nb], 7, None),
+            (["nbqspa", "--alist", alist, "--snr", "2.0",
+              "--early-termination", *nb], 7, None),
+        )
+        for i, (args, width, kernel) in enumerate(runs):
+            log_path = f"{tmp}/r{i}.log"
+            build.LAUNCHES.clear()
+            rc = sweep_main(args + common + ["--log", log_path])
+            launches = dict(build.LAUNCHES)
+            with open(log_path) as f:
+                row = f.read().splitlines()
+            check(rc == 0 and len(row) == 1, f"{args[:3]} wrote one row")
+            cols = row[0].split("\t")
+            t_at = 8 if args[0] == "ngdbfhw" else 5
+            check(len(cols) == width and cols[t_at] == args[args.index("-T")
+                                                            + 1],
+                  f"{args[:3]} row {cols}")
+            if args[0] == "nbqspa":
+                check(cols[6] == (alist if "--alist" in args
+                                  else f"nb_random_{nb_spec}")
+                      and 0.0 <= float(cols[2]) <= float(cols[1]) <= 1.0,
+                      f"nbqspa row {cols}")
+            check(launches.get("awgn_philox", 0) >= 1 and (
+                kernel is None or launches.get(kernel, 0) > 0),
+                f"{' '.join(args[:4])}: launches {launches}")
+            for k, v in launches.items():
+                launched[k] = launched.get(k, 0) + v
+            print(f"  {' '.join(args[:4])}{' --stream' * ('--stream' in args)}"
+                  f": {row[0]}; launches {launches}")
+        for args, want in (
+            (["ngdbfhw", "--code", HW_CODE, "--snr", "4.25", "-T", "600",
+              "--stream", "--persistent-qpointer"],
+             "already chains ring offsets"),
+            (["nbqspa", "--nb-random", "24:12:3:4", "--snr", "2.0", "-T",
+              "4", "--distributed"], "ROADMAP A13"),
+        ):
+            try:
+                sweep_main(args + common + ["--log", f"{tmp}/x.log"])
+                msg = ""
+            except SystemExit as e:
+                msg = str(e)
+            check(want in msg, f"{' '.join(args[:3])}: {msg!r}")
+            print(f"  {' '.join(args[-2:])} refused: {msg}")
     return launched
 
 
@@ -2801,6 +3578,15 @@ def main() -> int:
     stream_paths = phase_stream_paths(device)
     header("[29] sweep CLI, the --stream routes")
     stream_sweep = phase_stream_sweep(device, 8192)
+    header("[30] NGDBFhw stream, ring draws and NB decoders: card vs CPU")
+    hw_nb_counted, rings = phase_hw_nb_card_vs_cpu(device, path, time_ms)
+    header(f"[31] NGDBFhw stream ({BATCH} lanes) and NB paths at full width")
+    hw_stream = hw_stream_path(device, time_ms)
+    nb = nb_paths(device, time_ms)
+    header("[32] B2 at the NB and the new pools' shapes vs plain")
+    b2_shapes = phase_b2_shapes(device, path, time_ms)
+    header("[33] sweep CLI, ngdbfhw --stream and the nbqspa routes")
+    hw_nb_sweep = phase_hw_nb_sweep(device)
 
     summary = {
         "card": card,
@@ -2840,6 +3626,10 @@ def main() -> int:
         "hw_paths": hw_paths,
         "stream_paths": stream_paths,
         "lanes_draws": lanes,
+        "ngdbfhw_stream": hw_stream,
+        "nb": nb,
+        "ring_lanes": rings,
+        "b2_shapes": b2_shapes,
     }
     print(json.dumps(summary))
     print(card)
@@ -2850,7 +3640,9 @@ def main() -> int:
          launches["minsum_cn_scan"], max(b1_err, forms_err, layer_err),
          None),
         ("awgn_philox", "awgn_philox.cu", "channel_pallas.py:56",
-         launches["awgn_philox"], b2_err, f"torch.randn [{BATCH}, {n}]"),
+         launches["awgn_philox"],
+         max(b2_err, *(v["max_abs_err"] for v in b2_shapes.values())),
+         f"torch.randn [{BATCH}, {n}]"),
         ("uniform_philox", "uniform_philox.cu", "channel_pallas.py:89",
          s_launches["uniform_philox"], b3_err, f"torch.rand [{n}, {BATCH}]"),
         ("gauss_philox", "uniform_philox.cu", "channel_pallas.py:114",
@@ -2884,7 +3676,17 @@ def main() -> int:
                 "systemc [25]": hw_paths["systemc_peg"]["launches"][
                     "gauss_philox"],
                 "ngdbfhw sweep [26]": hw_sweep["gauss_philox"]},
-            "shapes": hw_paths["b4_shapes"]}}
+            "shapes": hw_paths["b4_shapes"]},
+        # B2's launches on the paths of this slice ([31], [33]) and its
+        # times at their shapes ([32])
+        "awgn_philox": {
+            "launches_by_path": {
+                "minsum qc [5]": launches["awgn_philox"],
+                "ngdbfhw stream [31]": hw_stream["launches"]["awgn_philox"],
+                "nb stream [31]": nb["stream"]["launches"]["awgn_philox"],
+                "nb batch [31]": nb["batch"]["launches"]["awgn_philox"],
+                "ngdbfhw and nb sweeps [33]": hw_nb_sweep["awgn_philox"]},
+            "shapes": b2_shapes}}
     # B1's and B4's launches on the stream paths [27]-[29]
     extra["minsum_cn_scan"]["launches_by_path"].update({
         **{f"stream card vs cpu [27] {k}": v.get("minsum_cn_scan", 0)
@@ -2908,10 +3710,18 @@ def main() -> int:
                  "gauss_philox_lanes"],
              **{f"stream card vs cpu [27] {k}": v["gauss_philox_lanes"]
                 for k, v in stream_counted.items()
-                if "gauss_philox_lanes" in v}}),
+                if "gauss_philox_lanes" in v},
+             # the NGDBFhw stream's rings: one launch per refill boundary
+             "ngdbfhw stream [31]": hw_stream["launches"][
+                 "gauss_philox_lanes"],
+             **{f"ngdbfhw stream card vs cpu [30] {k}": v[
+                 "gauss_philox_lanes"] for k, v in hw_nb_counted.items()},
+             "ngdbfhw stream sweep [33]": hw_nb_sweep["gauss_philox_lanes"]}),
     ]
     for name, _, count, by_path in lane_rows:
         check(count > 0, f"{name} not launched on its path")
+    lanes["gauss_philox_lanes"]["max_abs_err"] = max(
+        lanes["gauss_philox_lanes"]["max_abs_err"], rings["max_abs_err"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",
@@ -2927,7 +3737,9 @@ def main() -> int:
          "source": "ldpcsimulation_tpu_torch/csrc/uniform_philox.cu",
          "replaces": f"ldpcsimulation_tpu/kernels/{tpu}",
          "launches": count, "library_ms": None,
-         "launches_by_path": by_path, **lanes[name]}
+         "launches_by_path": by_path, **lanes[name],
+         **({"ring_shapes": rings["shapes"]}
+            if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
     ]}))
     print(json.dumps({"ok": True, "device": {

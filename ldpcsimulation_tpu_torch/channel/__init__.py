@@ -1,5 +1,5 @@
 """Channel layer: BPSK, AWGN (generator-drawn and keyed), LLR conversion,
-saturation and the reference's quantizers."""
+saturation, the reference's quantizers, and the non-binary symbol priors."""
 
 from .awgn import (
     MAXLLR,
@@ -11,6 +11,7 @@ from .awgn import (
     snr_to_n0,
     snr_to_sigma,
 )
+from .nb import bits_to_symbols, symbol_priors, symbols_to_bits
 from .quantize import (
     quantize_no_zero,
     quantize_round,
@@ -27,6 +28,9 @@ __all__ = [
     "n0_to_sigma",
     "snr_to_n0",
     "snr_to_sigma",
+    "bits_to_symbols",
+    "symbol_priors",
+    "symbols_to_bits",
     "quantize_no_zero",
     "quantize_round",
     "quantize_threshold_table",

@@ -1,10 +1,17 @@
 """Code representation: alist I/O, constructions, padded-slot `Code`, QC
 structure and its detection, the standard tables, the GF(2) encoder, named
-codes."""
+codes, and the GF(2^m) tables of the non-binary codes."""
 
 from .alist import Alist, dumps_alist, from_dense, load_alist, parse_alist, save_alist
 from .code import Code, build_code, code_to_alist
-from .construct import make_regular_code, peg, qc_expand, random_regular
+from .construct import (
+    make_regular_code,
+    nb_regular,
+    peg,
+    qc_expand,
+    random_regular,
+)
+from .gf import gf_bits, gf_mul, gf_mul_perm, gf_tables
 from .encode import Encoder, gf2_rref, make_encoder, random_codewords
 from .library import NAMED_CODES, QC_NAMES, load_named_code, load_named_qc
 from .qc import QCCode, build_qc_code, build_qc_code_edges, qc_ira, qc_peg
@@ -23,7 +30,12 @@ __all__ = [
     "peg",
     "random_regular",
     "qc_expand",
+    "nb_regular",
     "make_regular_code",
+    "gf_tables",
+    "gf_mul",
+    "gf_mul_perm",
+    "gf_bits",
     "Encoder",
     "gf2_rref",
     "make_encoder",

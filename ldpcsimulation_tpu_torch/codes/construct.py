@@ -1,10 +1,11 @@
-"""Code constructions: PEG, random regular ensembles, QC expansion.
+"""Code constructions: PEG, random regular ensembles, QC expansion, and
+non-binary regular codes over GF(q).
 
 Numpy ports of ``ldpcsimulation_tpu.codes.construct``; each construction
 draws the same numbers from the same seed, so both packages build the same
-H.  The PEG of regular codes with n > 2000 runs the C++ PEG of ``native/``
-(:mod:`..native`), as the JAX package's does; ``nb_regular`` waits for the
-non-binary item (A12).
+H (and, for :func:`nb_regular`, the same edge coefficients).  The PEG of
+regular codes with n > 2000 runs the C++ PEG of ``native/``
+(:mod:`..native`), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 from .alist import Alist
 from .code import Code, build_code
 
-__all__ = ["peg", "random_regular", "qc_expand", "make_regular_code"]
+__all__ = ["peg", "random_regular", "qc_expand", "nb_regular",
+           "make_regular_code"]
 
 
 def peg(
@@ -183,6 +185,29 @@ def qc_expand(base: np.ndarray, z: int) -> Alist:
     for c in range(m):
         mlist[c].sort()
     return Alist(n=n, m=m, nlist=nlist, mlist=mlist)
+
+
+def nb_regular(
+    n: int, m: int, dv: int, q: int, seed: int = 0, method: str = "peg"
+) -> Alist:
+    """Non-binary regular LDPC code over GF(q): the binary PEG (or random)
+    structure with a uniformly random nonzero coefficient per edge, drawn
+    from ``default_rng(seed + 0x9E3779B9)`` column by column in the
+    structure's edge order — the JAX ``nb_regular``'s draws, so both give
+    the same ``nvals``/``mvals`` (the reference's "N M q" alist dialect)."""
+    a = peg(n, m, dv, seed=seed) if method == "peg" else random_regular(
+        n, m, dv, seed=seed
+    )
+    rng = np.random.default_rng(seed + 0x9E3779B9)
+    nvals = [[int(rng.integers(1, q)) for _ in rows] for rows in a.nlist]
+    val_of = {
+        (i, j): v
+        for j, (rows, vv) in enumerate(zip(a.nlist, nvals))
+        for i, v in zip(rows, vv)
+    }
+    mvals = [[val_of[(i, j)] for j in cols] for i, cols in enumerate(a.mlist)]
+    return Alist(n=a.n, m=a.m, nlist=a.nlist, mlist=a.mlist, q=q,
+                 nvals=nvals, mvals=mvals)
 
 
 def make_regular_code(

@@ -1,7 +1,7 @@
 """Decoders: min-sum (slot-array, QC, row-layered), sum-product BP (slot-array,
 QC, row-layered), DD-BMP, the GDBF/NGDBF bit-flip family, the hardware-model
-bit-flip decoders (fixed-point NGDBFhw, the SystemC-model NGDBF), and their
-shared machinery."""
+bit-flip decoders (fixed-point NGDBFhw, the SystemC-model NGDBF), the
+non-binary FFT-QSPA and NB min-sum/min-max, and their shared machinery."""
 
 from .base import (
     DecodeResult,
@@ -56,13 +56,17 @@ from .minsum_qc import (
     qc_plan,
     qc_ragged_init,
 )
+from .nb_minsum import decode_nb_minsum, decode_nb_minsum_nll, nb_nll
+from .nb_qspa import NBDecodeResult, decode_nb_qspa, nb_qspa_machine, wht
 from .ngdbf_hw import (
+    RING_LANE_STEP,
     NGDBFHwConfig,
     NGDBFHwResult,
     decode_ngdbf_hw,
     hw_graph_ops,
     hw_quantize_int,
     keyed_ring,
+    lane_rings,
 )
 from .ngdbf_systemc import (
     SystemCNGDBFConfig,
@@ -119,12 +123,21 @@ __all__ = [
     "qc_minsum_step",
     "qc_plan",
     "qc_ragged_init",
+    "decode_nb_minsum",
+    "decode_nb_minsum_nll",
+    "nb_nll",
+    "NBDecodeResult",
+    "decode_nb_qspa",
+    "nb_qspa_machine",
+    "wht",
+    "RING_LANE_STEP",
     "NGDBFHwConfig",
     "NGDBFHwResult",
     "decode_ngdbf_hw",
     "hw_graph_ops",
     "hw_quantize_int",
     "keyed_ring",
+    "lane_rings",
     "SystemCNGDBFConfig",
     "decode_ngdbf_systemc",
     "keyed_source",

@@ -33,7 +33,9 @@ Noise ring.  The JAX decoder draws the ring from its key; here frame ``f``
 of seed ``s`` draws its ring column with kernel B4
 (:func:`..kernels.channel.gauss_philox`, offset 0, scale ``f32(σ·noise
 scale)``) on :data:`..kernels.channel.NGDBFHW_RING_STREAM`, so a frame
-decodes the same in any batch.  ``ring_noise=`` injects a pre-drawn ring.
+decodes the same in any batch; :func:`lane_rings` draws the same rings for
+any set of frame ids (the streaming harness's refilled lanes).
+``ring_noise=`` injects a pre-drawn ring.
 As in the JAX decoder, one phase without ``qpointer0`` reads the ring as a
 contiguous slice (every lane still decoding has the pointer ``it``; a
 frozen lane's samples are never used), and otherwise each lane reads its
@@ -62,7 +64,11 @@ import torch
 
 from ..codes.code import Code
 from ..codes.qc import QCCode
-from ..kernels.channel import NGDBFHW_RING_STREAM, gauss_philox
+from ..kernels.channel import (
+    NGDBFHW_RING_STREAM,
+    gauss_philox,
+    gauss_philox_lanes,
+)
 from .base import NoiseKey
 from .gdbf import DONE_CHECK_EVERY
 from .qc_ops import qc_graph, slot_graph
@@ -73,6 +79,8 @@ __all__ = [
     "hw_graph_ops",
     "hw_quantize_int",
     "keyed_ring",
+    "lane_rings",
+    "RING_LANE_STEP",
     "decode_ngdbf_hw",
 ]
 
@@ -139,8 +147,9 @@ class NGDBFHwResult:
 
 
 def _f32(v: float, device) -> torch.Tensor:
-    """A Python scalar as a 0-dim f32 tensor on ``device``."""
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    """A Python scalar as a 0-dim f32 tensor on ``device`` (a fill, not a
+    host copy: no sync on the card)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def hw_quantize_int(x: torch.Tensor, nl: int, lmax: float) -> torch.Tensor:
@@ -197,14 +206,43 @@ def _ring_integers(cfg: NGDBFHwConfig, qn: torch.Tensor) -> torch.Tensor:
     return qint.to(torch.int16) if cfg.nq <= 15 else qint
 
 
+#: the per-lane step whose decoder stream ``1 + 2·step + 0`` (taken mod
+#: 2³² by B4's per-lane entry and its twin) is the ring's stream
+#: :data:`..kernels.channel.NGDBFHW_RING_STREAM`
+RING_LANE_STEP = (NGDBFHW_RING_STREAM - 1) // 2
+
+
+def _ring_scale(cfg: NGDBFHwConfig, sigma: float) -> float:
+    """The ring draw's scale ``f32(σ·noise_scale)``."""
+    return float(np.float32(sigma * cfg.noise_scale))
+
+
 def keyed_ring(cfg: NGDBFHwConfig, sigma: float, key: NoiseKey, batch: int,
                device) -> torch.Tensor:
     """The raw ring ``[ring_len, batch]`` the decoder draws for the frames
     key.frame0 … (kernel B4, ``σ' = f32(σ·noise_scale)``), for injection
     and replay."""
-    ns = float(np.float32(sigma * cfg.noise_scale))
     return gauss_philox(key.seed, key.frame0, batch, cfg.ring_len,
-                        NGDBFHW_RING_STREAM, 0.0, ns, device)
+                        NGDBFHW_RING_STREAM, 0.0, _ring_scale(cfg, sigma),
+                        device)
+
+
+def lane_rings(cfg: NGDBFHwConfig, sigma: float, seed: int,
+               gid: torch.Tensor) -> torch.Tensor:
+    """The raw rings ``[ring_len, len(gid)]`` of frames ``gid[b]`` (int64,
+    any order), on gid's device: the bits :func:`keyed_ring` draws for
+    those frames.
+
+    B4's per-lane entry keys column b by (seed, gid[b]) on stream ``1 +
+    2·step[b] + domain`` in 32-bit arithmetic; :data:`RING_LANE_STEP` with
+    domain 0 makes that the ring's reserved stream, which
+    :func:`..kernels.channel.noise_stream` never gives a decoder draw.  So
+    a streaming lane draws its frame's ring, the one the batch decoder
+    draws for that frame, with no injection."""
+    step = torch.full(gid.shape, RING_LANE_STEP, dtype=torch.int32,
+                      device=gid.device)
+    return gauss_philox_lanes(seed, gid, step, cfg.ring_len, 0, 0.0,
+                              _ring_scale(cfg, sigma))
 
 
 def decode_ngdbf_hw(

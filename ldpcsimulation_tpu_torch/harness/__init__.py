@@ -1,5 +1,7 @@
 """Monte-Carlo harness: simulation loop, stopping rules, stats, log rows;
-the streaming refill harness in :mod:`.stream` and :mod:`.stream_gdbf`."""
+the non-binary loop in :mod:`.montecarlo_nb`; the streaming refill harness
+in :mod:`.stream` (binary and non-binary), :mod:`.stream_gdbf` and
+:mod:`.stream_ngdbfhw`."""
 
 from .fixtures import cycle_indices, load_codeword_file, save_codeword_file
 from .logging import (
@@ -11,12 +13,15 @@ from .logging import (
     ngdbfhw_log_row,
 )
 from .montecarlo import MCStats, StopRule, default_min_word_errors, simulate
+from .montecarlo_nb import NBMCStats, simulate_nb
 
 __all__ = [
     "MCStats",
     "StopRule",
     "default_min_word_errors",
     "simulate",
+    "NBMCStats",
+    "simulate_nb",
     "append_row",
     "bp_log_row",
     "fmt",

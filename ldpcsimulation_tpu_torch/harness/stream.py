@@ -1,7 +1,7 @@
 """Streaming early-termination harness: persistent lanes that retire
 converged frames and refill from a keyed channel pool.
 
-Port of ``ldpcsimulation_tpu.harness.stream`` (binary decoders).  A batched
+Port of ``ldpcsimulation_tpu.harness.stream``.  A batched
 early-termination decode runs every batch until its slowest frame is done,
 so most of its rounds decode frames that are already finished (on the QC BP
 path 20 rounds against a frame's average of ~10).  Here a ``lanes``-wide
@@ -34,7 +34,9 @@ pre-exhausted) reads "every lane idle" once per round to stop early.
 Frame ids are int64 (B2's counter takes a 64-bit frame index), so a run
 never rotates its channel key, where the JAX package rotates its root key
 before its int32 ids run out.  The GDBF family streams through
-:mod:`.stream_gdbf`.
+:mod:`.stream_gdbf`, NGDBFhw through :mod:`.stream_ngdbfhw`.  The
+non-binary FFT-QSPA streams here (:func:`nb_qspa_stream`,
+:func:`simulate_stream_nb`).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..channel.awgn import awgn_all_zero, snr_to_sigma
+from ..channel.awgn import awgn_all_zero, snr_to_n0, snr_to_sigma
 from ..codes.code import Code
 from ..codes.qc import QCCode
 from .montecarlo import MCStats, StopRule, default_min_word_errors
@@ -69,6 +71,9 @@ __all__ = [
     "build_channel_pool",
     "run_drain",
     "simulate_stream",
+    "nb_qspa_stream",
+    "build_channel_pool_nb",
+    "simulate_stream_nb",
 ]
 
 
@@ -455,7 +460,10 @@ def make_stream_call(
     ``record=True``: the retired frames' (gid, iters, errs) and their
     decisions ``hard`` (int8 [·, N]) in retire order, the first
     ``acc["rc"]`` rows valid, up to ``rec_cap`` (one spare row takes the
-    writes of the other lanes) — the hook of the per-frame tests.
+    writes of the other lanes) — the hook of the per-frame tests; a
+    non-binary decoder's ``hard`` rows are its symbols.  With
+    ``dec.errs2_of``, acc adds the total ``errs2`` and ``weight2_hist``
+    [n + 1] (retired frames with errs2 = w > 0 at index w).
     """
     T = num_iterations
     K = refill_every
@@ -464,11 +472,10 @@ def make_stream_call(
 
     def boundary(st, ptr, acc, rec, rc, pool, pool_unc, pool_sat0, base):
         d, done, idle, iters = st["d"], st["done"], st["idle"], st["iters"]
-        hard = None
+        hard = dec.hard(d) if record or dec.errs_of is None else None
         if dec.errs_of is not None:
             errs = dec.errs_of(d)
         else:
-            hard = dec.hard(d)
             errs = (hard != 1).sum(dim=0)
         retire = (done | (iters >= T)) & ~idle
         if dec.break_index:
@@ -479,7 +486,10 @@ def make_stream_call(
         _count(acc, ri, frames=ri, bit_errs=errs, word_errs=word,
                iter_sum=iters, sat=done, unc_sum=st["unc"])
         if dec.errs2_of is not None:
-            _count(acc, ri, errs2=dec.errs2_of(d))
+            errs2 = dec.errs2_of(d)
+            _count(acc, ri, errs2=errs2)
+            acc["weight2_hist"].index_add_(
+                0, torch.clamp(errs2, 0, n).long(), ri * (errs2 > 0))
         acc["iter_hist"].index_add_(0, torch.clamp(iters, 0, T).long(), ri)
         acc["weight_hist"].index_add_(0, torch.clamp(errs, 0, mw).long(),
                                       ri * word)
@@ -488,8 +498,7 @@ def make_stream_call(
             rec["gid"][p] = st["gid"]
             rec["iters"][p] = iters
             rec["errs"][p] = errs.to(torch.int32)
-            if hard is not None:
-                rec["hard"][p] = hard.t().to(torch.int8)
+            rec["hard"][p] = hard.t().to(torch.int8)
 
         # refill the retired and idle lanes from the pool, in lane order
         want = retire | idle
@@ -539,7 +548,7 @@ def make_stream_call(
                      iter_sum=(), sat=(), unc_sum=(), iter_hist=(T + 1,),
                      weight_hist=(mw + 1,))
         if dec.errs2_of is not None:
-            acc.update(_zeros(device, errs2=()))
+            acc.update(_zeros(device, errs2=(), weight2_hist=(n + 1,)))
         rec = rc = None
         if record:
             rc = torch.zeros((), dtype=torch.int64, device=device)
@@ -550,10 +559,9 @@ def make_stream_call(
                                   device=device),
                 errs=torch.zeros((rec_cap + 1,), dtype=torch.int32,
                                  device=device),
+                hard=torch.zeros((rec_cap + 1, n), dtype=torch.int8,
+                                 device=device),
             )
-            if dec.errs_of is None:
-                rec["hard"] = torch.zeros((rec_cap + 1, n), dtype=torch.int8,
-                                          device=device)
         st = state
         for r in range(rounds):
             if drain and r > 0 and bool(st["idle"].all()):
@@ -780,5 +788,168 @@ def simulate_stream(
     if pool is not None:
         state = run_drain(call, state, pool, base, pool_frames, take,
                           num_iterations, iters_per_call)
+    stats.wall_seconds = time.perf_counter() - t0
+    return stats
+
+
+# --------------------------------------------------------------- non-binary
+
+
+def nb_qspa_stream(code: Code, n0: float, q: int = 0,
+                   storage_dtype=None) -> StreamDecoder:
+    """Stream adapter for :func:`..decoders.nb_qspa.decode_nb_qspa`.
+
+    Pool rows are the max-normalized log priors flattened to ``[B, N·q]``
+    f32: ``prep_raw`` runs the batch decoder's front end
+    (:func:`..channel.nb.symbol_priors`, then ``log_of``) once per frame at
+    pool build, so ``prep`` is a pure relayout to [N, q, B] and a streamed
+    frame equals a batch decode of its bit-level channel row.  Decisions
+    are the int8 symbols; the primary error count is the frame's bit errors
+    against the all-zero word (``errs_of``), the second its symbol errors
+    (``errs2_of``).  ``step_fresh`` merges the refilled lanes at the CN's
+    gathered rows (``cn_update(fresh=)``)."""
+    from ..channel.nb import symbol_priors
+    from ..decoders.nb_qspa import nb_qspa_machine
+
+    q = q or code.q
+    m_bits = q.bit_length() - 1
+    M = nb_qspa_machine(code, q, torch.float32, storage_dtype)
+
+    def prep(rows):
+        return rows.reshape(-1, code.n, q).permute(1, 2, 0).contiguous()
+
+    def prep_raw(y):
+        # bit-level samples [F, N·m] -> prepped pool rows [F, N·q]
+        yb = y.to(torch.float32).reshape(-1, code.n, m_bits)
+        lp = M["log_of"](symbol_priors(yb, n0, q).permute(1, 2, 0))
+        return lp.permute(2, 0, 1).reshape(-1, code.n * q)
+
+    def step(v2c, ych):
+        return M["vn_update"](M["cn_update"](v2c), ych)
+
+    def step_fresh(v2c, ych, fresh):
+        return M["vn_update"](M["cn_update"](v2c, ych, fresh), ych)
+
+    def errs_of(d):  # bit errors against the all-zero codeword
+        acc = ((d >> 0) & 1).sum(dim=0, dtype=torch.int32)
+        for i in range(1, m_bits):
+            acc = acc + ((d >> i) & 1).sum(dim=0, dtype=torch.int32)
+        return acc
+
+    return StreamDecoder(
+        prep=prep,
+        init=M["init"],
+        step=step,
+        step_fresh=step_fresh,
+        satisfied=M["syndrome_ok"],
+        hard=lambda d: d,
+        d_of=M["decide"],
+        errs_of=errs_of,
+        errs2_of=lambda d: (d != 0).sum(dim=0, dtype=torch.int32),
+        prep_raw=prep_raw,
+    )
+
+
+def build_channel_pool_nb(dec: StreamDecoder, seed: int, base: int,
+                          pool_frames: int, n: int, q: int, sigma: float,
+                          device="cuda"):
+    """NB pool of frames base … base+F−1: kernel B2's bit-level rows
+    ``[F, N·m]`` (the rows :func:`.montecarlo_nb.simulate_nb` gives those
+    frames), prepped by ``dec.prep_raw`` to ``[F, N·q]`` log priors; ``unc``
+    the uncoded symbol errors of the iteration-0 decisions and ``sat0``
+    their syndrome."""
+    m_bits = q.bit_length() - 1
+    y = awgn_all_zero(seed, base, pool_frames, n * m_bits, sigma, device)
+    rows = dec.prep_raw(y)
+    d0 = dec.d_of(dec.prep(rows))  # [N, F] symbols
+    unc = (d0 != 0).sum(dim=0, dtype=torch.int32)
+    return rows, unc, dec.satisfied(d0)
+
+
+def simulate_stream_nb(
+    code: Code,
+    snr_db: float,
+    num_iterations: int,
+    rate: Optional[float] = None,
+    stop: Optional[StopRule] = None,
+    lanes: int = 512,
+    refill_every: int = 1,
+    rounds_per_call: Optional[int] = None,
+    pool_frames: Optional[int] = None,
+    avg_iters_hint: float = 6.0,
+    seed: int = 0,
+    storage_dtype=None,
+    verbose: bool = False,
+    max_calls: int = 100000,
+    pool_bytes: Optional[int] = None,
+    device="cuda",
+):
+    """NB Monte-Carlo over the streaming driver ->
+    :class:`.montecarlo_nb.NBMCStats`.
+
+    The statistics of :func:`.montecarlo_nb.simulate_nb` (bit errors drive
+    the stop rule; a word error is a frame with any symbol error) without
+    the straggler tax, with the drain of :func:`simulate_stream`: the
+    counted frames are the gid prefix 0 … total_words−1, each equal to its
+    batch decode.  Pool rows are f32 log priors of width N·q (no pool dtype:
+    narrowing them would change the values against a batch decode).
+    ``device`` defaults to the card; ``device="cpu"`` runs the plain twins.
+    """
+    from .montecarlo_nb import NBMCStats
+
+    device = _card_or_raise(device, "simulate_stream_nb")
+    q = code.q
+    m_bits = q.bit_length() - 1
+    rate = rate if rate is not None else code.rate
+    stop = stop or StopRule(min_word_errors=default_min_word_errors(code.n))
+    n0 = float(snr_to_n0(snr_db, rate))
+    sigma = float(np.sqrt(n0 / 2.0))
+    width = code.n * q
+    if pool_frames is None:
+        rounds_per_call, pool_frames = pool_policy(
+            lanes, refill_every, rounds_per_call, avg_iters_hint, width * 4,
+            pool_bytes, default_rounds=32)
+    elif rounds_per_call is None:
+        rounds_per_call = 32
+    code_d = code.to(device)
+    dec = nb_qspa_stream(code_d, n0, q, storage_dtype)
+    state = stream_init(dec, lanes, width, torch.float32, device)
+    call = make_stream_call(dec, code.n, num_iterations, rounds_per_call,
+                            refill_every, max_weight=code.n * m_bits)
+
+    stats = NBMCStats(n=code.n, q=q)
+    stats.iteration_hist = np.zeros(num_iterations + 1, np.int64)
+    t0 = time.perf_counter()
+
+    def take(a):
+        stats.total_words += a["frames"]
+        stats.total_symbols += a["frames"] * code.n
+        stats.total_bits += a["frames"] * code.n * m_bits
+        stats.bit_errors += a["bit_errs"]
+        stats.symbol_errors += a["errs2"]
+        stats.word_errors += a["word_errs"]
+        stats.total_iterations += a["iter_sum"]
+        stats.uncoded_symbol_errors += a["unc_sum"]
+        stats.iteration_hist += a["iter_hist"]
+        stats.bit_weight_hist += a["weight_hist"][1:]
+        stats.symbol_weight_hist += a["weight2_hist"][1:]
+
+    base = 0
+    pool = None
+    for _ in range(max_calls):
+        if stop.done(stats.bit_errors, stats.word_errors, stats.total_words):
+            break
+        pool = build_channel_pool_nb(dec, seed, base, pool_frames, code.n, q,
+                                     sigma, device)
+        state, acc, _rec = call(state, *pool, base)
+        a = fetch(acc)
+        take(a)
+        base += a["consumed"]
+        if verbose:
+            print(f"stream_nb: {stats.total_words} frames, "
+                  f"SER={stats.ser:.4g} BER={stats.ber:.4g}")
+    if pool is not None:
+        state = run_drain(call, state, pool, base, pool_frames, take,
+                          num_iterations, rounds_per_call * refill_every)
     stats.wall_seconds = time.perf_counter() - t0
     return stats

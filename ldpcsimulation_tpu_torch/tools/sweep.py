@@ -1,5 +1,5 @@
-"""Sweep CLI — the min-sum, BP, DD-BMP, GDBF and NGDBFhw routes of
-``ldpcsimulation_tpu.tools.sweep``.
+"""Sweep CLI — the min-sum, BP, DD-BMP, GDBF, NGDBFhw and non-binary
+FFT-QSPA routes of ``ldpcsimulation_tpu.tools.sweep``.
 
 The CLI runs the JAX CLI's cartesian grid (SNR × ymax × nq × alpha × delta
 × theta × noise-scale × lam × w × theta0, each list defaulting to one unset
@@ -35,6 +35,12 @@ Examples (one H100):
     python -m ldpcsimulation_tpu_torch.tools.sweep bp --code qc_1008_504 \\
         --snr 2.0 -T 20 --early-termination --msg-dtype f16 --stream \\
         --batch 32768 --log bp_stream.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep ngdbfhw \\
+        --code highrate_2048_384 --snr 4.25 -T 600 --frames 131072 \\
+        --batch 32768 --stream --log hw_stream.log
+    python -m ldpcsimulation_tpu_torch.tools.sweep nbqspa \\
+        --nb-random 6000:4000:3:8 --snr 1.3 -T 20 --early-termination \\
+        --msg-dtype f16 --batch 512 --log nb.log
 
 Ported so far: the min-sum family (plain, offset and normalized, the
 fixed-point variants on ``quantize_no_zero`` samples), sum-product BP (on
@@ -46,12 +52,16 @@ GDBF/NGDBF presets and the fixed-point NGDBFhw (a fixed ``--frames`` count,
 the 802.3an defaults unless given, with its ``<log>_<snr>_itdist.dat``
 completion file), on every named code and on ``--alist`` files.  QC codes
 (named, or detected in an alist in natural order) take the QC decoders and
-the QC graph operations, the others the slot-array ones.  ``--stream`` runs
-the streaming refill harness (``harness/stream.py``, ``stream_gdbf.py``;
-lanes = ``--batch``) for min-sum and BP (with ``--early-termination``), the
-layered schedules, DD-BMP (QC codes) and the GDBF presets, with the JAX
-CLI's refusals.  The other decoders and run modes exit with an error naming
-their ROADMAP item.
+the QC graph operations, the others the slot-array ones.  ``nbqspa`` runs
+FFT-QSPA (``harness/montecarlo_nb.py``) on a non-binary alist or a
+``--nb-random N:M:DV:Q`` code, with ``--msg-dtype f16`` message storage and
+the log row ``SNR SER BER avgIters FER T code``.  ``--stream`` runs the
+streaming refill harness (``harness/stream.py``, ``stream_gdbf.py``,
+``stream_ngdbfhw.py``; lanes = ``--batch``) for min-sum and BP (with
+``--early-termination``), the layered schedules, DD-BMP (QC codes), the
+GDBF presets, NGDBFhw (refill every 16 steps) and ``nbqspa`` (refill every
+iteration), with the JAX CLI's refusals.  ``--distributed`` exits with an
+error naming its ROADMAP item (A13).
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from ..channel import (
 )
 from ..codes.alist import load_alist
 from ..codes.code import build_code
+from ..codes.construct import nb_regular
 from ..codes.library import NAMED_CODES, load_named_code, load_named_qc
 from ..codes.qc_detect import detect_qc
 from ..decoders.base import syndrome_from_hard
@@ -108,17 +119,18 @@ from ..harness.stream import (
     minsum_stream,
     simulate_stream,
 )
+from ..harness.montecarlo_nb import simulate_nb
+from ..harness.stream import simulate_stream_nb
 from ..harness.stream_gdbf import simulate_stream_gdbf
+from ..harness.stream_ngdbfhw import simulate_stream_ngdbfhw
 
 __all__ = ["main", "build_parser"]
 
 #: min-sum decoders -> their variant
 _MINSUM = {"minsum": "plain", "offsetminsum": "offset",
            "normalizedminsum": "normalized"}
-#: decoders of the JAX CLI that are not ported yet -> their ROADMAP item
-_NOT_PORTED = {
-    "nbqspa": "A12",
-}
+#: decoders whose stream always stops early (no --early-termination needed)
+_ALWAYS_EARLY = ("gdbf", "nbqspa", "ddbmp", "ngdbfhw")
 
 
 def _grid_key(point) -> str:
@@ -161,10 +173,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("decoder",
                    choices=[*_MINSUM, "bp", "ddbmp", "gdbf", "ngdbfhw",
-                            *sorted(_NOT_PORTED)])
+                            "nbqspa"])
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--code", choices=sorted(NAMED_CODES), help="named code")
-    src.add_argument("--alist", help="path to an alist file (binary)")
+    src.add_argument("--alist", help="path to an alist file (binary or NB)")
+    src.add_argument("--nb-random", metavar="N:M:DV:Q",
+                     help="random GF(Q) regular code, e.g. 96:48:3:64")
     p.add_argument("--schedule", choices=["flooding", "layered"],
                    default="flooding")
     p.add_argument("--distributed", action="store_true",
@@ -172,7 +186,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--stream", action="store_true",
         help="min-sum/BP (with --early-termination; QC, slot-array, or "
-             "--schedule layered QC codes), ddbmp (QC codes), gdbf: run "
+             "--schedule layered QC codes), ddbmp (QC codes), gdbf, "
+             "ngdbfhw, nbqspa: run "
              "the streaming refill harness (persistent lanes refilled from "
              "a keyed channel pool) instead of the batched loop — the same "
              "per-frame results, no straggler tax.  All-zero codewords; "
@@ -247,25 +262,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    def no(what: str, item: str):
-        raise SystemExit(
-            f"sweep: error: {what} is not ported yet (ROADMAP {item})"
-        )
-
-    if args.decoder in _NOT_PORTED:
-        no(f"decoder {args.decoder!r}", _NOT_PORTED[args.decoder])
-    if args.stream and args.decoder == "ngdbfhw":
-        no("--stream ngdbfhw", "A11.4")
+    """``--distributed`` (the multi-device grid engine) waits for A13."""
     if args.distributed and not args.stream:
-        no("--distributed", "A13")
+        raise SystemExit(
+            "sweep: error: --distributed is not ported yet (ROADMAP A13)")
 
 
 def _refuse_stream(args, codewords) -> None:
     """The JAX CLI's refusals of ``--stream`` combinations."""
     if not args.stream:
         return
-    if args.decoder not in ("gdbf", "ddbmp") and not args.early_termination:
-        # gdbf and ddbmp always stop early
+    if args.decoder == "ngdbfhw" and args.persistent_qpointer:
+        raise SystemExit(
+            "sweep: error: --stream ngdbfhw already chains ring offsets per "
+            "frame (injection-time qpointer0); --persistent-qpointer is the "
+            "batched-lane semantic"
+        )
+    if args.decoder not in _ALWAYS_EARLY and not args.early_termination:
         raise SystemExit(
             "sweep: error: --stream requires --early-termination "
             "(fixed-trip decodes have no straggler tax to remove)"
@@ -309,7 +322,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         else None
     )
     _refuse_stream(args, codewords)
-    if codewords is not None:
+    if codewords is not None and code.q <= 2:
         # Fail fast if the fixture rows are not codewords of this H.
         probe = torch.as_tensor(np.asarray(codewords[:4], np.int32))
         d = (1 - 2 * probe).t().to(device)  # bit -> ±1, [N, B]
@@ -402,37 +415,44 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif args.decoder == "ngdbfhw":
             stats, row = _ngdbfhw_point(args, code, qc, rate, run_point, T,
                                         point, device)
+        elif args.decoder == "nbqspa":
+            stats, row = _nbqspa_point(args, code, alist_name, rate, T, snr,
+                                       stop, device)
         else:
             stats, row = _gdbf_point(args, code, qc, alist_name, rate,
                                      run_point, T, point, stop, device)
         append_row(args.log, row)
         _mark_done(args.log, gkey)
+        rates = (f"SER={stats.ser:.4g} BER={stats.ber:.4g}"
+                 if args.decoder == "nbqspa"
+                 else f"BER={stats.ber:.4g} FER={stats.fer:.4g}")
         print(
-            f"[{rows}/{len(grid)}] SNR={snr} BER={stats.ber:.4g} "
-            f"FER={stats.fer:.4g} frames={stats.total_words} "
-            f"({stats.wall_seconds:.1f}s)",
+            f"[{rows}/{len(grid)}] SNR={snr} {rates} "
+            f"frames={stats.total_words} ({stats.wall_seconds:.1f}s)",
             file=sys.stderr,
         )
     return 0
 
 
 def _load_code(args, device):
-    """(code, QC structure or None, the log rows' code name) of --code or
-    --alist.  A named code takes its registered QC structure; an alist whose
-    H is QC in natural order (rows and columns unpermuted) takes the
-    detected one, as the JAX CLI routes it."""
+    """(code, QC structure or None, the log rows' code name) of --code,
+    --alist or --nb-random.  A named code takes its registered QC structure;
+    a binary alist whose H is QC in natural order (rows and columns
+    unpermuted) takes the detected one, as the JAX CLI routes it."""
     if args.code:
         try:
             qc = load_named_qc(args.code)
         except KeyError:
             return load_named_code(args.code, device), None, args.code
         return qc.to_code(device), qc, args.code
+    if args.nb_random:
+        n, m, dv, q = (int(x) for x in args.nb_random.split(":"))
+        code = build_code(nb_regular(n, m, dv, q=q, seed=args.seed), device)
+        return code, None, f"nb_random_{args.nb_random}"
     alist = load_alist(args.alist)
-    if alist.q > 2:
-        raise SystemExit(
-            "sweep: error: non-binary alists are not ported yet (ROADMAP A12)"
-        )
     code = build_code(alist, device)
+    if alist.q > 2:
+        return code, None, args.alist
     det = detect_qc(alist)
     if (det is None or (det.col_perm != np.arange(code.n)).any()
             or (det.row_perm != np.arange(code.m)).any()):
@@ -623,8 +643,9 @@ def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
     """One grid point of the NGDBFhw route: ``--frames`` frames, the
     802.3an defaults where a flag is absent, ``ring_len = max(2648, n +
     600)``, the ring pointer carried across frames with
-    ``--persistent-qpointer``; writes the iteration-completion CDF beside
-    the log, the swept parameters in its name, as the JAX CLI does."""
+    ``--persistent-qpointer``, or streamed (refill every 16 steps) with
+    ``--stream``; writes the iteration-completion CDF beside the log, the
+    swept parameters in its name, as the JAX CLI does."""
     (snr, ymax, _nq, _alpha, _delta, _theta, nscale, _lam, w, theta0) = point
     cfg = NGDBFHwConfig(
         num_iterations=T,
@@ -637,7 +658,12 @@ def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
     )
     sigma = snr_to_sigma(snr, rate)
     frames = StopRule.fixed_frames(args.frames)
-    if args.persistent_qpointer:
+    if args.stream:
+        stats = simulate_stream_ngdbfhw(
+            code, cfg, snr, rate=rate, stop=frames, lanes=args.batch,
+            pool_bytes=args.pool_bytes, refill_every=16, seed=args.seed,
+            qc=qc, verbose=args.verbose, device=device)
+    elif args.persistent_qpointer:
         def dec(y, key, carry):
             res = decode_ngdbf_hw(code, y, sigma, cfg, key=key, qc=qc,
                                   qpointer0=carry)
@@ -671,6 +697,27 @@ def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
         for idx, v in enumerate(cdf):
             f.write(f"{idx}\t{v:.6g}\n")
     return stats, row
+
+
+def _nbqspa_point(args, code, alist_name, rate, T, snr, stop, device):
+    """One grid point of the NB route: ``simulate_nb`` (or, with
+    ``--stream``, ``simulate_stream_nb`` refilling every iteration) with
+    ``--msg-dtype`` message storage; the JAX CLI's row ``SNR SER BER
+    avgIters FER T code``."""
+    sdt = torch.float16 if args.msg_dtype == "f16" else None
+    if args.stream:
+        stats = simulate_stream_nb(
+            code, snr, T, rate=rate, stop=stop, lanes=args.batch,
+            refill_every=1, pool_bytes=args.pool_bytes, seed=args.seed,
+            storage_dtype=sdt, verbose=args.verbose, device=device)
+    else:
+        stats = simulate_nb(
+            code, snr, T, rate=rate, stop=stop, batch_size=args.batch,
+            seed=args.seed, early_termination=args.early_termination,
+            storage_dtype=sdt, device=device)
+    row = "\t".join(fmt(v) for v in (
+        snr, stats.ser, stats.ber, stats.avg_iterations, stats.fer, T))
+    return stats, f"{row}\t{alist_name}"
 
 
 if __name__ == "__main__":

@@ -7,9 +7,11 @@ standard error from the run's per-frame error histogram.
 Runs on the CPU (seed 0) and prints one JSON object; ``chip_smoke.py`` holds
 the constants it printed.  ``minsum_peg`` runs 131072 frames in batches of
 4096; the other points (``bp_peg``, ``bp_qc``, ``minsum_layered_wifi``,
-``ddbmp_reg4``, ``ngdbfhw_highrate``, ``systemc_peg``) run the frame counts
-in ``POINT_FRAMES``, chosen so that each takes a few minutes at most on the
-CPU.
+``ddbmp_reg4``, ``ngdbfhw_highrate``, ``systemc_peg``, ``nbqspa_gf8``) run
+the frame counts in ``POINT_FRAMES``, chosen so that each takes a few
+minutes at most on the CPU.  The non-binary point runs the batches of the
+JAX ``simulate_nb`` (the same keys) through :func:`nb_frames`, which keeps
+the per-frame counts that the standard errors need.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ POINT_FRAMES = {
     "ddbmp_reg4": (16384, 1024),
     "ngdbfhw_highrate": (NGDBFHW_FRAMES, 2048),
     "systemc_peg": (65536, 4096),
+    "nbqspa_gf8": (4096, 256),
 }
 
 
@@ -171,6 +174,77 @@ def systemc_peg() -> dict:
         lambda y, key: decode_ngdbf_systemc(code, y, sigma, cfg, key),
         3.0, awgn_form="additive",
     )
+
+
+def nb_frames(code, snr_db, num_iterations, frames, batch, seed=0,
+              early_termination=True, storage_dtype=None):
+    """Per-frame (symbol errors, bit errors, iterations) of the JAX
+    ``simulate_nb`` run with a fixed frame count: the same batch keys
+    (``fold_in(key(seed), batch)``), channel, priors and decoder."""
+    import jax
+
+    from ldpcsimulation_tpu.channel.nb import symbol_priors, symbols_to_bits
+    from ldpcsimulation_tpu.decoders.nb_qspa import decode_nb_qspa
+
+    q = code.q
+    m = q.bit_length() - 1
+    n0 = float(snr_to_n0(snr_db, code.rate))
+    sigma = float(np.sqrt(n0 / 2.0))
+    root = jax.random.key(seed)
+
+    @jax.jit
+    def batch_step(key):
+        y = 1.0 + sigma * jax.random.normal(key, (batch, code.n, m),
+                                            jnp.float32)
+        res = decode_nb_qspa(code, symbol_priors(y, n0, q), num_iterations,
+                             early_termination=early_termination,
+                             storage_dtype=storage_dtype)
+        bits = symbols_to_bits(res.symbols, q)
+        return (jnp.sum(res.symbols != 0, axis=1),
+                jnp.sum(bits != 0, axis=(1, 2)), res.iterations)
+
+    out = [[], [], []]
+    for i in range(-(-frames // batch)):
+        b = min(batch, frames - i * batch)
+        for acc, v in zip(out, jax.device_get(
+                batch_step(jax.random.fold_in(root, i)))):
+            acc.append(np.asarray(v)[:b])
+    return tuple(np.concatenate(v).astype(np.int64) for v in out)
+
+
+def nb_moments(sym, bits, iters, n, q) -> dict:
+    """(value, standard error) of SER, BER, FER and average iterations from
+    per-frame counts, as ``chip_smoke.nb_moments`` computes them."""
+    f = len(sym)
+    m = q.bit_length() - 1
+
+    def mean_se(x, scale=1.0):
+        x = np.asarray(x, np.float64)
+        return (x.mean() / scale, x.std(ddof=1) / math.sqrt(f) / scale)
+
+    fer = float((sym > 0).mean())
+    return dict(ser=mean_se(sym, n), ber=mean_se(bits, n * m),
+                fer=(fer, math.sqrt(fer * (1 - fer) / f)),
+                avg_iterations=mean_se(iters),
+                word_errors=int((sym > 0).sum()), frames=f)
+
+
+#: the non-binary point: GF(8), the geometry of the reference's
+#: q8.sp.6000.4000.3000.1 as a regular dv=3 PEG code, near its knee
+NB_SNR_DB = 1.3
+
+
+def nbqspa_gf8() -> dict:
+    """FFT-QSPA on ``nb_regular(6000, 4000, 3, q=8, seed=0)``,
+    ``NB_SNR_DB``, T=20, early termination, f16 message storage."""
+    from ldpcsimulation_tpu.codes import build_code
+    from ldpcsimulation_tpu.codes.construct import nb_regular
+
+    code = build_code(nb_regular(6000, 4000, 3, q=8, seed=0))
+    frames, batch = POINT_FRAMES["nbqspa_gf8"]
+    sym, bits, iters = nb_frames(code, NB_SNR_DB, 20, frames, batch,
+                                 storage_dtype=jnp.float16)
+    return nb_moments(sym, bits, iters, code.n, code.q)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """The port's sweep CLI: the min-sum routes (plain, offset, normalized; named
 codes and --alist files; flooding and layered), the BP routes (slot-array,
-QC, layered), the DD-BMP route, the GDBF route and the NGDBFhw route (with
-its itdist file), and the ``--stream`` routes, write the JAX CLI's row
-format and resume keys; ``--stream`` refuses what the JAX CLI refuses;
-everything not ported exits naming its ROADMAP item."""
+QC, layered), the DD-BMP route, the GDBF route, the NGDBFhw route (with
+its itdist file), the non-binary ``nbqspa`` route (``--nb-random`` and NB
+alists), and the ``--stream`` routes (NGDBFhw and ``nbqspa`` among them),
+write the JAX CLI's row format and resume keys; ``--stream`` refuses what
+the JAX CLI refuses; ``--distributed`` exits naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -125,6 +126,9 @@ def _codeword_file(tmp_path):
      "--schedule layered streams min-sum variants and BP only"),
     (["ddbmp", "--code", "peg_96_48", "-T", "4", "--batch", "16",
       "--max-frames", "16"], "--stream ddbmp requires a QC code"),
+    (["ngdbfhw", "--code", "peg_96_48", "-T", "4", "--batch", "16",
+      "--frames", "16", "--persistent-qpointer"],
+     "--stream ngdbfhw already chains ring offsets per frame"),
 ])
 def test_stream_refusals_are_the_jax_clis(tmp_path, args, msg):
     """``--stream`` refuses what the JAX CLI refuses, with its message."""
@@ -142,9 +146,14 @@ def test_stream_refusals_are_the_jax_clis(tmp_path, args, msg):
     ("nbqspa", "A12"),
 ])
 def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        main([decoder] + BASE[1:] + ["--snr", "2.0", "--log",
-                                     str(tmp_path / "x")])
+    """The decoder of ROADMAP A12 (``nbqspa``) is ported and writes its row;
+    its multi-device form still exits naming A13."""
+    args = [decoder, "--nb-random", "24:12:3:4", "-T", "4", "--batch", "32",
+            "--max-frames", "32", "--device", "cpu", "--snr", "2.0",
+            "--log", str(tmp_path / "x")]
+    assert main(args) == 0 and len(_rows(tmp_path / "x")) == 1
+    with pytest.raises(SystemExit, match="ROADMAP A13"):
+        main(args + ["--distributed"])
 
 
 @pytest.mark.parametrize("decoder", ["bp", "ddbmp", "ngdbfhw"])
@@ -154,12 +163,12 @@ def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
 ])
 def test_ported_decoders_still_refuse_stream_and_distributed(
         tmp_path, decoder, extra, item):
-    """``--distributed`` waits for A13; the NGDBFhw stream for A11.4, while
-    the BP and DD-BMP streams run (one row each)."""
+    """``--distributed`` waits for A13; the streams of these decoders (the
+    NGDBFhw one came with A11.4) run, one row each."""
     args = [decoder] + BASE[1:] + ["--snr", "2.0", "--log",
                                    str(tmp_path / "x")] + extra
-    if item == "A11.4" and decoder != "ngdbfhw":
-        assert main(args) == 0
+    if item == "A11.4":
+        assert main(args + ["--frames", "64"]) == 0
         assert len(_rows(tmp_path / "x")) == 1
         return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
@@ -271,6 +280,57 @@ def test_gdbf_rows_and_keys_equal_jax_cli(tmp_path, args, smoothing):
     assert main(common + ["--device", "cpu", "--log", str(jlog),
                           "--resume"]) == 0
     assert len(_rows(jlog)) == len(jrows)
+
+
+@pytest.mark.parametrize("args", [
+    ["--nb-random", "24:12:3:4", "--early-termination"],
+    ["--nb-random", "24:12:3:4", "--stream", "--msg-dtype", "f16"],
+    ["--nb-random", "32:16:3:8", "--msg-dtype", "f16", "--snr", "2.5"],
+    ["--alist", None, "--early-termination"],
+])
+def test_nbqspa_rows_and_keys_equal_jax_cli(tmp_path, args):
+    """The non-binary route through both CLIs (batched, ``--stream`` and an
+    NB alist written here): the row ``SNR SER BER avgIters FER T code``
+    column for column apart from the Monte-Carlo statistics (the packages
+    draw other noise), the same resume keys."""
+    from ldpcsimulation_tpu_torch.codes import nb_regular, save_alist
+
+    path = tmp_path / "gf16.alist"
+    save_alist(nb_regular(32, 16, 3, 16, seed=5), str(path))
+    args = [str(path) if a is None else a for a in args]
+    common = ["nbqspa", "-T", "6", "--batch", "32", "--max-frames", "64",
+              *args]
+    if "--snr" not in args:
+        common += ["--snr", "3.0"]
+    rows = _assert_rows_and_keys_equal(tmp_path, common, stats=(1, 2, 3, 4))
+    (row,) = rows
+    assert len(row) == 7 and row[5] == "6"
+    assert row[6] == (str(path) if "--alist" in args
+                      else "nb_random_" + args[1])
+    assert 0.0 <= float(row[2]) <= float(row[1]) <= 1.0
+    assert 0.0 < float(row[3]) <= 6.0 and 0.0 <= float(row[4]) <= 1.0
+
+
+def test_ngdbfhw_stream_rows_keys_and_itdist_equal_jax_cli(tmp_path):
+    """``ngdbfhw --stream`` (refill every 16 steps, lanes = --batch) through
+    both CLIs: the row apart from the statistics and the frame count (a
+    stream counts whole calls), the resume keys and the itdist file."""
+    common = ["ngdbfhw", "--code", "peg_96_48", "--snr", "4.0", "-T", "12",
+              "--batch", "32", "--frames", "64", "--stream"]
+    plog, jlog = tmp_path / "p.log", tmp_path / "j.log"
+    assert main(common + ["--device", "cpu", "--log", str(plog)]) == 0
+    assert jax_main(common + ["--log", str(jlog)]) == 0
+    (p,), (j,) = _rows(plog), _rows(jlog)
+    stats = {1, 2, 3, 4, 5, 6, 7}  # ... bits, frames
+    assert len(p) == len(j) == 16
+    assert [v for i, v in enumerate(p) if i not in stats] == [
+        v for i, v in enumerate(j) if i not in stats]
+    assert int(p[7]) >= 64 and p[8] == "12"
+    assert (tmp_path / "p.log.done").read_text() == (
+        (tmp_path / "j.log.done").read_text())
+    it = _itdist(tmp_path / "p.log_4_itdist.dat")
+    assert it[0] == (0, 1.0) and all(a >= b for (_, a), (_, b) in
+                                     zip(it, it[1:]))
 
 
 def _itdist(path):
