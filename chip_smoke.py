@@ -2,9 +2,10 @@
 against its plain PyTorch twin on the card, drives the min-sum main path,
 the SMNGDBF bit-flip path, the BP, layered and DD-BMP paths, the
 hardware-model bit-flip paths (NGDBFhw, the SystemC model), the
-streaming refill harness (the NGDBFhw stream among them) and the
-non-binary FFT-QSPA paths at full width, and measures every kernel against
-its bounds.
+streaming refill harness (the NGDBFhw stream among them), the
+non-binary FFT-QSPA paths and the experiment tools (replay and trace,
+redecode statistics, message tracing, the throughput report) at full
+width, and measures every kernel against its bounds.
 
     python3 chip_smoke.py
 
@@ -196,7 +197,29 @@ the exit code is non-zero):
  33. the sweep CLI's ``ngdbfhw --stream`` and ``nbqspa`` routes
      (``--nb-random``, ``--stream``, an NB alist), one row each, and the
      refusals of ``--stream --persistent-qpointer`` and ``--distributed
-     nbqspa`` (ROADMAP A13).
+     nbqspa`` (ROADMAP A13);
+ 34. replay and trace (``tools/replay.py``): for SMNGDBF at [10]'s point,
+     StochasticNGDBF (3.0 dB, T=100) and SMNGDBF with uniform noise, one
+     batch of 32768 frames at batch index 2 decoded on the card, then 4
+     failed and 4 satisfied frames replayed through ``replay_channel`` and
+     ``trace_gdbf`` at B=1 on the card: iterations, flag and last row
+     equal to the in-batch decode; the same traces on the CPU with the
+     card's keyed draws injected, every row equal; B2, B3 and B4 at batch 1
+     against their twins and the batch draw's row or column, with the
+     instance each took, its device time and its bounds;
+ 35. ``redecode_statistics`` on qc_1008_504 at 3.5 dB (SMNGDBF, T=300, the
+     CLI defaults), 200 frames x 100 attempts in one decode of [1008 x
+     20000]: wall seconds, decoded frames/s, peak memory; the mean Pe(f)
+     and the share of frames with Pe > 0 within 4 joint standard errors of
+     the JAX tool's CPU run (``JAX_REDECODE``); three attempts re-decoded
+     alone at B=1 with equal error weights; B4 at [1008 x 20000] against
+     its twin with its bounds;
+ 36. ``trace_soft_decoder`` on a peg_1008_504 frame on the card and the
+     CPU: min-sum equal (B1 once per iteration at B=1), BP decisions and
+     sign errors equal and each iteration's messages within
+     ``BP_RTOL``/``BP_ATOL``; B1 at B=1 against its twin with its time;
+     ``perf_report``'s flagship row and its SM-NGDBF working-point row
+     beside [5]'s and [10]'s rates (not gated on time).
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -205,6 +228,8 @@ The last three lines are the card, one JSON object describing the kernels
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -3432,6 +3457,391 @@ def phase_hw_nb_sweep(device):
     return launched
 
 
+# The experiment tools [34]-[36].  Replay: [10]'s SMNGDBF point, the
+# stochastic rule (B3's flip uniforms) and the uniform-noise transform (B3
+# through the perturbation), one batch each at batch index 2, 4 failed and
+# 4 satisfied frames replayed per family: (label, preset, SNR, T, config
+# overrides).
+REPLAY_FAMILIES = (
+    ("SMNGDBF", "SMNGDBF", GDBF_SNR_DB, GDBF_T, {}),
+    ("StochasticNGDBF", "StochasticNGDBF", 3.0, 100, {}),
+    ("SMNGDBF --uniform-noise", "SMNGDBF", GDBF_SNR_DB, GDBF_T,
+     dict(uniform_noise=True)),
+)
+REPLAY_BATCH_INDEX = 2
+REPLAY_FRAMES = 4
+# redecode_statistics at its CLI's documented point (qc_1008_504, 3.5 dB,
+# SMNGDBF T=300 with the CLI defaults, 200 frames x 100 attempts, seed 0)
+# and the JAX tool's values there (``python -m tests.jax_reference_stats
+# redecode_qc``, its CPU run): (value, standard error over frames).
+REDECODE_SNR_DB, REDECODE_FRAMES, REDECODE_ATTEMPTS = 3.5, 200, 100
+JAX_REDECODE = dict(
+    mean_pe=(0.0007000000000000001, 0.0003131137189664884),
+    share_pe_pos=(0.035, 0.012995191418367026),
+)
+
+
+def time_small_ms(fn, reps: int = 50) -> float:
+    """:func:`time_ms` for a launch-bound call (batch 1): a sleep kernel of
+    ~25 ms keeps the card busy while the host enqueues all ``reps`` calls,
+    so the time is the device's, not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def draw_bound(kind, batch, n, ms):
+    """(bound ms, what bounds it) of a keyed draw of [batch, n] samples:
+    each written once (f32), no input read; the f32 operations of
+    [13]'s counts."""
+    samples = batch * n
+    ops = {"awgn_philox": 12, "uniform_philox": 2, "gauss_philox": 8}[kind]
+    mem_ms = samples * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = samples * ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(mem_ms, ops_ms),
+                bound_by="bytes" if mem_ms >= ops_ms else "operations",
+                share=max(mem_ms, ops_ms) / ms)
+
+
+def draws_at_batch1(device, timer, frame0, g, sigma):
+    """B2, B3 and B4 at batch 1 for frame g (the instance each takes):
+    equal to their twins and to frame g's row (column) of the batch draw
+    of frames frame0 ... frame0 + BATCH - 1; times and bounds."""
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        awgn_philox,
+        awgn_philox_plain,
+        gauss_philox,
+        gauss_philox_plain,
+        noise_stream,
+        uniform_philox,
+        uniform_philox_plain,
+    )
+
+    n, j = 1008, g - frame0
+    st_u, st_g = noise_stream(7, 1), noise_stream(7, 0)
+    cases = {
+        "awgn_philox": (
+            lambda b, f0: awgn_philox(SEED, f0, b, n, sigma, device),
+            lambda: awgn_philox_plain(SEED, g, 1, n, sigma, device),
+            lambda big: big[j:j + 1]),
+        "uniform_philox": (
+            lambda b, f0: uniform_philox(SEED, f0, b, n, st_u, device),
+            lambda: uniform_philox_plain(SEED, g, 1, n, st_u, "nb", device),
+            lambda big: big[:, j:j + 1]),
+        "gauss_philox": (
+            lambda b, f0: gauss_philox(SEED, f0, b, n, st_g, 0.0, 0.6817,
+                                       device),
+            lambda: gauss_philox_plain(SEED, g, 1, n, st_g, 0.0, 0.6817,
+                                       "nb", device),
+            lambda big: big[:, j:j + 1]),
+    }
+    out = {}
+    for kind, (draw, plain, column) in cases.items():
+        build.PATHS.clear()
+        one = draw(1, g)
+        paths = dict(build.PATHS)
+        check(list(paths.values()) == [1] and next(iter(paths))[0] == kind,
+              f"{kind} at batch 1: instances {paths}")
+        instance = next(iter(paths))[1]
+        want = plain()
+        fin = torch.isfinite(want)
+        err = float((one[fin] - want[fin]).abs().max())
+        check(torch.equal(one, want), f"{kind} at batch 1: kernel != plain")
+        check(torch.equal(one, column(draw(BATCH, frame0))),
+              f"{kind} at batch 1 != its column of the batch draw")
+        ms = time_small_ms(lambda: draw(1, g))
+        plain_ms = timer(plain, 5)
+        out[kind] = dict(shape=[1, n], instance=instance, ms=ms,
+                         plain_ms=plain_ms, max_abs_err=err,
+                         **draw_bound(kind, 1, n, ms))
+        print(f"  {kind} at batch 1 (frame {g}, its {instance} instance): "
+              f"equal to its twin and to the batch draw's row; {ms:.4f} ms "
+              f"of device time, plain {plain_ms:.4f} "
+              f"ms; bound {out[kind]['bound_ms']:.2e} ms "
+              f"({out[kind]['bound_by']}, share {out[kind]['share']:.2%})")
+    return out
+
+
+def phase_replay(qc, device, timer):
+    """[34] Replay and trace on the card at full width: one batch of 32768
+    frames at batch index 2 per family, 4 failed and 4 satisfied frames
+    replayed through ``replay_channel`` + ``trace_gdbf`` at B=1 on the card
+    (iterations, flag and last row equal to the in-batch decode), the same
+    traces on the CPU with the card's keyed draws injected (every row
+    equal), and B2, B3, B4 at batch 1."""
+    from collections import Counter
+
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        saturate,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.decoders import NoiseKey, decode_gdbf, preset
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.replay import (
+        replay_channel,
+        replay_decoder_randomness,
+        trace_gdbf,
+    )
+
+    code_d, code_c = qc.to_code(device), qc.to_code("cpu")
+    rate = (qc.n - qc.m) / qc.n
+    frame0 = REPLAY_BATCH_INDEX * BATCH
+    out = {"launches": {}, "traced": {}}
+    for label, name, snr, T_, kw in REPLAY_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = preset(name, T_, **GDBF_KW, **kw)
+        sigma = snr_to_sigma(snr, rate)
+        build.LAUNCHES.clear()
+        y = awgn_all_zero(SEED, frame0, BATCH, qc.n, sigma, device)
+        res = decode_gdbf(code_d, saturate(y, GDBF_YMAX), sigma, cfg,
+                          key=NoiseKey(SEED, frame0), qc=qc)
+        sat, iters, hard = (res.satisfied.cpu(), res.iterations.cpu(),
+                            res.hard.cpu())
+        failed = torch.nonzero(~sat).flatten()[:REPLAY_FRAMES].tolist()
+        good = torch.nonzero(sat).flatten()[:REPLAY_FRAMES].tolist()
+        check(len(failed) == len(good) == REPLAY_FRAMES,
+              f"{label}: {int((~sat).sum())} failed frames in the batch")
+        traced = Counter()
+        for f in failed + good:
+            y_f, key = replay_channel(code_d, SEED, REPLAY_BATCH_INDEX, f,
+                                      BATCH, sigma, device=device)
+            check(torch.equal(y_f, y[f]), f"{label} frame {f}: channel")
+            yq = saturate(y_f, GDBF_YMAX)
+            before = Counter(build.LAUNCHES)
+            tr = trace_gdbf(code_d, yq, sigma, cfg, key=key)
+            traced.update(Counter(build.LAUNCHES) - before)
+            check(tr.iterations == int(iters[f])
+                  and tr.satisfied == bool(sat[f])
+                  and np.array_equal(tr.decisions[-1], hard[f].numpy()),
+                  f"{label} frame {f}: the trace ({tr.iterations}, "
+                  f"{tr.satisfied}) != the in-batch decode "
+                  f"({int(iters[f])}, {bool(sat[f])})")
+            pert, unif = replay_decoder_randomness(qc.n, cfg, key, 1, 0,
+                                                   sigma, device=device)
+            cpu = trace_gdbf(
+                code_c, yq.cpu(), sigma, cfg,
+                perturbations=None if pert is None else pert.cpu(),
+                stoch_uniforms=None if unif is None else unif.cpu())
+            check((cpu.iterations, cpu.satisfied) == (tr.iterations,
+                                                      tr.satisfied)
+                  and np.array_equal(cpu.decisions, tr.decisions)
+                  and np.array_equal(cpu.syndromes, tr.syndromes),
+                  f"{label} frame {f}: CPU trace != card trace")
+        out["launches"][label] = dict(build.LAUNCHES)
+        out["traced"][label] = dict(traced)
+        steps = cfg.max_phases * T_
+        want = "uniform_philox" if (cfg.uniform_noise or
+                                    cfg.quantize_probabilities) else \
+            "gauss_philox"
+        check(traced == Counter({want: 2 * REPLAY_FRAMES * steps}),
+              f"{label}: trace launches {dict(traced)}")
+        print(f"  {label} ({snr} dB, T={T_}): frames {failed} failed and "
+              f"{good} satisfied of batch {REPLAY_BATCH_INDEX} "
+              f"({int((~sat).sum())} failed of {BATCH}) replay at B=1 on the "
+              f"card equal to their in-batch decode, and on the CPU on the "
+              f"card's draws row for row; launches {dict(build.LAUNCHES)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    out["batch1"] = draws_at_batch1(device, timer, frame0,
+                                    frame0 + 17, snr_to_sigma(3.25, rate))
+    return out
+
+
+def phase_redecode(device, timer):
+    """[35] redecode_statistics at its documented size on the card: wall,
+    frames per second, peak memory; mean Pe(f) and the share of frames
+    with Pe > 0 within 4 joint standard errors of the JAX tool's run
+    (frames the sampling unit); three attempts replayed alone at B=1; B4
+    at the attempts' [1008 x F·NR] against its twin with its bounds."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero, snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import decode_gdbf, preset
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.channel import (
+        gauss_philox,
+        gauss_philox_plain,
+        noise_stream,
+    )
+    from ldpcsimulation_tpu_torch.tools.redecode_stats import (
+        attempt_key,
+        redecode_statistics,
+    )
+
+    code = load_named_code(CODE, device)
+    cfg = preset("SMNGDBF", GDBF_T, **GDBF_KW)
+    nf, nr = REDECODE_FRAMES, REDECODE_ATTEMPTS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = redecode_statistics(code, cfg, REDECODE_SNR_DB, num_frames=nf,
+                              num_redecodes=nr, seed=0, device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pe = (out > 0).mean(axis=1)
+    got = dict(mean_pe=(pe.mean(), pe.std(ddof=1) / math.sqrt(nf)))
+    share = (pe > 0).mean()
+    got["share_pe_pos"] = (share, math.sqrt(share * (1 - share) / nf))
+    print(f"  {nf} frames x {nr} attempts in {wall:.3f} s: "
+          f"{nf * nr / wall:.6g} decoded frames/s, peak {peak:.2f} GiB; "
+          f"launches {launches}; {int((out > 0).sum())} failed attempts")
+    check(launches.get("awgn_philox") == 1 and launches.get(
+        "gauss_philox", 0) > 0, f"redecode launches {launches}")
+    for k, (want, want_se) in JAX_REDECODE.items():
+        val, se = got[k]
+        bound = 4 * math.hypot(se, want_se)
+        print(f"  {k}: port {val:.6g} (se {se:.3g}), JAX {want:.6g} (se "
+              f"{want_se:.3g}), |diff| {abs(val - want):.3g} <= {bound:.3g}")
+        check(abs(val - want) <= bound, f"redecode {k} outside 4 joint s.e.")
+    sigma = snr_to_sigma(REDECODE_SNR_DB, code.rate)
+    bad = np.argwhere(out > 0)
+    pairs = [(0, 0), (nf - 1, nr - 1)] + (
+        [tuple(int(x) for x in bad[0])] if len(bad) else [(nf // 2, 7)])
+    for f, a in pairs:
+        y = awgn_all_zero(0, f, 1, code.n, sigma, device)
+        res = decode_gdbf(code, y, sigma, cfg, key=attempt_key(0, f, a, nr))
+        w = int((res.hard != 1).sum())
+        check(w == out[f, a], f"attempt ({f}, {a}): {w} != {out[f, a]}")
+    print(f"  attempts {pairs} replayed alone at B=1: equal error weights "
+          f"{[int(out[f, a]) for f, a in pairs]}")
+    cols, stream = nf * nr, noise_stream(3, 0)
+    ns = float(np.float32(sigma * cfg.noise_scale))
+    big = gauss_philox(0, 0, cols, code.n, stream, 0.0, ns, device)
+    plain = gauss_philox_plain(0, 0, cols, code.n, stream, 0.0, ns, "nb",
+                               device)
+    check(torch.equal(big, plain), "B4 at [1008 x F·NR]: kernel != plain")
+    fin = torch.isfinite(plain)
+    err = float((big[fin] - plain[fin]).abs().max())
+    del big, plain, fin
+    ms = timer(lambda: gauss_philox(0, 0, cols, code.n, stream, 0.0, ns,
+                                    device))
+    plain_ms = timer(lambda: gauss_philox_plain(0, 0, cols, code.n, stream,
+                                                0.0, ns, "nb", device), 2)
+    b4 = dict(shape=[code.n, cols], ms=ms, plain_ms=plain_ms,
+              max_abs_err=err, **draw_bound("gauss_philox", cols, code.n,
+                                            ms))
+    print(f"  B4 at [{code.n} x {cols}]: equal to its twin; {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; bound {b4['bound_ms']:.4f} ms "
+          f"({b4['bound_by']}, share {b4['share']:.1%})")
+    return dict(wall_s=wall, frames_per_s=nf * nr / wall, peak_gib=peak,
+                mean_pe=got["mean_pe"], share_pe_pos=got["share_pe_pos"],
+                launches=launches, b4=b4)
+
+
+def phase_tools_card(device, timer, rates):
+    """[36] ``trace_soft_decoder`` on a peg_1008_504 frame, card against
+    CPU (min-sum equal; BP: decisions and sign errors equal, and each
+    iteration's messages from the same input within BP_RTOL/BP_ATOL), B1
+    at B=1 against its twin with its time; then ``perf_report``'s flagship
+    and SM-NGDBF working-point rows beside [5]'s and [10]'s rates."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import bp_step, minsum_plan
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        minsum_cn_scan,
+        minsum_cn_scan_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import perf_report
+    from ldpcsimulation_tpu_torch.tools.msg_trace import trace_soft_decoder
+
+    code_c = load_named_code(PEG_CODE)
+    code_d = code_c.to(device)
+    sigma = snr_to_sigma(SNR_DB, 0.5)
+    y = awgn_all_zero(SEED, 5, 1, code_c.n, sigma, "cpu")[0]
+    truth = np.ones(code_c.n)
+    build.LAUNCHES.clear()
+    ms_d = trace_soft_decoder(code_c, y, truth, T, "minsum", device=device)
+    launches = dict(build.LAUNCHES)
+    ms_c = trace_soft_decoder(code_c, y, truth, T, "minsum", device="cpu")
+    for field in ("v2c_sign_errors", "checks_with_errors", "decisions"):
+        for a, b in zip(getattr(ms_d, field), getattr(ms_c, field)):
+            check(np.array_equal(a, b), f"msg_trace min-sum {field}: card "
+                  "!= CPU")
+    check(launches == {"minsum_cn_scan": T}, f"min-sum trace launches "
+          f"{launches}")
+    llr = llr_from_channel(y, snr_to_n0(1.6, 0.5))
+    bp_d = trace_soft_decoder(code_c, llr, truth, 20, "bp", device=device)
+    bp_c = trace_soft_decoder(code_c, llr, truth, 20, "bp", device="cpu")
+    for a, b in zip(bp_d.decisions, bp_c.decisions):
+        check(np.array_equal(a, b), "msg_trace BP decisions: card != CPU")
+    for a, b in zip(bp_d.v2c_sign_errors, bp_c.v2c_sign_errors):
+        check(np.array_equal(a, b), "msg_trace BP sign errors: card != CPU")
+    step_d, step_c = bp_step(code_d), bp_step(code_c)
+    y_c = llr[:, None]
+    v2c = y_c.repeat_interleave(code_c.dv_max, dim=0)
+    worst = 0.0
+    for _ in range(20):
+        got, _ = step_d(v2c.to(device), y_c.to(device))
+        v2c, _ = step_c(v2c, y_c)
+        diff = (got.cpu() - v2c).abs()
+        check(bool((diff <= BP_ATOL + BP_RTOL * v2c.abs()).all()),
+              f"BP messages: card vs CPU by {float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+    print(f"  msg_trace: min-sum T={T} card == CPU ({launches}; sign errors "
+          f"{[int(e.sum()) for e in ms_d.v2c_sign_errors]}), BP T=20 "
+          f"decisions and sign errors equal, messages within "
+          f"{BP_ATOL:g} + {BP_RTOL:g}·|x| (max |diff| {worst:.3g})")
+    # B1 at B=1 (msg_trace's shape)
+    plan = minsum_plan(code_c, device)
+    gen = torch.Generator(device=device).manual_seed(36)
+    v = tied_messages(gen, code_c.n * code_c.dv_max, 1, torch.float32,
+                      device)
+    named = torch.unique(plan.cn_rows[plan.cn_rows >= 0]).long()
+    got = minsum_cn_scan(v, plan.cn_rows)[named]
+    want = minsum_cn_scan_plain(v, plan.cn_rows)[named]
+    check(torch.equal(got, want), "B1 at B=1: kernel != plain")
+    ms = time_small_ms(lambda: minsum_cn_scan(v, plan.cn_rows))
+    plain_ms = timer(lambda: minsum_cn_scan_plain(v, plan.cn_rows), 5)
+    nbytes = named.numel() * (4 + 4) + plan.cn_rows.numel() * 4
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = named.numel() * 6 / F32_OPS_PER_S * 1e3
+    b1 = dict(shape=[int(plan.cn_rows.numel()), 1], ms=ms, plain_ms=plain_ms,
+              max_abs_err=float((got - want).abs().max()),
+              bound_ms=max(mem_ms, ops_ms),
+              bound_by="bytes" if mem_ms >= ops_ms else "operations",
+              share=max(mem_ms, ops_ms) / ms)
+    print(f"  B1 at B=1 (peg_1008_504): equal to its twin; {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; bound {b1['bound_ms']:.2e} ms "
+          f"({b1['bound_by']}, share {b1['share']:.2%})")
+    build.LAUNCHES.clear()
+    report = {}
+    for only in ("flagship", "SM-NGDBF T<=100 @3.5dB (working pt), QC, "
+                 "batched"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = perf_report.main(["--only", only, "--repeats", "1"])
+        rows = [r for r in buf.getvalue().splitlines() if r.startswith("| ")
+                and not r.startswith("| configuration")]
+        check(rc == 0 and len(rows) == 1, f"perf_report --only {only!r}")
+        report[only] = rows[0]
+        print(f"  perf_report: {rows[0]}")
+    report_launches = dict(build.LAUNCHES)
+    check(report_launches.get("minsum_cn_scan", 0) > 0 and report_launches.get(
+        "gauss_philox", 0) > 0, f"perf_report launches {report_launches}")
+    print(f"  beside this run's simulate rates: QC min-sum [5] "
+          f"{rates['minsum']:.6g}, SMNGDBF [10] {rates['smngdbf']:.6g} "
+          f"decoded info bits/s (perf_report counts no host copy per call); "
+          f"perf_report launches {report_launches}")
+    return dict(msg_trace_launches=launches, bp_max_abs_diff=worst, b1=b1,
+                perf_report=report, perf_report_launches=report_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3587,6 +3997,15 @@ def main() -> int:
     b2_shapes = phase_b2_shapes(device, path, time_ms)
     header("[33] sweep CLI, ngdbfhw --stream and the nbqspa routes")
     hw_nb_sweep = phase_hw_nb_sweep(device)
+    header(f"[34] replay and trace: batch {REPLAY_BATCH_INDEX} of {BATCH} "
+           f"frames, three GDBF families, card and CPU")
+    replay = phase_replay(qc, device, time_ms)
+    header(f"[35] redecode_statistics: {REDECODE_FRAMES} frames x "
+           f"{REDECODE_ATTEMPTS} attempts on {CODE}")
+    redecode = phase_redecode(device, time_ms)
+    header("[36] msg_trace card vs CPU, B1 at B=1, perf_report rows")
+    tools36 = phase_tools_card(device, time_ms,
+                               {"minsum": rate, "smngdbf": g_rate})
 
     summary = {
         "card": card,
@@ -3630,25 +4049,34 @@ def main() -> int:
         "nb": nb,
         "ring_lanes": rings,
         "b2_shapes": b2_shapes,
+        "replay": replay,
+        "redecode": redecode,
+        "tools": tools36,
     }
     print(json.dumps(summary))
     print(card)
     # No PyTorch call computes B1-B4's functions (library_ms null); the
     # yardstick is PyTorch's own Philox draw of the same shape.
+    batch1 = replay["batch1"]
     rows = [
         ("minsum_cn_scan", "minsum_cn_scan.cu", "minsum_pallas.py:60",
-         launches["minsum_cn_scan"], max(b1_err, forms_err, layer_err),
+         launches["minsum_cn_scan"], max(b1_err, forms_err, layer_err,
+                                         tools36["b1"]["max_abs_err"]),
          None),
         ("awgn_philox", "awgn_philox.cu", "channel_pallas.py:56",
          launches["awgn_philox"],
-         max(b2_err, *(v["max_abs_err"] for v in b2_shapes.values())),
+         max(b2_err, batch1["awgn_philox"]["max_abs_err"],
+             *(v["max_abs_err"] for v in b2_shapes.values())),
          f"torch.randn [{BATCH}, {n}]"),
         ("uniform_philox", "uniform_philox.cu", "channel_pallas.py:89",
-         s_launches["uniform_philox"], b3_err, f"torch.rand [{n}, {BATCH}]"),
+         s_launches["uniform_philox"],
+         max(b3_err, batch1["uniform_philox"]["max_abs_err"]),
+         f"torch.rand [{n}, {BATCH}]"),
         ("gauss_philox", "uniform_philox.cu", "channel_pallas.py:114",
          g_launches["gauss_philox"],
-         max(b4_err, *(v["max_abs_err"]
-                       for v in hw_paths["b4_shapes"].values())),
+         max(b4_err, batch1["gauss_philox"]["max_abs_err"],
+             redecode["b4"]["max_abs_err"],
+             *(v["max_abs_err"] for v in hw_paths["b4_shapes"].values())),
          f"torch.randn [{n}, {BATCH}]"),
     ]
     # B1's launches on each min-sum path of this run, and its other forms
@@ -3687,6 +4115,33 @@ def main() -> int:
                 "nb batch [31]": nb["batch"]["launches"]["awgn_philox"],
                 "ngdbfhw and nb sweeps [33]": hw_nb_sweep["awgn_philox"]},
             "shapes": b2_shapes}}
+    # the tools' paths [34]-[36]: their launches and call shapes
+    by_family = replay["launches"]
+    extra["minsum_cn_scan"]["launches_by_path"].update({
+        "msg_trace [36]": tools36["msg_trace_launches"]["minsum_cn_scan"],
+        "perf_report [36]": tools36["perf_report_launches"][
+            "minsum_cn_scan"]})
+    extra["minsum_cn_scan"]["forms"]["msg_trace peg_1008_504 B=1 [36]"] = (
+        tools36["b1"])
+    extra["awgn_philox"]["launches_by_path"].update({
+        **{f"replay [34] {k}": v["awgn_philox"]
+           for k, v in by_family.items()},
+        "redecode [35]": redecode["launches"]["awgn_philox"],
+        "perf_report [36]": tools36["perf_report_launches"]["awgn_philox"]})
+    extra["awgn_philox"]["shapes"]["batch 1 [34]"] = batch1["awgn_philox"]
+    extra["uniform_philox"] = {
+        "launches_by_path": {
+            "gdbf sweep [11]": s_launches["uniform_philox"],
+            **{f"replay [34] {k}": v["uniform_philox"]
+               for k, v in by_family.items() if "uniform_philox" in v}},
+        "shapes": {"batch 1 [34]": batch1["uniform_philox"]}}
+    extra["gauss_philox"]["launches_by_path"].update({
+        "replay [34] SMNGDBF": by_family["SMNGDBF"]["gauss_philox"],
+        "redecode [35]": redecode["launches"]["gauss_philox"],
+        "perf_report [36]": tools36["perf_report_launches"]["gauss_philox"]})
+    extra["gauss_philox"]["shapes"].update({
+        "batch 1 [34]": batch1["gauss_philox"],
+        "redecode [1008 x F·NR] [35]": redecode["b4"]})
     # B1's and B4's launches on the stream paths [27]-[29]
     extra["minsum_cn_scan"]["launches_by_path"].update({
         **{f"stream card vs cpu [27] {k}": v.get("minsum_cn_scan", 0)

@@ -40,8 +40,9 @@ uses JAX's ``ndtr`` formula with PyTorch's ``erf``/``erfc``, which can
 differ from XLA's by an ulp: a decision moves only if ``Φ`` lies within an
 ulp of a level midpoint.
 
-Not here: the ``dense=`` graph (a TPU workaround, left behind), and
-``trace=True`` (with the replay tool, ROADMAP A14).
+``trace=True`` runs the whole step budget with no early exit and returns
+every step's decisions as well (the source of :mod:`..tools.replay`'s
+traces).  Not here: the ``dense=`` graph (a TPU workaround, left behind).
 """
 
 from __future__ import annotations
@@ -296,12 +297,14 @@ def decode_gdbf(
     bypass the uniform and shaping transforms, as in the JAX decoder).
     qc: optional QC structure of the SAME code — row-gather graph
     operations (:mod:`.qc_ops`), bit-identical to the generic ones.
+    trace: run all ``max_phases·T`` steps with no early exit (frames that
+    are done keep their state, as in the JAX decoder's masked scan) and
+    return ``(result, d_steps)``: ``d_steps`` [max_phases·T, N, B] int32
+    ±1, the decisions after every step, and ``result`` what
+    ``trace=False`` returns (``steps`` then counts the whole budget).  It
+    holds ``steps·N·B`` integers and reads nothing from the card per
+    step: meant for a few frames.
     """
-    if trace:
-        raise NotImplementedError(
-            "decode_gdbf(trace=True) comes with the replay tool "
-            "(ROADMAP A14)"
-        )
     if qc is not None and (qc.n != code.n or qc.m != code.m):
         raise ValueError("qc structure does not match code dimensions")
     if (
@@ -341,10 +344,13 @@ def decode_gdbf(
                         device=device)
     smooth_used = torch.zeros((b,), dtype=torch.int32, device=device)
     sat_at_exit = torch.zeros((b,), dtype=torch.bool, device=device)
+    d_steps = (torch.empty((total_steps, n, b), dtype=torch.int32,
+                           device=device) if trace else None)
 
     step = 0
     while step < total_steps:
-        if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
+        if (not trace and step % DONE_CHECK_EVERY == 0
+                and bool(done.all())):
             break
         phase, it = divmod(step, T)
         act = ~done
@@ -421,6 +427,8 @@ def decode_gdbf(
         # output smoothing accumulation
         if cfg.output_smoothing and it > T - cfg.window_size:
             dsum = torch.where(act[None, :], dsum + d, dsum)
+        if trace:
+            d_steps[step] = d
         step += 1
 
     satisfied = sat_at_exit
@@ -429,5 +437,6 @@ def decode_gdbf(
         smooth_used = smooth_used + (~satisfied).to(torch.int32)
         d_smoothed = torch.where(dsum > 0, 1, -1).to(torch.int32)
         d = torch.where(~satisfied[None, :], d_smoothed, d)
-    return GDBFResult(hard=d.t(), iterations=iters, satisfied=satisfied,
-                      phases=phases, smoothing_used=smooth_used, steps=step)
+    result = GDBFResult(hard=d.t(), iterations=iters, satisfied=satisfied,
+                        phases=phases, smoothing_used=smooth_used, steps=step)
+    return (result, d_steps) if trace else result

@@ -11,7 +11,9 @@ the constants it printed.  ``minsum_peg`` runs 131072 frames in batches of
 the frame counts in ``POINT_FRAMES``, chosen so that each takes a few
 minutes at most on the CPU.  The non-binary point runs the batches of the
 JAX ``simulate_nb`` (the same keys) through :func:`nb_frames`, which keeps
-the per-frame counts that the standard errors need.
+the per-frame counts that the standard errors need.  ``redecode_qc`` is the
+JAX ``redecode_statistics`` at its CLI's documented point, summarized by
+:func:`pe_moments` with frames as the sampling unit.
 """
 
 from __future__ import annotations
@@ -245,6 +247,33 @@ def nbqspa_gf8() -> dict:
     sym, bits, iters = nb_frames(code, NB_SNR_DB, 20, frames, batch,
                                  storage_dtype=jnp.float16)
     return nb_moments(sym, bits, iters, code.n, code.q)
+
+
+def pe_moments(outcomes) -> dict:
+    """(value, standard error) of the mean frame error probability Pe(f)
+    and of the share of frames with Pe(f) > 0, from redecode outcomes
+    [frames, attempts], taking frames as the sampling unit."""
+    pe = (np.asarray(outcomes) > 0).mean(axis=1)
+    f = len(pe)
+    share = float((pe > 0).mean())
+    se = float(pe.std(ddof=1)) / math.sqrt(f)
+    return dict(mean_pe=(float(pe.mean()), se),
+                share_pe_pos=(share, math.sqrt(share * (1 - share) / f)),
+                frames=f, attempts=int(np.asarray(outcomes).shape[1]))
+
+
+def redecode_qc() -> dict:
+    """``redecode_statistics`` on qc_1008_504 at 3.5 dB: SMNGDBF, T=300,
+    theta -0.9, noise scale 0.975, lambda 0.988, alpha 0.75, window 64
+    (the JAX CLI's defaults), 200 frames x 100 attempts, seed 0."""
+    from ldpcsimulation_tpu.decoders.gdbf import preset
+    from ldpcsimulation_tpu.tools.redecode_stats import redecode_statistics
+
+    cfg = preset("SMNGDBF", num_iterations=300, theta=-0.9,
+                 noise_scale=0.975, lam=0.988, alpha=0.75, window_size=64)
+    out = redecode_statistics(load_named_code("qc_1008_504"), cfg, 3.5,
+                              num_frames=200, num_redecodes=100, seed=0)
+    return pe_moments(out)
 
 
 if __name__ == "__main__":

@@ -292,10 +292,13 @@ def test_decode_guards(graphs):
     _, _, pc, pqc = graphs["qc"]
     y = torch.ones((2, pc.n))
     cfg = pg.preset("SMNGDBF", 5, -0.9)
-    with pytest.raises(NotImplementedError, match="A14"):
-        pg.decode_gdbf(pc, y, 0.5, cfg, key=NoiseKey(0, 0), trace=True)
+    res, d_steps = pg.decode_gdbf(pc, y, 0.5, cfg, key=NoiseKey(0, 0),
+                                  trace=True)  # the replay tool's trace mode
+    assert d_steps.shape == (5, pc.n, 2) and res.steps == 5
     with pytest.raises(ValueError, match="noise key"):
         pg.decode_gdbf(pc, y, 0.5, cfg)
+    with pytest.raises(ValueError, match="noise key"):
+        pg.decode_gdbf(pc, y, 0.5, cfg, trace=True)
     with pytest.raises(ValueError, match="does not match"):
         pg.decode_gdbf(graphs["generic"][2], torch.ones((2, 48)), 0.5,
                        pg.preset("GDBF", 5, -0.9), qc=pqc)
