@@ -3,9 +3,11 @@ against its plain PyTorch twin on the card, drives the min-sum main path,
 the SMNGDBF bit-flip path, the BP, layered and DD-BMP paths, the
 hardware-model bit-flip paths (NGDBFhw, the SystemC model), the
 streaming refill harness (the NGDBFhw stream among them), the
-non-binary FFT-QSPA paths and the experiment tools (replay and trace,
-redecode statistics, message tracing, the throughput report) at full
-width, and measures every kernel against its bounds.
+non-binary FFT-QSPA paths, the experiment tools (replay and trace,
+redecode statistics, message tracing, the throughput report) and the
+multi-device engine (the operating-point grid, a two-process group, the
+sweep's ``--distributed`` routes, sharded streams) at full width, and
+measures every kernel against its bounds.
 
     python3 chip_smoke.py
 
@@ -196,8 +198,8 @@ the exit code is non-zero):
      NGDBFhw stream pools' shapes, with times and bounds;
  33. the sweep CLI's ``ngdbfhw --stream`` and ``nbqspa`` routes
      (``--nb-random``, ``--stream``, an NB alist), one row each, and the
-     refusals of ``--stream --persistent-qpointer`` and ``--distributed
-     nbqspa`` (ROADMAP A13);
+     refusals of ``--stream --persistent-qpointer`` and of ``--distributed
+     nbqspa`` with two SNRs on one slot (the JAX CLI's messages);
  34. replay and trace (``tools/replay.py``): for SMNGDBF at [10]'s point,
      StochasticNGDBF (3.0 dB, T=100) and SMNGDBF with uniform noise, one
      batch of 32768 frames at batch index 2 decoded on the card, then 4
@@ -219,7 +221,30 @@ the exit code is non-zero):
      sign errors equal and each iteration's messages within
      ``BP_RTOL``/``BP_ATOL``; B1 at B=1 against its twin with its time;
      ``perf_report``'s flagship row and its SM-NGDBF working-point row
-     beside [5]'s and [10]'s rates (not gated on time).
+     beside [5]'s and [10]'s rates (not gated on time);
+ 37. the grid engine (``parallel/``): ``init_distributed`` (NCCL, a group
+     of one on cuda:0); ``simulate_distributed`` on the default mesh's one
+     slot at [5]'s point, its totals equal to [5]'s ``PARENT_TOTALS`` (the
+     same frames), its rate beside [5]'s; ``simulate_grid`` on a 4-slot
+     mesh repeating cuda:0 over an SMNGDBF grid (qc_1008_504, 3.0 and 3.25
+     dB x lambda 0.99 and 0.995, T=100, 2 rounds of 32768 frames per slot),
+     every point's counters equal to ``simulate``'s over its frames, the
+     3.0 dB, lambda 0.99 point within 4 joint s.e. of the JAX grid's
+     (``JAX_GRID``), grid and point-by-point rates, ms per round;
+ 38. two processes, the ranks of one gloo group (the backend given: NCCL
+     refuses two ranks on one card), both on cuda:0 with one slot each:
+     two rounds of a 2-point grid step (normalized QC min-sum at B=32768)
+     and a 2-slot ``simulate_stream``, every rank's all-reduced counters
+     equal to this process running the same mesh alone;
+ 39. ``sweep --distributed --resume`` on the card: min-sum (two SNRs),
+     SMNGDBF (two lambdas) and its uniform-noise form, NGDBFhw
+     (highrate_2048_384, T=100, its itdist file) and nbqspa (GF(8) at 1.3
+     dB), every row equal to the port's ``simulate`` (or ``simulate_nb``)
+     over its frames with the route's decode, the JAX CLI's resume keys;
+     then ``simulate_stream`` (QC min-sum, f16) and the GDBF stream
+     (SMNGDBF, StochasticNGDBF) on a 2-slot mesh of cuda:0, recorded:
+     every retired frame equal to its batch decode on the card, each
+     slot's gids inside its windows, no host sync in a normal call.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -230,8 +255,10 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3444,8 +3471,9 @@ def phase_hw_nb_sweep(device):
             (["ngdbfhw", "--code", HW_CODE, "--snr", "4.25", "-T", "600",
               "--stream", "--persistent-qpointer"],
              "already chains ring offsets"),
-            (["nbqspa", "--nb-random", "24:12:3:4", "--snr", "2.0", "-T",
-              "4", "--distributed"], "ROADMAP A13"),
+            (["nbqspa", "--nb-random", "24:12:3:4", "--snr", "2.0,3.0",
+              "-T", "4", "--distributed"],
+             "needs len(snrs)=2 to divide the device count (1)"),
         ):
             try:
                 sweep_main(args + common + ["--log", f"{tmp}/x.log"])
@@ -3842,6 +3870,620 @@ def phase_tools_card(device, timer, rates):
                 perf_report=report, perf_report_launches=report_launches)
 
 
+# The multi-device engine [37]-[39] (``parallel/``).  [37]'s grid: an
+# SMNGDBF cut of the reference's MNGDBF grid script
+# (``mngdbf_example_PEGReg504x1008.sh:31-59``: its SNRs 3.0 and 3.25, T=100,
+# two values of its lambda sweep), the other parameters [10]'s working
+# point (the script's alpha of 2.x diverges for SMNGDBF).  The JAX package's
+# ``simulate_grid`` at 3.0 dB, lambda 0.99 (its CPU run on 8 slots, 16384
+# frames, seed 0, ``python -m tests.jax_reference_stats grid_smngdbf``):
+# (value, standard error).
+GRID_SNRS = (3.0, 3.25)
+GRID_LAMS = (0.99, 0.995)
+GRID_T = 100
+GRID_SLOTS = 4
+JAX_GRID = dict(
+    ber=(0.009218609522259424, 0.00011472989486894838),
+    fer=(0.3861083984375, 0.0038035620054165525),
+    avg_iterations=(76.4844970703125, 0.19655686752843374),
+)
+# [39]'s frames per slot and a mesh stream's lanes per slot: the full
+# width, as [5] and [28] (the NB route takes NB_BATCH)
+DIST_BATCH = BATCH
+# frames per reference batch decode of a mesh stream's windows
+MESH_REF_CHUNK = BATCH
+# [38]: two ranks on one card, one snr slot each
+CLUSTER_RANKS = 2
+CLUSTER_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def totals_of(s) -> tuple:
+    """A run's integer totals and histograms (trailing empty iteration
+    bins dropped: ``simulate`` grows its histogram, the grid's is T+1)."""
+    return (s.total_words, s.errors, s.word_errors, s.total_iterations,
+            s.satisfied_words, s.uncoded_errors,
+            tuple(s.error_weight_hist.tolist()),
+            tuple(np.trim_zeros(s.iteration_hist, "b").tolist()),
+            s.extra.get("smoothing_used"))
+
+
+def f32(v) -> float:
+    return float(np.float32(v))
+
+
+def phase_grid(qc, device, rate5):
+    """[37] The grid engine on the card: ``init_distributed`` (NCCL, a
+    group of one on cuda:0), ``simulate_distributed`` on the default mesh's
+    one slot at [5]'s point (its totals must be [5]'s: the same frames),
+    then ``simulate_grid`` on a 4-slot mesh that repeats cuda:0 over the
+    SMNGDBF grid, each point equal to ``simulate`` over its frames and the
+    3.0 dB, lambda 0.99 point within 4 joint s.e. of the JAX grid's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ldpcsimulation_tpu_torch.channel import saturate, snr_to_sigma
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_gdbf,
+        decode_minsum_qc,
+        preset,
+    )
+    from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+    )
+    from ldpcsimulation_tpu_torch.parallel.montecarlo import (
+        simulate_distributed,
+        simulate_grid,
+    )
+
+    torch.cuda.set_device(device)
+    init_distributed(backend="nccl",
+                     init_method=f"tcp://localhost:{free_port()}", rank=0,
+                     world_size=1)
+    probe = torch.ones(1, device=device)
+    dist.all_reduce(probe)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and float(probe) == 1.0, "an NCCL group of one on cuda:0")
+    code = qc.to_code(device)
+    k = qc.n - qc.m
+    mesh = make_mesh()
+    check(mesh.slots == ((0, device),), f"default mesh {mesh.slots}")
+
+    def one_slot(frames):
+        return simulate_distributed(
+            code, lambda y, sigma, key: decode_minsum_qc(
+                qc, y, T, storage_dtype=torch.float16),
+            [SNR_DB], mesh, stop=StopRule.fixed_frames(frames),
+            batch_per_device=BATCH, max_iterations=T, seed=SEED)[0]
+
+    one_slot(BATCH)  # warm-up round, as [5] warms up
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    build.PATHS.clear()
+    st = one_slot(4 * BATCH)
+    torch.cuda.synchronize()
+    single = dict(build.LAUNCHES)
+    rate1 = st.total_words * k / st.wall_seconds
+    print(f"  one slot: BER {st.ber!r} over {st.total_words} frames in "
+          f"{st.wall_seconds:.4f} s: {rate1:.6g} decoded info bits/s "
+          f"([5]'s simulate: {rate5:.6g}); launches {single}")
+    check(single == {"minsum_cn_scan": 4 * T, "awgn_philox": 4},
+          f"single-slot launches {single}")
+    check_totals("minsum", st)
+
+    cfg0 = preset("SMNGDBF", GRID_T, **GDBF_KW)
+    points = [{"snr": s, "lam": lam} for s in GRID_SNRS for lam in GRID_LAMS]
+    gmesh = make_mesh(n_snr=GRID_SLOTS, devices=[device] * GRID_SLOTS)
+    steps = []
+
+    def gdec(y, sigma, key, point):
+        res = decode_gdbf(code, y, sigma,
+                          dataclasses.replace(cfg0, lam=point["lam"]),
+                          key=key, qc=qc)
+        steps.append(res.steps)
+        return res
+
+    build.LAUNCHES.clear()
+    build.PATHS.clear()
+    stats = simulate_grid(
+        code, gdec, points, gmesh, max_iterations=GRID_T,
+        stop=StopRule.fixed_frames(2 * BATCH), batch_per_device=BATCH,
+        seed=SEED, preprocess=lambda y, point: saturate(y, GDBF_YMAX),
+        param_names=("lam",))
+    torch.cuda.synchronize()
+    grid = dict(build.LAUNCHES)
+    grid_s = stats[0].wall_seconds
+    frames = sum(s.total_words for s in stats)
+    rounds = frames // (GRID_SLOTS * BATCH)
+    print(f"  grid: {len(points)} points on {GRID_SLOTS} slots of {device}, "
+          f"{rounds} rounds, {frames} frames in {grid_s:.4f} s "
+          f"({1e3 * grid_s / rounds:.1f} ms per round): "
+          f"{frames * k / grid_s:.6g} decoded info bits/s; steps {steps}; "
+          f"launches {grid}")
+    check(rounds == 2 and grid == {"awgn_philox": 8,
+                                   "gauss_philox": sum(steps)},
+          f"grid launches {grid}, steps {steps}")
+    ref_s = 0.0
+    for p, s in zip(points, stats):
+        sigma = f32(snr_to_sigma(p["snr"], code.rate))
+        cfg = dataclasses.replace(cfg0, lam=f32(p["lam"]))
+        ref = simulate(
+            code, lambda yq, key: decode_gdbf(code, yq, sigma, cfg, key=key,
+                                              qc=qc),
+            p["snr"], stop=StopRule.fixed_frames(2 * BATCH),
+            batch_size=BATCH, seed=SEED, device=device,
+            preprocess=lambda y: saturate(y, GDBF_YMAX))
+        ref_s += ref.wall_seconds
+        print(f"  {p}: BER {s.ber!r} FER {s.fer!r} avg iterations "
+              f"{s.avg_iterations!r}; simulate over the same frames "
+              f"{ref.wall_seconds:.4f} s")
+        check(totals_of(s) == totals_of(ref),
+              f"grid point {p} != simulate over its frames")
+    print(f"  the same points through simulate, one after another: "
+          f"{ref_s:.4f} s, {frames * k / ref_s:.6g} decoded info bits/s")
+    gate(f"grid {points[0]}", mc_moments(stats[0], qc.n), JAX_GRID)
+    dist.destroy_process_group()
+    return dict(single=dict(rate=rate1, rate_simulate_5=rate5,
+                            seconds=st.wall_seconds, launches=single),
+                grid=dict(points=len(points), slots=GRID_SLOTS,
+                          rounds=rounds, frames=frames, seconds=grid_s,
+                          ms_per_round=1e3 * grid_s / rounds,
+                          rate=frames * k / grid_s,
+                          simulate_seconds=ref_s,
+                          simulate_rate=frames * k / ref_s,
+                          launches=grid,
+                          ber=stats[0].ber, fer=stats[0].fer,
+                          avg_iterations=stats[0].avg_iterations))
+
+
+def cluster_cases(device) -> dict:
+    """[38]'s work on a 2-slot mesh of ``device`` (one slot per rank in a
+    two-rank group): two rounds of the grid step (normalized QC min-sum,
+    2.0 and 2.5 dB, alpha 1 and 1.25, B=32768 per slot) and a 2-slot
+    ``simulate_stream``.  JSON-ready results and the launches."""
+    from ldpcsimulation_tpu_torch.channel import snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import decode_minsum_qc
+    from ldpcsimulation_tpu_torch.harness import StopRule
+    from ldpcsimulation_tpu_torch.harness.stream import (
+        minsum_qc_stream,
+        simulate_stream,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.parallel.mesh import (
+        make_grid_step,
+        make_mesh,
+    )
+
+    qc = load_named_qc(CODE)
+    code = qc.to_code(device)
+    rate = (qc.n - qc.m) / qc.n
+    build.LAUNCHES.clear()
+    step = make_grid_step(
+        code, lambda y, sigma, key, p: decode_minsum_qc(
+            qc, y, T, variant="normalized", alpha=p["alpha"],
+            storage_dtype=torch.float16),
+        make_mesh(n_snr=CLUSTER_RANKS, devices=[device] * CLUSTER_RANKS),
+        batch_per_device=BATCH, max_iterations=T, param_names=("alpha",))
+    out = {}
+    for r in range(2):
+        got = step(SEED, [snr_to_sigma(s, rate) for s in (2.0, 2.5)],
+                   {"alpha": [1.0, 1.25]}, [r * BATCH] * CLUSTER_RANKS)
+        out[f"round {r}"] = {k: v.tolist() for k, v in got.items()}
+    st = simulate_stream(
+        qc.n, minsum_qc_stream(qc, storage_dtype=torch.float16), SNR_DB,
+        rate, T, stop=StopRule.fixed_frames(4 * 4096), lanes=2 * 4096,
+        refill_every=2, rounds_per_call=16, pool_frames=4 * 8192, seed=SEED,
+        mesh=make_mesh(n_snr=1, devices=[device] * CLUSTER_RANKS))
+    out["stream"] = [st.total_words, st.errors, st.word_errors,
+                     st.total_iterations, st.uncoded_errors,
+                     st.iteration_hist.tolist()]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(results=out, launches=dict(build.LAUNCHES))
+
+
+def cluster_worker(port: int, rank: int, out_path: str, device: str) -> int:
+    """One rank of [38]: join the gloo group of CLUSTER_RANKS processes,
+    run :func:`cluster_cases` on ``device`` and write its results."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ldpcsimulation_tpu_torch.parallel.mesh import init_distributed
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                     rank=rank, world_size=CLUSTER_RANKS,
+                     timeout=datetime.timedelta(seconds=CLUSTER_TIMEOUT_S))
+    check(dist.get_backend() == "gloo"
+          and dist.get_world_size() == CLUSTER_RANKS, "the gloo group")
+    got = cluster_cases(device)
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(got, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_cluster(device):
+    """[38] Two processes, each a rank of one gloo group (NCCL refuses two
+    ranks on one card; the backend is given, never switched), both driving
+    cuda:0 with one slot each: every rank's all-reduced counters must equal
+    this process running the same 2-slot mesh alone."""
+    import torch.distributed as dist
+
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    check(not dist.is_initialized(), "no group in the parent")
+    port = free_port()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        out = f"{tmp}/cluster.json"
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--cluster-worker", str(port),
+             str(rank), out, str(device)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for rank in range(CLUSTER_RANKS)]
+        try:
+            logs = [p.communicate(timeout=CLUSTER_TIMEOUT_S)[0].decode()
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {rank} failed:\n{log[-4000:]}")
+        ranks = []
+        for rank in range(CLUSTER_RANKS):
+            with open(f"{out}.{rank}") as f:
+                ranks.append(json.load(f))
+    secs = time.perf_counter() - t0
+    local = json.loads(json.dumps(cluster_cases(device)))
+    for rank, got in enumerate(ranks):
+        check(got["results"] == local["results"],
+              f"rank {rank}'s counters != the single-process run")
+    errs = [local["results"][f"round {r}"]["errors"] for r in range(2)]
+    print(f"  {CLUSTER_RANKS} gloo ranks on {device} in {secs:.1f} s "
+          f"(process start included): counters equal to one process's, "
+          f"bit errors by round and slot {errs}, stream "
+          f"{local['results']['stream'][:4]}; launches per rank "
+          f"{[r['launches'] for r in ranks]}, one process "
+          f"{local['launches']}")
+    check(all(min(e) > 0 for e in errs), "the cluster's points saw errors")
+    return dict(seconds=secs, launches=[r["launches"] for r in ranks],
+                single_process_launches=local["launches"])
+
+
+def mesh_records(recs, window, local) -> dict:
+    """The records of a mesh call's slots as device tensors, valid rows
+    only, concatenated; slot di's gids checked to lie in its windows
+    ``[w·window + di·local, w·window + (di+1)·local)``."""
+    out = {}
+    for di, r in enumerate(recs):
+        rc = int(r["rc_local"])
+        check(bool((((r["gid"][:rc] % window) // local) == di).all()),
+              f"slot {di} retired a gid outside its window")
+        for key, v in r.items():
+            if key != "rc_local":
+                out.setdefault(key, []).append(v[:rc])
+    return {key: torch.cat(v) for key, v in out.items()}
+
+
+def drive_mesh_stream(make_call, init, pool_of, mesh, lanes, window,
+                      windows, extra=()):
+    """A recorded stream over the mesh's data slots: ``windows`` pool
+    windows of ``window`` global rows, then the drain.  Returns the
+    records (gids checked unique and inside their slot's window) and one
+    normal call's host syncs."""
+    import warnings
+
+    from ldpcsimulation_tpu_torch.harness.stream import (
+        _all_idle,
+        fetch,
+        mesh_pools,
+        mesh_setup,
+    )
+
+    nd, _, state = mesh_setup(mesh, lanes, window, False, init)
+    call = make_call(mesh)
+    local = window // nd
+    recs, syncs, base, pools = [], None, 0, None
+    for w in range(windows):
+        pools = mesh_pools(mesh, base, local, pool_of)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            state, acc, rec = call(state, *pools, base, *extra)
+            torch.cuda.set_sync_debug_mode("default")
+        if w == 1:  # the second call: lanes full, a normal call
+            syncs = [c for c in caught
+                     if "called a synchronizing" in str(c.message)]
+        a = fetch(acc)
+        got = mesh_records(rec, window, local)
+        check(a["frames"] == got["gid"].numel(), "records vs counters")
+        recs.append(got)
+        base += window
+    for _ in range(100):
+        if _all_idle(state):
+            break
+        state, acc, rec = call(state, *pools, base, *extra, local)
+        recs.append(mesh_records(rec, window, local))
+    check(_all_idle(state), "the mesh stream drained")
+    out = {key: torch.cat([r[key] for r in recs]) for key in recs[0]}
+    gid = out["gid"]
+    check(gid.numel() == torch.unique(gid).numel(), "a frame retired twice")
+    return out, [str(c.message) for c in syncs]
+
+
+def phase_distributed_sweep(qc, device):
+    """[39] ``sweep --distributed`` on the card: min-sum (qc_1008_504, two
+    SNRs, the slot-array decoder), SMNGDBF (two lambdas) and its
+    uniform-noise form, NGDBFhw (highrate_2048_384, its itdist file) and
+    nbqspa (GF(8) nb_regular(6000, 4000, 3), one SNR), each row equal to
+    the port's ``simulate`` over the same frames with the route's decode
+    (f32 point scalars), the ``--resume`` keys the JAX CLI writes; then
+    ``simulate_stream`` and the GDBF stream (SMNGDBF and StochasticNGDBF)
+    with ``mesh=`` on 2 slots of cuda:0: every retired frame equal to its
+    batch decode on the card, no host sync in a normal call."""
+    from ldpcsimulation_tpu_torch.channel import (
+        saturate,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_gdbf,
+        decode_minsum,
+        decode_minsum_qc,
+        preset,
+    )
+    from ldpcsimulation_tpu_torch.decoders.base import NoiseKey
+    from ldpcsimulation_tpu_torch.decoders.ngdbf_hw import (
+        NGDBFHwConfig,
+        decode_ngdbf_hw,
+    )
+    from ldpcsimulation_tpu_torch.harness import (
+        StopRule,
+        fmt,
+        gdbf_log_row,
+        minsum_log_row,
+        ngdbfhw_log_row,
+        simulate,
+        simulate_nb,
+    )
+    from ldpcsimulation_tpu_torch.harness import stream
+    from ldpcsimulation_tpu_torch.harness import stream_gdbf as sg
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.parallel.mesh import make_mesh
+    from ldpcsimulation_tpu_torch.tools.sweep import (
+        _grid_key,
+        _parse_snr,
+        build_parser,
+    )
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    code = qc.to_code(device)
+    hw_code = load_named_code(HW_CODE, device)
+    nb = nb_code(device)
+    b = DIST_BATCH
+    sm = dict(theta=f32(-0.9), noise_scale=f32(0.975), alpha=f32(0.75),
+              window_size=64)
+    hw_cfg = NGDBFHwConfig(num_iterations=GRID_T, w=f32(0.185),
+                           ymax=f32(1.625), noise_scale=f32(0.95),
+                           theta0=f32(-0.525), ring_len=2648)
+    nb_spec = ":".join(map(str, NB_CODE))
+
+    def sim(snr, dec, stop, c=code, pre=None):
+        return simulate(c, dec, snr, stop=stop, batch_size=b, seed=0,
+                        preprocess=pre, device=device)
+
+    def gdbf_want(snr, lam, uniform):
+        cfg = preset("SMNGDBF", GRID_T, lam=f32(lam), uniform_noise=uniform,
+                     **sm)
+        sigma = f32(snr_to_sigma(snr, code.rate))
+        st = sim(snr, lambda yq, key: decode_gdbf(code, yq, sigma, cfg,
+                                                  key=key, qc=qc),
+                 StopRule(200, 20, b), pre=lambda y: saturate(y, f32(2.5)))
+        return gdbf_log_row(snr, st, GRID_T, -0.9, CODE, noise_scale=0.975,
+                            lam=lam, alpha=0.75,
+                            smoothing_used=int(st.extra["smoothing_used"]),
+                            window_size=64, ymax=2.5)
+
+    def hw_want(snr):
+        sigma = f32(snr_to_sigma(snr, hw_code.rate))
+        st = sim(snr, lambda y, key: decode_ngdbf_hw(hw_code, y, sigma,
+                                                     hw_cfg, key=key),
+                 StopRule.fixed_frames(b), c=hw_code)
+        return ngdbfhw_log_row(snr, st, GRID_T, -0.525, 0.95, 0.185, 1.625,
+                               5, 1, 0)
+
+    def nb_want(snr):
+        st = simulate_nb(nb, snr, NB_T, stop=StopRule(200, 20, 2 * NB_BATCH),
+                         batch_size=NB_BATCH, seed=0, early_termination=True,
+                         storage_dtype=torch.float16, device=device)
+        return "\t".join(fmt(v) for v in (snr, st.ser, st.ber,
+                                          st.avg_iterations, st.fer, NB_T)
+                         ) + f"\tnb_random_{nb_spec}"
+
+    gdbf_args = ["gdbf", "--preset", "SMNGDBF", "--code", CODE, "--snr",
+                 "3.25", "-T", str(GRID_T), "--theta", "-0.9",
+                 "--noise-scale", "0.975", "--alpha", "0.75", "--window",
+                 "64", "--ymax", "2.5", "--batch", str(b), "--max-frames",
+                 str(b)]
+    runs = (
+        ("minsum", ["minsum", "--code", CODE, "--snr", "2.0,2.5", "-T",
+                    str(T), "--msg-dtype", "f16", "--batch", str(b),
+                    "--max-frames", str(2 * b)],
+         [minsum_log_row(snr, sim(snr, lambda y, key: decode_minsum(
+             code, y, T, storage_dtype=torch.float16),
+             StopRule(200, 20, 2 * b)), T, CODE) for snr in (2.0, 2.5)],
+         "minsum_cn_scan"),
+        ("gdbf", gdbf_args + ["--lam", "0.988", "0.99"],
+         [gdbf_want(3.25, lam, False) for lam in (0.988, 0.99)],
+         "gauss_philox"),
+        ("gdbf --uniform-noise", gdbf_args + ["--lam", "0.988",
+                                              "--uniform-noise"],
+         [gdbf_want(3.25, 0.988, True)], "uniform_philox"),
+        ("ngdbfhw", ["ngdbfhw", "--code", HW_CODE, "--snr", str(HW_SNR_DB),
+                     "-T", str(GRID_T), "--frames", str(b), "--batch",
+                     str(b)], [hw_want(HW_SNR_DB)], "gauss_philox"),
+        ("nbqspa", ["nbqspa", "--nb-random", nb_spec, "--snr",
+                    str(NB_SNR_DB), "-T", str(NB_T), "--early-termination",
+                    "--msg-dtype", "f16", "--batch", str(NB_BATCH),
+                    "--max-frames", str(2 * NB_BATCH)],
+         [nb_want(NB_SNR_DB)], "awgn_philox"),
+    )
+    launched = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        for i, (label, args, want, kernel) in enumerate(runs):
+            log_path = f"{tmp}/d{i}.log"
+            build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rc = sweep_main(args + ["--device", str(device), "--log",
+                                    log_path, "--distributed", "--resume"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            with open(log_path) as f:
+                rows = f.read().splitlines()
+            print(f"  {label}: {len(rows)} rows in {secs:.2f} s, widths "
+                  f"{[len(r.split(chr(9))) for r in rows]}; launches "
+                  f"{launches}")
+            for row in rows:
+                print(f"    {row}")
+            check(rc == 0 and rows == want,
+                  f"{label} rows != simulate over their frames: {want}")
+            check(launches.get(kernel, 0) > 0, f"{label}: {kernel} not "
+                  f"launched ({launches})")
+            if label == "nbqspa":
+                check(not os.path.exists(log_path + ".done"),
+                      "the JAX CLI's nbqspa route writes no sidecar")
+            else:
+                # the keys of the JAX CLI's sidecar: one per grid point
+                ns = build_parser().parse_args(args + ["--log", log_path])
+                want_keys = [_grid_key(pt) for pt in itertools.product(
+                    _parse_snr(ns.snr), ns.ymax, ns.nq, ns.alpha, ns.delta,
+                    ns.theta, ns.noise_scale, ns.lam, ns.w, ns.theta0)]
+                with open(log_path + ".done") as f:
+                    keys = f.read().splitlines()
+                check(keys == want_keys, f"{label} resume keys {keys}")
+            if label == "ngdbfhw":
+                check(os.path.exists(f"{log_path}_{HW_SNR_DB:g}_itdist.dat"),
+                      "the ngdbfhw itdist file")
+            for key, v in launches.items():
+                launched[f"{key} {label}"] = v
+
+        # streams over a 2-slot mesh of the card
+        mesh = make_mesh(n_snr=1, devices=[device] * 2)
+        sigma = snr_to_sigma(SNR_DB, code.rate)
+        dec = stream.minsum_qc_stream(qc, storage_dtype=torch.float16)
+        lanes = 2 * DIST_BATCH  # DIST_BATCH per slot
+        window = 2 * lanes
+        build.LAUNCHES.clear()
+        recs, syncs = drive_mesh_stream(
+            lambda m: stream.make_stream_call(
+                dec, qc.n, T, 16, 2, record=True, rec_cap=window, mesh=m),
+            lambda n_lanes, dev: stream.stream_init(
+                dec, n_lanes, qc.n, device=dev),
+            lambda base, frames, dev: stream.build_channel_pool(
+                dec, SEED, base, frames, qc.n, sigma, device=dev),
+            mesh, lanes, window, 2)
+        s_launches = dict(build.LAUNCHES)
+        g = recs["gid"]
+        for f0 in range(0, 2 * window, MESH_REF_CHUNK):
+            y = stream.build_channel_pool(dec, SEED, f0, MESH_REF_CHUNK,
+                                          qc.n, sigma, device=device)[0]
+            res = decode_minsum_qc(qc, y, T, early_termination=True,
+                                   storage_dtype=torch.float16)
+            at = ((g >= f0) & (g < f0 + MESH_REF_CHUNK)).nonzero()[:, 0]
+            gl = g[at] - f0
+            hard = res.hard[gl].to(torch.int8)
+            check(torch.equal(recs["iters"][at],
+                              res.iterations[gl].to(torch.int32))
+                  and torch.equal(recs["hard"][at], hard)
+                  and torch.equal(recs["errs"][at],
+                                  (hard != 1).sum(dim=1).to(torch.int32)),
+                  f"mesh stream frames {f0}+ != their batch decode")
+        local = window // 2
+        check(bool((((g % window) // local).unique().numel() == 2)),
+              "both slots retired frames")
+        print(f"  simulate_stream mesh: 2 slots x {lanes // 2} lanes, "
+              f"{g.numel()} retired frames equal to the batch decode; host "
+              f"syncs in a normal call: {len(syncs)}; launches {s_launches}")
+        for w in syncs:
+            print(f"    host sync: {w}")
+        check(not syncs, "a normal mesh call synced with the host")
+
+        # the GDBF stream: SMNGDBF (B4's per-lane entry) and
+        # StochasticNGDBF (B3's)
+        glanes = 2 * DIST_BATCH  # DIST_BATCH per slot
+        gwindow = 2 * glanes
+        g_launches, g_frames = {}, {}
+        for name, snr, lane_kernel in (
+                ("SMNGDBF", GDBF_SNR_DB, "gauss_philox_lanes"),
+                ("StochasticNGDBF", 3.0, "uniform_philox_lanes")):
+            cfg = preset(name, GRID_T, **(
+                GDBF_KW if name == "SMNGDBF" else
+                dict(theta=-0.9, noise_scale=0.975, alpha=0.75)))
+            gsigma = snr_to_sigma(snr, code.rate)
+
+            def gpool(base, frames, dev, gsigma=gsigma):
+                return sg.build_channel_pool_gdbf(
+                    code, SEED, base, frames, gsigma,
+                    lambda y: saturate(y, GDBF_YMAX), qc=qc, device=dev)
+
+            build.LAUNCHES.clear()
+            grecs, gsyncs = drive_mesh_stream(
+                lambda m: sg.make_gdbf_stream_call(
+                    code, 16, STREAM_GDBF_K, qc=qc, record=True,
+                    rec_cap=gwindow, mesh=m),
+                lambda n_lanes, dev, cfg=cfg: sg.gdbf_stream_init(
+                    code, cfg, n_lanes, device=dev),
+                gpool, mesh, glanes, gwindow, 2, extra=(SEED, gsigma, cfg))
+            launches = dict(build.LAUNCHES)
+            g = grecs["gid"]
+            for f0 in range(0, 2 * gwindow, MESH_REF_CHUNK):
+                rows = gpool(f0, MESH_REF_CHUNK, device)[0]
+                gres = decode_gdbf(code, rows, gsigma, cfg,
+                                   key=NoiseKey(SEED, f0), qc=qc)
+                at = ((g >= f0) & (g < f0 + MESH_REF_CHUNK)).nonzero()[:, 0]
+                gl = g[at] - f0
+                check(torch.equal(grecs["iters"][at],
+                                  gres.iterations[gl].to(torch.int32))
+                      and torch.equal(grecs["hard"][at],
+                                      gres.hard[gl].to(torch.int8))
+                      and torch.equal(grecs["sat"][at], gres.satisfied[gl]),
+                      f"{name} mesh stream frames {f0}+ != their batch "
+                      "decode")
+            print(f"  simulate_stream_gdbf mesh ({name}, {snr} dB, "
+                  f"T={GRID_T}): {g.numel()} retired frames equal to the "
+                  f"batch decode; host syncs in a normal call: "
+                  f"{len(gsyncs)}; launches {launches}")
+            check(launches.get(lane_kernel, 0) > 0 and not gsyncs,
+                  f"{name} mesh stream launches {launches}, syncs "
+                  f"{gsyncs}")
+            for key, v in launches.items():
+                g_launches[key] = g_launches.get(key, 0) + v
+            g_frames[name] = int(g.numel())
+    return dict(sweeps=launched, stream=s_launches, gdbf_stream=g_launches,
+                stream_frames=int(recs["gid"].numel()),
+                gdbf_stream_frames=g_frames, stream_syncs=len(syncs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4006,6 +4648,14 @@ def main() -> int:
     header("[36] msg_trace card vs CPU, B1 at B=1, perf_report rows")
     tools36 = phase_tools_card(device, time_ms,
                                {"minsum": rate, "smngdbf": g_rate})
+    header(f"[37] grid engine: one slot at [5]'s point, an SMNGDBF grid on "
+           f"{GRID_SLOTS} slots of {device}")
+    grid37 = phase_grid(qc, device, rate)
+    header(f"[38] {CLUSTER_RANKS} gloo ranks on {device} against one "
+           f"process")
+    cluster38 = phase_cluster(device)
+    header("[39] sweep --distributed routes; streams on a 2-slot mesh")
+    dist39 = phase_distributed_sweep(qc, device)
 
     summary = {
         "card": card,
@@ -4052,6 +4702,9 @@ def main() -> int:
         "replay": replay,
         "redecode": redecode,
         "tools": tools36,
+        "grid": grid37,
+        "cluster": cluster38,
+        "distributed": dist39,
     }
     print(json.dumps(summary))
     print(card)
@@ -4173,6 +4826,34 @@ def main() -> int:
                  "gauss_philox_lanes"] for k, v in hw_nb_counted.items()},
              "ngdbfhw stream sweep [33]": hw_nb_sweep["gauss_philox_lanes"]}),
     ]
+    # the multi-device paths [37]-[39]
+    sweeps39 = dist39["sweeps"]
+    extra["minsum_cn_scan"]["launches_by_path"].update({
+        "grid one slot [37]": grid37["single"]["launches"]["minsum_cn_scan"],
+        **{f"gloo rank {r} [38]": v.get("minsum_cn_scan", 0)
+           for r, v in enumerate(cluster38["launches"])},
+        "distributed sweep minsum [39]": sweeps39[
+            "minsum_cn_scan minsum"],
+        "stream mesh [39]": dist39["stream"].get("minsum_cn_scan", 0)})
+    extra["awgn_philox"]["launches_by_path"].update({
+        "grid one slot [37]": grid37["single"]["launches"]["awgn_philox"],
+        "smngdbf grid [37]": grid37["grid"]["launches"]["awgn_philox"],
+        **{f"gloo rank {r} [38]": v.get("awgn_philox", 0)
+           for r, v in enumerate(cluster38["launches"])},
+        **{f"distributed sweep {k.split(' ', 1)[1]} [39]": v
+           for k, v in sweeps39.items() if k.startswith("awgn_philox")},
+        "stream mesh [39]": dist39["stream"].get("awgn_philox", 0),
+        "gdbf stream mesh [39]": dist39["gdbf_stream"].get("awgn_philox",
+                                                           0)})
+    extra["gauss_philox"]["launches_by_path"].update({
+        "smngdbf grid [37]": grid37["grid"]["launches"]["gauss_philox"],
+        **{f"distributed sweep {k.split(' ', 1)[1]} [39]": v
+           for k, v in sweeps39.items() if k.startswith("gauss_philox ")}})
+    extra["uniform_philox"]["launches_by_path"][
+        "distributed sweep gdbf --uniform-noise [39]"] = sweeps39[
+        "uniform_philox gdbf --uniform-noise"]
+    for name, _, count, by_path in lane_rows:
+        by_path["gdbf stream mesh [39]"] = dist39["gdbf_stream"].get(name, 0)
     for name, _, count, by_path in lane_rows:
         check(count > 0, f"{name} not launched on its path")
     lanes["gauss_philox_lanes"]["max_abs_err"] = max(
@@ -4205,4 +4886,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cluster-worker"]:
+        # one rank of [38], started by phase_cluster
+        sys.exit(cluster_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -33,10 +33,23 @@ pre-exhausted) reads "every lane idle" once per round to stop early.
 
 Frame ids are int64 (B2's counter takes a 64-bit frame index), so a run
 never rotates its channel key, where the JAX package rotates its root key
-before its int32 ids run out.  The GDBF family streams through
-:mod:`.stream_gdbf`, NGDBFhw through :mod:`.stream_ngdbfhw`.  The
-non-binary FFT-QSPA streams here (:func:`nb_qspa_stream`,
-:func:`simulate_stream_nb`).
+before its int32 ids run out.
+
+The simulate drivers run over the data slots of a
+:class:`..parallel.mesh.Mesh` (``mesh=``; without one, a one-slot mesh on
+``device``).  Each data slot ``di`` of ``nd`` streams ``lanes/nd`` lanes of
+its own against its own ``pool_frames/nd`` pool rows, frames ``base +
+di·(pool_frames/nd)`` onwards, so gids never collide; the counters are
+summed over the rank's slots and all-reduced over the mesh's ranks.  One
+slot's window advances by the rows it consumed; several slots' advance by
+the whole pool each call (a slot's unconsumed gids are skipped, as in the
+JAX package: which gids are skipped depends on the consumption counts
+only, never on a skipped frame's own channel).  The JAX ``data_axis``
+argument is not taken: a stream shards over the "data" axis only.
+
+The GDBF family streams through :mod:`.stream_gdbf`, NGDBFhw through
+:mod:`.stream_ngdbfhw`.  The non-binary FFT-QSPA streams here
+(:func:`nb_qspa_stream`, :func:`simulate_stream_nb`).
 """
 
 from __future__ import annotations
@@ -51,6 +64,12 @@ import torch
 from ..channel.awgn import awgn_all_zero, snr_to_n0, snr_to_sigma
 from ..codes.code import Code
 from ..codes.qc import QCCode
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_dict,
+    all_reduce_sum,
+    world,
+)
 from .montecarlo import MCStats, StopRule, default_min_word_errors
 
 __all__ = [
@@ -67,6 +86,12 @@ __all__ = [
     "pool_policy",
     "DEFAULT_POOL_BYTES",
     "make_stream_call",
+    "MeshState",
+    "slot_mesh",
+    "mesh_setup",
+    "mesh_pools",
+    "next_base",
+    "shard_call",
     "fetch",
     "build_channel_pool",
     "run_drain",
@@ -441,6 +466,7 @@ def make_stream_call(
     record: bool = False,
     rec_cap: int = 0,
     max_weight: Optional[int] = None,
+    mesh=None,
 ):
     """The persistent-state call.
 
@@ -464,6 +490,10 @@ def make_stream_call(
     non-binary decoder's ``hard`` rows are its symbols.  With
     ``dec.errs2_of``, acc adds the total ``errs2`` and ``weight2_hist``
     [n + 1] (retired frames with errs2 = w > 0 at index w).
+
+    ``mesh``: the call of :func:`shard_call` over the mesh's data slots
+    (state and pool arguments are per-slot lists, ``base`` the window's
+    first gid).
     """
     T = num_iterations
     K = refill_every
@@ -576,7 +606,111 @@ def make_stream_call(
             acc["rc"] = rc
         return st, acc, rec
 
+    if mesh is not None:
+        return shard_call(lambda device: call, mesh)
     return call
+
+
+class MeshState(list):
+    """The lane states of this rank's data slots, in slot order; ``home``,
+    the device their counters gather on, and ``ranks``, how many ranks the
+    mesh spans."""
+
+    def __init__(self, states, home, ranks=1):
+        super().__init__(states)
+        self.home = home
+        self.ranks = ranks
+
+
+def slot_mesh(mesh, device, who: str):
+    """``mesh``, or without one a one-slot mesh on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    if mesh is not None:
+        return mesh
+    return Mesh(((world()[0], _card_or_raise(device, who)),))
+
+
+def mesh_setup(mesh, lanes, pool_frames, default_pool, init):
+    """The mesh plumbing of the simulate drivers: validate divisibility
+    (rounding a default pool up to the data axis size) and make each of
+    this rank's data slots its state ``init(lanes / nd, device)``.
+    Returns (nd, pool_frames, MeshState)."""
+    slots = mesh.data_slots()
+    nd = mesh.n_data
+    if default_pool:
+        pool_frames = -(-pool_frames // nd) * nd  # round up to nd
+    if lanes % nd or pool_frames % nd:
+        raise ValueError(
+            f"lanes ({lanes}) and pool_frames ({pool_frames}) must be "
+            f"divisible by the 'data' axis size {nd}"
+        )
+    states = [init(lanes // nd, dev) for _, dev in slots]
+    return nd, pool_frames, MeshState(states, mesh.home, mesh.ranks)
+
+
+def mesh_pools(mesh, base, local_frames, build):
+    """The per-slot pools of the window at ``base``: slot ``di``'s is
+    ``build(base + di·local_frames, local_frames, device)``, a (rows, unc,
+    sat0) triple; returned as three per-slot lists, the call's pool
+    arguments."""
+    pools = [build(base + di * local_frames, local_frames, dev)
+             for di, dev in mesh.data_slots()]
+    return tuple(list(part) for part in zip(*pools))
+
+
+def shard_call(call_for, mesh):
+    """A stream call sharded over the mesh's data slots.
+
+    ``call_for(device)`` gives a slot's single-device call (the same call
+    for every device, or one bound to the device's tables).  The sharded
+    ``call(state, pool, pool_unc, pool_sat0, base, *rest)`` takes per-slot
+    lists of states and pools, runs each slot with its window's first gid
+    ``base + di·len(pool)`` (``rest``, e.g. the GDBF call's seed, sigma,
+    cfg and ptr0, passes through), sums the counters on the rank's home
+    device and, when the mesh spans several ranks, all-reduces them in one
+    collective.  Returns (MeshState, acc, rec), rec
+    the per-slot records (each with the slot's record count ``rc_local``)
+    or None."""
+    slots = mesh.data_slots()
+    home = mesh.home
+    calls = {dev: call_for(dev) for _, dev in slots}
+
+    def sharded(state, pool, pool_unc, pool_sat0, base, *rest):
+        outs = [calls[dev](st, rows, unc, sat0, base + di * rows.shape[0],
+                           *rest)
+                for (di, dev), st, rows, unc, sat0 in zip(slots, state, pool,
+                                                          pool_unc,
+                                                          pool_sat0)]
+        acc = {}
+        for _, a, _ in outs:
+            for k, v in a.items():
+                acc[k] = acc[k] + v.to(home) if k in acc else v.to(home)
+        if mesh.ranks > 1:
+            acc = all_reduce_dict(acc)
+        recs = None
+        if outs[0][2] is not None:
+            recs = [dict(r, rc_local=a["rc"]) for _, a, r in outs]
+        return MeshState([o[0] for o in outs], home, mesh.ranks), acc, recs
+
+    return sharded
+
+
+def next_base(base: int, a: dict, nd: int, pool_frames: int) -> int:
+    """The next window's first gid: one slot reuses the rows it did not
+    consume; several advance by the whole pool, so that the slots' gid
+    ranges never collide."""
+    return base + (a["consumed"] if nd == 1 else pool_frames)
+
+
+def _all_idle(state) -> bool:
+    """Every lane idle; under a mesh, on every slot of every rank (one
+    all-reduced count, so every rank takes the same branch)."""
+    if not isinstance(state, MeshState):
+        return bool(state["idle"].all())
+    busy = sum((~st["idle"]).sum().to(state.home) for st in state)
+    if state.ranks > 1:
+        busy = all_reduce_sum(busy)
+    return int(busy) == 0
 
 
 def fetch(acc) -> dict:
@@ -646,10 +780,11 @@ def run_drain(call, state, pool_args, base, ptr0, take, num_steps,
     budget (rounds × refill_every) is below a lane's remaining iterations
     retires nothing while work remains.  ceil(num_steps / iters_per_call)
     calls retire everything.  ``extra`` carries the arguments that precede
-    ptr0 in the GDBF call (seed, sigma, cfg).
+    ptr0 in the GDBF call (seed, sigma, cfg).  Under a mesh, ``ptr0`` is a
+    slot's pool length and the idleness test covers every slot and rank.
     """
     for _ in range(2 + num_steps // max(iters_per_call, 1)):
-        if bool(state["idle"].all()):
+        if _all_idle(state):
             break
         state, acc, _rec = call(state, *pool_args, base, *extra, ptr0)
         take(fetch(acc))
@@ -724,6 +859,7 @@ def simulate_stream(
     max_calls: int = 100000,
     pool_bytes: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> MCStats:
     """Monte-Carlo loop over the streaming driver (all-zero codewords).
 
@@ -740,22 +876,36 @@ def simulate_stream(
     lane width, capped at ``pool_bytes`` (:func:`pool_policy`).
     ``device`` defaults to the card; ``device="cpu"`` runs the kernels'
     plain twins.
+
+    ``mesh``: stream over the mesh's data slots (their devices replace
+    ``device``); ``lanes`` and ``pool_frames`` are global and must divide
+    by the axis size.  Each slot streams its lanes against its own gid
+    window of the pool (see the module docstring), so every counted frame
+    equals its batch decode, and the counters are all-reduced: the stop
+    rule sees global totals on every rank.
     """
-    device = _card_or_raise(device, "simulate_stream")
+    mesh = slot_mesh(mesh, device, "simulate_stream")
     stop = stop or StopRule(min_word_errors=default_min_word_errors(code_n))
     sigma = snr_to_sigma(snr_db, rate)
-    row_bytes = code_n * (pool_dtype or torch.float32).itemsize
+    pdt = pool_dtype or torch.float32
+    default_pool = pool_frames is None
     if pool_frames is None:
         rounds_per_call, pool_frames = pool_policy(
-            lanes, refill_every, rounds_per_call, avg_iters_hint, row_bytes,
-            pool_bytes)
+            lanes, refill_every, rounds_per_call, avg_iters_hint,
+            code_n * pdt.itemsize, pool_bytes)
     elif rounds_per_call is None:
         rounds_per_call = 64
     iters_per_call = rounds_per_call * refill_every
-    state = stream_init(dec, lanes, code_n, pool_dtype or torch.float32,
-                        device)
+
+    def pool_of(base, frames, dev):
+        return build_channel_pool(dec, seed, base, frames, code_n, sigma,
+                                  preprocess, pool_dtype, dev)
+
+    nd, pool_frames, state = mesh_setup(
+        mesh, lanes, pool_frames, default_pool,
+        lambda n_lanes, dev: stream_init(dec, n_lanes, code_n, pdt, dev))
     call = make_stream_call(dec, code_n, num_iterations, rounds_per_call,
-                            refill_every)
+                            refill_every, mesh=mesh)
 
     stats = MCStats(n=code_n)
     stats.iteration_hist = np.zeros(num_iterations + 1, np.int64)
@@ -777,16 +927,15 @@ def simulate_stream(
     for _ in range(max_calls):
         if stop.done(stats.errors, stats.word_errors, stats.total_words):
             break
-        pool = build_channel_pool(dec, seed, base, pool_frames, code_n,
-                                  sigma, preprocess, pool_dtype, device)
+        pool = mesh_pools(mesh, base, pool_frames // nd, pool_of)
         state, acc, _rec = call(state, *pool, base)
         a = fetch(acc)
         take(a)
-        base += a["consumed"]
+        base = next_base(base, a, nd, pool_frames)
         if verbose:
             print(stats.incremental_report())
     if pool is not None:
-        state = run_drain(call, state, pool, base, pool_frames, take,
+        state = run_drain(call, state, pool, base, pool_frames // nd, take,
                           num_iterations, iters_per_call)
     stats.wall_seconds = time.perf_counter() - t0
     return stats

@@ -26,6 +26,11 @@ frame satisfied at injection reports 0 iterations; capped frames report
 ``sign(Σd)`` only for frames that end unsatisfied; a redecode phase resets
 ``d``, θ, ``dsum`` and μ from the channel decisions while the shaping
 state ``noise_prev`` carries across phases.
+
+``mesh=`` shards the lanes and the pool over a mesh's data slots as
+:func:`.stream.simulate_stream` does; each lane's noise is still keyed by
+its own gid and step, so the slots' disjoint gid windows keep every draw
+the one its batch decode makes.
 """
 
 from __future__ import annotations
@@ -49,14 +54,18 @@ from ..decoders.qc_ops import (
 from ..kernels.channel import gauss_philox_lanes, uniform_philox_lanes
 from .montecarlo import MCStats, StopRule, default_min_word_errors
 from .stream import (
-    _card_or_raise,
     _count,
     _record_slots,
     _refill_plan,
     _zeros,
     fetch,
+    mesh_pools,
+    mesh_setup,
+    next_base,
     pool_policy,
     run_drain,
+    shard_call,
+    slot_mesh,
 )
 
 __all__ = [
@@ -143,7 +152,7 @@ def build_channel_pool_gdbf(code: Code, seed: int, base: int,
 
 def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
                           qc: Optional[QCCode] = None, record: bool = False,
-                          rec_cap: int = 0):
+                          rec_cap: int = 0, mesh=None):
     """The persistent-state call of the GDBF family.
 
     ``call(state, pool, pool_unc, pool_sat0, base, seed, sigma, cfg,
@@ -158,6 +167,8 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
     smoothingUsed) and ``phase_hist`` [max_phases + 1] (attempted phases
     per retired frame).  With ``record``, rec holds (gid, iters, errs,
     phases, sat, smooth, hard) per retired frame in retire order.
+    ``mesh``: the call sharded over the mesh's data slots
+    (:func:`.stream.shard_call`).
     """
     n = code.n
     K = refill_every
@@ -370,6 +381,8 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
             acc["rc"] = rc
         return st, acc, rec
 
+    if mesh is not None:
+        return shard_call(lambda device: call, mesh)
     return call
 
 
@@ -392,6 +405,7 @@ def simulate_stream_gdbf(
     verbose: bool = False,
     max_calls: int = 100000,
     device="cuda",
+    mesh=None,
 ) -> MCStats:
     """Monte-Carlo loop of a GDBF config over the streaming driver.
 
@@ -404,23 +418,34 @@ def simulate_stream_gdbf(
     those frames: the channel rows and the decoder noise are keyed alike.
     ``pool_bytes``: the pool's byte budget (:func:`.stream.pool_policy`).
     ``device`` defaults to the card; ``device="cpu"`` runs the kernels'
-    plain twins.
+    plain twins.  ``mesh``: stream over the mesh's data slots, as
+    :func:`.stream.simulate_stream` does (their devices replace
+    ``device``).
     """
-    device = _card_or_raise(device, "simulate_stream_gdbf")
+    mesh = slot_mesh(mesh, device, "simulate_stream_gdbf")
     rate = code.rate if rate is None else rate
     stop = stop or StopRule(min_word_errors=default_min_word_errors(code.n))
     sigma = snr_to_sigma(snr_db, rate)
+    pdt = pool_dtype or torch.float32
+    default_pool = pool_frames is None
     if pool_frames is None:
         rounds_per_call, pool_frames = pool_policy(
             lanes, refill_every, rounds_per_call, avg_iters_hint,
-            code.n * (pool_dtype or torch.float32).itemsize, pool_bytes)
+            code.n * pdt.itemsize, pool_bytes)
     elif rounds_per_call is None:
         rounds_per_call = 64
     iters_per_call = rounds_per_call * refill_every
     total_steps = cfg.max_phases * cfg.num_iterations
-    state = gdbf_stream_init(code, cfg, lanes, pool_dtype or torch.float32,
-                             device)
-    call = make_gdbf_stream_call(code, rounds_per_call, refill_every, qc=qc)
+
+    def pool_of(base, frames, dev):
+        return build_channel_pool_gdbf(code, seed, base, frames, sigma,
+                                       preprocess, pool_dtype, qc, dev)
+
+    nd, pool_frames, state = mesh_setup(
+        mesh, lanes, pool_frames, default_pool,
+        lambda n_lanes, dev: gdbf_stream_init(code, cfg, n_lanes, pdt, dev))
+    call = make_gdbf_stream_call(code, rounds_per_call, refill_every, qc=qc,
+                                 mesh=mesh)
 
     stats = MCStats(n=code.n)
     stats.iteration_hist = np.zeros(total_steps + 1, np.int64)
@@ -447,16 +472,15 @@ def simulate_stream_gdbf(
     for _ in range(max_calls):
         if stop.done(stats.errors, stats.word_errors, stats.total_words):
             break
-        pool = build_channel_pool_gdbf(code, seed, base, pool_frames, sigma,
-                                       preprocess, pool_dtype, qc, device)
+        pool = mesh_pools(mesh, base, pool_frames // nd, pool_of)
         state, acc, _rec = call(state, *pool, base, seed, sigma, cfg)
         a = fetch(acc)
         take(a)
-        base += a["consumed"]
+        base = next_base(base, a, nd, pool_frames)
         if verbose:
             print(stats.incremental_report())
     if pool is not None:
-        state = run_drain(call, state, pool, base, pool_frames, take,
+        state = run_drain(call, state, pool, base, pool_frames // nd, take,
                           total_steps, iters_per_call,
                           extra=(seed, sigma, cfg))
     # the batch harness's form: index p − 1 counts the frames that

@@ -45,8 +45,16 @@ and scattered into the lane state.  No host read in a normal call: the
 pointer, the counters and the records stay on the device, and the shared
 ring position is a host integer (every step advances it).
 
-Left behind: the ``_cached_*`` compile caches, ``mesh=`` (ROADMAP A13)
-and the ``dense=`` graph (a TPU workaround).
+``mesh=`` shards the lanes and the pool over a mesh's data slots as
+:func:`.stream.simulate_stream` does.  The shared ring counter stays one
+scalar that every slot advances in lockstep (the JAX package replicates
+0-dim lane state): each slot's state carries it, every normal call advances
+it by the same steps, and after a drain call the slots that stopped early
+(all idle) catch up, over every rank of the mesh.  Each slot draws its
+refilled lanes' rings with B4's per-lane entry, keyed by their own gids.
+
+Left behind: the ``_cached_*`` compile caches and the ``dense=`` graph (a
+TPU workaround).
 """
 
 from __future__ import annotations
@@ -69,16 +77,21 @@ from ..decoders.ngdbf_hw import (
     hw_quantize_int,
     lane_rings,
 )
+from ..parallel.mesh import all_reduce_max
 from .montecarlo import MCStats, StopRule, default_min_word_errors
 from .stream import (
-    _card_or_raise,
     _count,
     _record_slots,
     _refill_plan,
     _zeros,
     fetch,
+    mesh_pools,
+    mesh_setup,
+    next_base,
     pool_policy,
     run_drain,
+    shard_call,
+    slot_mesh,
 )
 
 __all__ = [
@@ -157,7 +170,7 @@ def default_refill_cap(lanes: int, refill_every: int,
 def make_hw_stream_call(code: Code, cfg: NGDBFHwConfig, rounds: int,
                         refill_every: int = 1, qc: Optional[QCCode] = None,
                         record: bool = False, rec_cap: int = 0,
-                        refill_cap: Optional[int] = None):
+                        refill_cap: Optional[int] = None, mesh=None):
     """The persistent-state call.
 
     ``call(state, pool, pool_unc, pool_sat0, base, seed, sigma, ptr0=0) ->
@@ -177,7 +190,31 @@ def make_hw_stream_call(code: Code, cfg: NGDBFHwConfig, rounds: int,
     errs, sat, qp0, hard) per retired frame in retire order: ``qp0`` the
     injection-time ring offset, ``hard`` the least-error decisions as int8
     ±1.
+
+    ``mesh``: the call sharded over the mesh's data slots
+    (:func:`.stream.shard_call`, one call per device on the code's tables
+    there); the slots' ring counters end every call equal.
     """
+    if mesh is not None:
+        inner = shard_call(
+            lambda device: make_hw_stream_call(
+                code.to(device), cfg, rounds, refill_every, qc=qc,
+                record=record, rec_cap=rec_cap, refill_cap=refill_cap),
+            mesh)
+
+        def sharded(state, pool, *args):
+            state, acc, rec = inner(state, pool, *args)
+            # a drain call (ptr0 == len(pool)) stops early on a slot whose
+            # lanes are all idle: such a slot catches up with the others,
+            # on every rank
+            gstep = max(st["gstep"] for st in state)
+            if mesh.ranks > 1 and len(args) > 5 and args[5] >= len(pool[0]):
+                gstep = all_reduce_max(gstep, state.home)
+            for st in state:
+                st["gstep"] = gstep
+            return state, acc, rec
+
+        return sharded
     n, T, K, P = code.n, cfg.num_iterations, refill_every, cfg.max_phases
     theta, smult = cfg.theta_int, cfg.smult
     ring_mod = cfg.ring_len - n
@@ -367,6 +404,7 @@ def simulate_stream_ngdbfhw(
     verbose: bool = False,
     max_calls: int = 100000,
     device="cuda",
+    mesh=None,
 ) -> MCStats:
     """Monte-Carlo loop of NGDBFhw over the streaming driver.
 
@@ -382,12 +420,15 @@ def simulate_stream_ngdbfhw(
     most :func:`default_refill_cap` lanes.  ``device`` defaults to the card;
     ``device="cpu"`` runs the kernels' plain twins.  ``extra["steps"]``:
     the stream steps the run executed, drain included (× lanes / frames =
-    lane-iterations per counted frame).
+    lane-iterations per counted frame).  ``mesh``: stream over the mesh's
+    data slots, as :func:`.stream.simulate_stream` does (their devices
+    replace ``device``; the refill cap is a slot's).
     """
-    device = _card_or_raise(device, "simulate_stream_ngdbfhw")
+    mesh = slot_mesh(mesh, device, "simulate_stream_ngdbfhw")
     rate = code.rate if rate is None else rate
     stop = stop or StopRule(min_word_errors=default_min_word_errors(code.n))
     sigma = snr_to_sigma(snr_db, rate)
+    default_pool = pool_frames is None
     if pool_frames is None:
         rounds_per_call, pool_frames = pool_policy(
             lanes, refill_every, rounds_per_call, avg_iters_hint,
@@ -395,11 +436,25 @@ def simulate_stream_ngdbfhw(
     elif rounds_per_call is None:
         rounds_per_call = 32
     T = cfg.num_iterations
-    code_d = code.to(device)
-    state = hw_stream_init(code_d, cfg, lanes, device)
+    codes = {}
+
+    def code_on(dev):
+        if dev not in codes:
+            codes[dev] = code.to(dev)
+        return codes[dev]
+
+    def pool_of(base, frames, dev):
+        return build_channel_pool_hw(code_on(dev), seed, base, frames, sigma,
+                                     qc, dev)
+
+    nd, pool_frames, state = mesh_setup(
+        mesh, lanes, pool_frames, default_pool,
+        lambda n_lanes, dev: hw_stream_init(code_on(dev), cfg, n_lanes, dev))
     call = make_hw_stream_call(
-        code_d, cfg, rounds_per_call, refill_every, qc=qc,
-        refill_cap=default_refill_cap(lanes, refill_every, avg_iters_hint))
+        code, cfg, rounds_per_call, refill_every, qc=qc,
+        refill_cap=default_refill_cap(lanes // nd, refill_every,
+                                      avg_iters_hint),
+        mesh=mesh)
 
     stats = MCStats(n=code.n)
     stats.iteration_hist = np.zeros(T + 1, np.int64)
@@ -421,19 +476,18 @@ def simulate_stream_ngdbfhw(
     for _ in range(max_calls):
         if stop.done(stats.errors, stats.word_errors, stats.total_words):
             break
-        pool = build_channel_pool_hw(code_d, seed, base, pool_frames, sigma,
-                                     qc, device)
+        pool = mesh_pools(mesh, base, pool_frames // nd, pool_of)
         state, acc, _rec = call(state, *pool, base, seed, sigma)
         a = fetch(acc)
         take(a)
-        base += a["consumed"]
+        base = next_base(base, a, nd, pool_frames)
         if verbose:
             print(stats.incremental_report())
     if pool is not None:
-        state = run_drain(call, state, pool, base, pool_frames, take,
+        state = run_drain(call, state, pool, base, pool_frames // nd, take,
                           cfg.max_phases * T,
                           rounds_per_call * refill_every,
                           extra=(seed, sigma))
-    stats.extra["steps"] = state["gstep"]
+    stats.extra["steps"] = state[0]["gstep"]
     stats.wall_seconds = time.perf_counter() - t0
     return stats

@@ -60,19 +60,26 @@ streaming refill harness (``harness/stream.py``, ``stream_gdbf.py``,
 ``stream_ngdbfhw.py``; lanes = ``--batch``) for min-sum and BP (with
 ``--early-termination``), the layered schedules, DD-BMP (QC codes), the
 GDBF presets, NGDBFhw (refill every 16 steps) and ``nbqspa`` (refill every
-iteration), with the JAX CLI's refusals.  ``--distributed`` exits with an
-error naming its ROADMAP item (A13).
+iteration), with the JAX CLI's refusals.  ``--distributed`` runs the whole
+operating-point grid on the slot mesh of ``parallel/`` (one slot per CUDA
+device of every rank by default, one per rank with ``--device cpu``; under
+torchrun the ranks join one process group, and without torchrun a host
+with several cards starts one rank per card itself): the routes, rows,
+resume keys and refusals of the JAX CLI's ``_run_distributed``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
+import os
 import sys
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..channel import (
     llr_from_channel,
@@ -123,6 +130,9 @@ from ..harness.montecarlo_nb import simulate_nb
 from ..harness.stream import simulate_stream_nb
 from ..harness.stream_gdbf import simulate_stream_gdbf
 from ..harness.stream_ngdbfhw import simulate_stream_ngdbfhw
+from ..parallel.mesh import init_distributed, make_mesh, spawn_ranks, world
+from ..parallel.montecarlo import simulate_grid
+from ..parallel.montecarlo_nb import simulate_nb_distributed
 
 __all__ = ["main", "build_parser"]
 
@@ -131,6 +141,9 @@ _MINSUM = {"minsum": "plain", "offsetminsum": "offset",
            "normalizedminsum": "normalized"}
 #: decoders whose stream always stops early (no --early-termination needed)
 _ALWAYS_EARLY = ("gdbf", "nbqspa", "ddbmp", "ngdbfhw")
+#: the grid's axes, in the order of its points and resume keys
+_GRID_FIELDS = ("snr", "ymax", "nq", "alpha", "delta", "theta",
+                "noise_scale", "lam", "w", "theta0")
 
 
 def _grid_key(point) -> str:
@@ -181,8 +194,12 @@ def build_parser() -> argparse.ArgumentParser:
                      help="random GF(Q) regular code, e.g. 96:48:3:64")
     p.add_argument("--schedule", choices=["flooding", "layered"],
                    default="flooding")
-    p.add_argument("--distributed", action="store_true",
-                   help="not ported yet (ROADMAP A13)")
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="run the full operating-point grid on the slot mesh "
+             "(parallel/): each slot one grid point per round, per-point "
+             "stopping; --batch is the batch per slot",
+    )
     p.add_argument(
         "--stream", action="store_true",
         help="min-sum/BP (with --early-termination; QC, slot-array, or "
@@ -261,13 +278,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """``--distributed`` (the multi-device grid engine) waits for A13."""
-    if args.distributed and not args.stream:
-        raise SystemExit(
-            "sweep: error: --distributed is not ported yet (ROADMAP A13)")
-
-
 def _refuse_stream(args, codewords) -> None:
     """The JAX CLI's refusals of ``--stream`` combinations."""
     if not args.stream:
@@ -290,7 +300,9 @@ def _refuse_stream(args, codewords) -> None:
     if args.distributed:
         raise SystemExit(
             "sweep: error: --stream runs on one device in the CLI; "
-            "--distributed is the batched operating-point grid engine"
+            "--distributed is the batched operating-point grid "
+            "engine (the library API shards a stream over a mesh: "
+            "simulate_stream(mesh=...))"
         )
     if args.schedule == "layered" and args.decoder not in (*_MINSUM, "bp"):
         raise SystemExit(
@@ -301,7 +313,6 @@ def _refuse_stream(args, codewords) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -309,7 +320,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "(pass --device cpu to run the plain PyTorch path)"
         )
     code, qc, alist_name = _load_code(args, device)
-    if (args.schedule == "layered" and qc is None
+    if (args.schedule == "layered" and qc is None and not args.distributed
             and args.decoder in (*_MINSUM, "bp")):
         raise SystemExit(
             "sweep: error: --schedule layered requires a "
@@ -345,6 +356,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         min_word_errors=mwe,
         max_frames=args.max_frames,
     )
+
+    if args.distributed:
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if cards > 1 and "WORLD_SIZE" not in os.environ:
+            return spawn_ranks(
+                [sys.executable, "-m", "ldpcsimulation_tpu_torch.tools.sweep",
+                 *(sys.argv[1:] if argv is None else argv)], cards)
+        return _run_distributed(args, code, qc, alist_name, snrs, rate, stop,
+                                T, codewords, device)
 
     def run_point(snr, decode_fn, preprocess=None, stop_override=None,
                   carry0=None):
@@ -718,6 +738,332 @@ def _nbqspa_point(args, code, alist_name, rate, T, snr, stop, device):
     row = "\t".join(fmt(v) for v in (
         snr, stats.ser, stats.ber, stats.avg_iterations, stats.fer, T))
     return stats, f"{row}\t{alist_name}"
+
+
+def _run_distributed(args, code, qc, alist_name, snrs, rate, stop, T,
+                     codewords, device):
+    """``--distributed``: the full operating-point grid on the slot mesh.
+
+    Every slot of the default mesh is an operating-point slot;
+    :func:`..parallel.montecarlo.simulate_grid` cycles the unfinished
+    points over them (any grid on any slot count) with per-point stopping,
+    and each point's scalars reach its decode as f32-rounded floats.  The
+    routes, rows, stderr lines, resume keys and refusals are the JAX
+    CLI's: flooding BP and min-sum on the slot-array decoders, the layered
+    ones on QC codes; ``gdbf`` (no --nq axis) and ``ngdbfhw`` (a fixed
+    ``--frames`` count, no pointer carry, its itdist files) on the row
+    gathers; ``nbqspa`` on an SNR-only grid that divides the slot count.
+    The default mesh is one slot per CUDA device of every rank, or, with
+    ``--device cpu``, one per rank; under torchrun (``WORLD_SIZE`` set)
+    the ranks join one process group first, and rank 0 writes the log
+    (:func:`main` starts one rank per card with
+    :func:`..parallel.mesh.spawn_ranks` when a host with several cards
+    runs the CLI without torchrun).
+    """
+    if args.schedule == "layered" and (
+        qc is None or args.decoder not in ("bp", *_MINSUM)
+    ):
+        raise SystemExit(
+            "sweep: error: --schedule layered with --distributed needs a "
+            "QC-structured --code and a bp/min-sum decoder"
+        )
+    # the full cartesian grid in the single-device route's field order
+    # (the same --resume keys)
+    grid = list(itertools.product(
+        snrs, *(getattr(args, nm) for nm in _GRID_FIELDS[1:])))
+    if args.resume:
+        done = set()
+        try:
+            with open(args.log + ".done") as f:
+                done.update(line.rstrip("\n") for line in f)
+        except FileNotFoundError:
+            pass
+        grid = [pt for pt in grid if _grid_key(pt) not in done]
+        if not grid:
+            print("sweep: all points already done", file=sys.stderr)
+            return 0
+
+    # under torchrun the ranks join one group for this run, and leave it
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        init_distributed(devices=[device] if device.type == "cpu" else None)
+    try:
+        return _run_grid(args, code, qc, alist_name, snrs, rate, stop, T,
+                         codewords, device, grid)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run_grid(args, code, qc, alist_name, snrs, rate, stop, T, codewords,
+              device, grid):
+    """The routes of ``--distributed`` over the points of ``grid``; rank 0
+    writes the rows."""
+    cpu = device.type == "cpu"
+    rank, size = world()
+    writer = rank == 0
+
+    def mesh_of(n_snr):
+        return make_mesh(n_snr, [device] * size if cpu else None)
+
+    nd = mesh_of(1).size
+    sdt = torch.float16 if args.msg_dtype == "f16" else None
+    codes = {device: code}
+
+    def code_at(y):
+        """The code's tables on the slot's device (copied once)."""
+        if y.device not in codes:
+            codes[y.device] = code.to(y.device)
+        return codes[y.device]
+
+    if args.decoder == "nbqspa":
+        # the NB path: an SNR-only grid through its own driver
+        if nd % len(snrs):
+            raise SystemExit(
+                f"sweep: error: --distributed nbqspa needs "
+                f"len(snrs)={len(snrs)} to divide the device count ({nd})"
+            )
+        nb_stats = simulate_nb_distributed(
+            code, snrs, mesh_of(len(snrs)), T, rate=rate, stop=stop,
+            batch_per_device=args.batch, seed=args.seed,
+            early_termination=args.early_termination, storage_dtype=sdt,
+        )
+        for snr, st in zip(snrs, nb_stats):
+            row = "\t".join(
+                fmt(v)
+                for v in (snr, st.ser, st.ber, st.avg_iterations, st.fer, T)
+            ) + f"\t{alist_name}"
+            if writer:
+                append_row(args.log, row)
+                print(f"SNR={snr} SER={st.ser:.4g} BER={st.ber:.4g} "
+                      f"frames={st.total_words}", file=sys.stderr)
+        return 0
+
+    # per decoder: the grid fields that become per-point scalars (with
+    # their defaults), the decode/preprocess closures over the point dict
+    # and the row builder.  A multi-valued parameter the decoder cannot
+    # take per point is a configuration error.
+    multi = {nm: getattr(args, nm) for nm in _GRID_FIELDS[1:]
+             if len(getattr(args, nm)) > 1}
+
+    def _reject_unsweepable(sweepable):
+        bad = sorted(set(multi) - set(sweepable))
+        if bad:
+            raise SystemExit(
+                f"sweep: error: --distributed {args.decoder} cannot sweep "
+                f"{', '.join('--' + b.replace('_', '-') for b in bad)} "
+                "per-point (not an operating-point scalar of this decoder)"
+            )
+
+    max_it = T
+    defaults = {}
+    preprocess = None
+    et = args.early_termination
+    if args.decoder == "bp":
+        _reject_unsweepable(())
+        param_names = ()
+
+        def dec(y, sigma, key, point):
+            llr = llr_from_channel(y, 2.0 * sigma * sigma)
+            if args.schedule == "layered":
+                return decode_bp_layered_qc(qc, llr, T, early_termination=et)
+            return decode_bp(code_at(y), llr, T, early_termination=et,
+                             storage_dtype=sdt)
+
+        def row_fn(snr, st, pt):
+            return bp_log_row(snr, st, T, alist_name)
+
+    elif args.decoder in _MINSUM:
+        variant = _MINSUM[args.decoder]
+
+        def _ms_decode(y, alpha, delta):
+            kw = dict(variant=variant, alpha=alpha, delta=delta,
+                      early_termination=et, storage_dtype=sdt)
+            if args.schedule == "layered":
+                return decode_minsum_layered_qc(qc, y, T, **kw)
+            return decode_minsum(code_at(y), y, T, **kw)
+
+        if variant == "plain":
+            _reject_unsweepable(())
+            param_names = ()
+
+            def dec(y, sigma, key, point):
+                return _ms_decode(y, 1.0, 0.0)
+        else:
+            param_names = ("ymax", "nq", "alpha", "delta")
+            _reject_unsweepable(param_names)
+
+            def preprocess(y, point):
+                return quantize_no_zero(y, point["ymax"], point["nq"])
+
+            def dec(y, sigma, key, point):
+                return _ms_decode(y, point["alpha"], point["delta"])
+
+        defaults = dict(ymax=2.0, nq=8.0, alpha=1.0, delta=0.0)
+
+        def row_fn(snr, st, pt):
+            return minsum_log_row(
+                snr, st, T, alist_name,
+                ymax=pt["ymax"] if variant != "plain" else None,
+                alpha=pt["alpha"] if variant == "normalized" else None,
+                delta=pt["delta"] if variant == "offset" else None,
+            )
+
+    elif args.decoder == "gdbf":
+        param_names = ("theta", "noise_scale", "lam", "alpha")
+        sat_on = args.ymax[0] is not None
+        if sat_on:
+            param_names = param_names + ("ymax",)
+        _reject_unsweepable(param_names)
+        if len(args.nq) > 1:
+            raise SystemExit(
+                "sweep: error: --distributed gdbf cannot sweep --nq "
+                "(quantizer bit-width is structural)"
+            )
+        gd_nq = args.nq[0]
+        base_cfg = preset(
+            args.preset, num_iterations=T, theta=-0.9,
+            **{k: v for k, v in dict(
+                window_size=args.window,
+                max_phases=args.max_phases,
+                uniform_noise=args.uniform_noise or None,
+            ).items() if v is not None},
+        )
+        max_it = T * base_cfg.max_phases
+
+        if sat_on or gd_nq is not None:
+            def preprocess(y, point):
+                out = y
+                if sat_on:
+                    out = saturate(out, point["ymax"])
+                if gd_nq is not None:
+                    out = quantize_round(
+                        out, point["ymax"] if sat_on else 2.25, int(gd_nq))
+                return out
+
+        def dec(y, sigma, key, point):
+            cfg = dataclasses.replace(
+                base_cfg, theta=point["theta"],
+                noise_scale=point["noise_scale"], lam=point["lam"],
+                alpha=point["alpha"],
+            )
+            return decode_gdbf(code_at(y), y, sigma, cfg, key=key, qc=qc)
+
+        defaults = dict(theta=-0.9, noise_scale=base_cfg.noise_scale,
+                        lam=base_cfg.lam, alpha=base_cfg.alpha, ymax=None)
+
+        def row_fn(snr, st, pt):
+            c = base_cfg
+            return gdbf_log_row(
+                snr, st, T, pt["theta"], alist_name,
+                noise_scale=(pt["noise_scale"]
+                             if c.add_noise or c.quantize_probabilities
+                             else None),
+                nq=int(gd_nq) if gd_nq is not None else None,
+                lam=pt["lam"] if c.threshold_adaptation else None,
+                alpha=pt["alpha"] if c.weight_syndromes else None,
+                smoothing_used=(int(st.extra.get("smoothing_used", 0))
+                                if c.output_smoothing else None),
+                window_size=c.window_size if c.output_smoothing else None,
+                ymax=pt["ymax"] if sat_on else None,
+            )
+
+    elif args.decoder == "ddbmp":
+        param_names = ("ymax", "nq")
+        _reject_unsweepable(param_names)
+
+        def preprocess(y, point):
+            return quantize_no_zero(y, point["ymax"], point["nq"])
+
+        def dec(y, sigma, key, point):
+            if qc is not None:
+                return decode_ddbmp_qc(qc, y, T)
+            return decode_ddbmp(code_at(y), y, T)
+
+        defaults = dict(ymax=1.5, nq=8.0)
+
+        def row_fn(snr, st, pt):
+            return minsum_log_row(snr, st, T, alist_name, ymax=pt["ymax"])
+
+    elif args.decoder == "ngdbfhw":
+        param_names = ("w", "ymax", "noise_scale", "theta0")
+        _reject_unsweepable(param_names)
+        # the reference's fixed frame count (NGDBFhw.cpp:193), as the
+        # single-device route
+        stop = StopRule.fixed_frames(args.frames)
+        hw_base = NGDBFHwConfig(
+            num_iterations=T,
+            max_phases=args.max_phases or 1,
+            ring_len=max(2648, code.n + 600),
+        )
+        max_it = T * hw_base.max_phases
+
+        def dec(y, sigma, key, point):
+            cfg = dataclasses.replace(
+                hw_base, w=point["w"], ymax=point["ymax"],
+                noise_scale=point["noise_scale"], theta0=point["theta0"],
+            )
+            return decode_ngdbf_hw(code_at(y), y, sigma, cfg, key=key,
+                                   qc=qc)
+
+        defaults = dict(w=0.185, ymax=1.625, noise_scale=0.95,
+                        theta0=-0.525)
+
+        def row_fn(snr, st, pt):
+            return ngdbfhw_log_row(
+                snr, st, T, pt["theta0"], pt["noise_scale"], pt["w"],
+                pt["ymax"], hw_base.nq, hw_base.max_phases, args.seed,
+            )
+
+    else:
+        raise SystemExit(
+            "sweep: error: --distributed supports bp, min-sum variants, "
+            "gdbf, ddbmp, ngdbfhw, and nbqspa"
+        )
+
+    # grid tuples -> per-point parameter dicts (defaults fill the Nones)
+    points = []
+    for pt in grid:
+        vals = dict(zip(_GRID_FIELDS, pt))
+        point = {"snr": vals["snr"]}
+        for nm in param_names:
+            v = vals[nm]
+            point[nm] = float(defaults[nm] if v is None else v)
+        points.append(point)
+
+    stats_list = simulate_grid(
+        code, dec, points, mesh_of(nd), max_iterations=max_it, rate=rate,
+        stop=stop, batch_per_device=args.batch, seed=args.seed,
+        preprocess=preprocess, param_names=param_names,
+        codewords=codewords, verbose=args.verbose and writer,
+    )
+    if not writer:
+        return 0
+    for pt, point, st in zip(grid, points, stats_list):
+        snr = point["snr"]
+        append_row(args.log, row_fn(snr, st, point))
+        if args.decoder == "ngdbfhw":
+            # the iteration-completion CDF (NGDBFhw.cpp:464-469); on a
+            # multi-parameter grid the parameters join the file name
+            suffix = "".join(
+                f"_{nm}{point[nm]:g}" for nm in param_names
+                if len(getattr(args, nm)) > 1
+            )
+            cdf = (st.iteration_cdf_biased() if args.itdist_biased
+                   else st.iteration_cdf())
+            with open(f"{args.log}_{snr:g}{suffix}_itdist.dat", "w") as f:
+                for idx, v in enumerate(cdf):
+                    f.write(f"{idx}\t{v:.6g}\n")
+        print(
+            f"SNR={snr} "
+            + " ".join(f"{nm}={point[nm]:g}" for nm in param_names)
+            + (" " if param_names else "")
+            + f"BER={st.ber:.4g} FER={st.fer:.4g} frames={st.total_words}",
+            file=sys.stderr,
+        )
+        if args.resume:
+            _mark_done(args.log, _grid_key(pt))
+    return 0
 
 
 if __name__ == "__main__":

@@ -13,7 +13,11 @@ minutes at most on the CPU.  The non-binary point runs the batches of the
 JAX ``simulate_nb`` (the same keys) through :func:`nb_frames`, which keeps
 the per-frame counts that the standard errors need.  ``redecode_qc`` is the
 JAX ``redecode_statistics`` at its CLI's documented point, summarized by
-:func:`pe_moments` with frames as the sampling unit.
+:func:`pe_moments` with frames as the sampling unit.  ``grid_smngdbf`` is
+one point of the JAX ``simulate_grid`` (its distributed operating-point
+engine) on a mesh of the CPU's devices: run it with
+``XLA_FLAGS=--xla_force_host_platform_device_count=8`` for the 8 slots it
+asks for.
 """
 
 from __future__ import annotations
@@ -58,7 +62,10 @@ POINT_FRAMES = {
     "ngdbfhw_highrate": (NGDBFHW_FRAMES, 2048),
     "systemc_peg": (65536, 4096),
     "nbqspa_gf8": (4096, 256),
+    # (frames, batch per slot) over a mesh of GRID_SLOTS operating slots
+    "grid_smngdbf": (16384, 512),
 }
+GRID_SLOTS = 8
 
 
 def moments(stats) -> dict:
@@ -274,6 +281,42 @@ def redecode_qc() -> dict:
     out = redecode_statistics(load_named_code("qc_1008_504"), cfg, 3.5,
                               num_frames=200, num_redecodes=100, seed=0)
     return pe_moments(out)
+
+
+def grid_smngdbf() -> dict:
+    """One point of the JAX ``simulate_grid``: SMNGDBF on qc_1008_504 at
+    3.0 dB, T=100, lambda 0.99 (the SNR, T and lambda axes of
+    ``mngdbf_example_PEGReg504x1008.sh:31-59``), theta -0.9, noise scale
+    0.975, alpha 0.75, window 64, Ymax 2.5 (the working point of the
+    SMNGDBF cell; the script's alpha of 2.x diverges), the grid's traced
+    f32 scalars, every slot of the mesh on that one point."""
+    import dataclasses
+
+    import jax
+
+    from ldpcsimulation_tpu.channel.quantize import saturate
+    from ldpcsimulation_tpu.decoders.gdbf import decode_gdbf, preset
+    from ldpcsimulation_tpu.parallel.mesh import make_mesh
+    from ldpcsimulation_tpu.parallel.montecarlo import simulate_grid
+
+    qc = load_named_qc("qc_1008_504")
+    code = qc.to_code()
+    base = preset("SMNGDBF", num_iterations=100, theta=-0.9,
+                  noise_scale=0.975, lam=0.988, alpha=0.75, window_size=64)
+    frames, batch = POINT_FRAMES["grid_smngdbf"]
+    mesh = make_mesh(n_snr=GRID_SLOTS, devices=jax.devices()[:GRID_SLOTS])
+
+    def dec(y, sigma, key, point):
+        return decode_gdbf(code, y, sigma,
+                           dataclasses.replace(base, lam=point["lam"]),
+                           key=key, qc=qc)
+
+    (stats,) = simulate_grid(
+        code, dec, [{"snr": 3.0, "lam": 0.99}], mesh, max_iterations=100,
+        stop=StopRule.fixed_frames(frames), batch_per_device=batch, seed=0,
+        preprocess=lambda y, point: saturate(y, 2.5), param_names=("lam",),
+    )
+    return moments(stats)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ QC, layered), the DD-BMP route, the GDBF route, the NGDBFhw route (with
 its itdist file), the non-binary ``nbqspa`` route (``--nb-random`` and NB
 alists), and the ``--stream`` routes (NGDBFhw and ``nbqspa`` among them),
 write the JAX CLI's row format and resume keys; ``--stream`` refuses what
-the JAX CLI refuses; ``--distributed`` exits naming its ROADMAP item."""
+the JAX CLI refuses; ``--distributed`` (ROADMAP A13) writes the rows of the
+single-device routes (``tests/test_torch_sweep_distributed.py`` holds it
+against the JAX CLI's)."""
 
 import numpy as np
 import pytest
@@ -96,8 +98,30 @@ def test_codeword_fixture_route(tmp_path):
     (["--schedule", "layered", "--distributed"], "A13"),
 ])
 def test_unported_options_name_roadmap_item(tmp_path, extra, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        main(BASE + ["--snr", "2.0", "--log", str(tmp_path / "x")] + extra)
+    """The options of ROADMAP ``item`` run: ``--distributed`` writes the
+    single-device route's row layout; its flooding route decodes with the
+    slot-array ``decode_minsum`` (as the JAX CLI's), equal to ``simulate``
+    over the same frames, and its layered route equals the single-device
+    layered row."""
+    dlog, slog = tmp_path / "d.log", tmp_path / "s.log"
+    assert main(BASE + ["--snr", "2.0", "--log", str(dlog)] + extra) == 0
+    assert main(BASE + ["--snr", "2.0", "--log", str(slog)]
+                + extra[:-1]) == 0
+    (drow,), (srow,) = _rows(dlog), _rows(slog)
+    assert len(drow) == len(srow) == 6
+    assert [drow[0], drow[4], drow[5]] == ["2", "10", "qc_1008_504"]
+    if "layered" in extra:
+        assert drow == srow
+        return
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import decode_minsum
+    from ldpcsimulation_tpu_torch.harness import StopRule, fmt, simulate
+
+    code = load_named_code("qc_1008_504")
+    st = simulate(code, lambda y, key: decode_minsum(
+        code, y, 10, storage_dtype=torch.float16), 2.0,
+        stop=StopRule(max_frames=128), batch_size=128, device="cpu")
+    assert drow[1:4] == [fmt(st.ber), fmt(st.avg_iterations), fmt(st.fer)]
 
 
 def _codeword_file(tmp_path):
@@ -147,13 +171,14 @@ def test_stream_refusals_are_the_jax_clis(tmp_path, args, msg):
 ])
 def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
     """The decoder of ROADMAP A12 (``nbqspa``) is ported and writes its row;
-    its multi-device form still exits naming A13."""
+    its multi-device form (A13) on one slot writes the same row: the same
+    frames through the same decoder."""
     args = [decoder, "--nb-random", "24:12:3:4", "-T", "4", "--batch", "32",
-            "--max-frames", "32", "--device", "cpu", "--snr", "2.0",
-            "--log", str(tmp_path / "x")]
-    assert main(args) == 0 and len(_rows(tmp_path / "x")) == 1
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        main(args + ["--distributed"])
+            "--max-frames", "32", "--device", "cpu", "--snr", "2.0"]
+    assert main(args + ["--log", str(tmp_path / "x")]) == 0
+    assert main(args + ["--log", str(tmp_path / "d"), "--distributed"]) == 0
+    (row,), (drow,) = _rows(tmp_path / "x"), _rows(tmp_path / "d")
+    assert drow == row and len(row) == 7
 
 
 @pytest.mark.parametrize("decoder", ["bp", "ddbmp", "ngdbfhw"])
@@ -163,16 +188,28 @@ def test_unported_decoders_name_roadmap_item(tmp_path, decoder, item):
 ])
 def test_ported_decoders_still_refuse_stream_and_distributed(
         tmp_path, decoder, extra, item):
-    """``--distributed`` waits for A13; the streams of these decoders (the
-    NGDBFhw one came with A11.4) run, one row each."""
-    args = [decoder] + BASE[1:] + ["--snr", "2.0", "--log",
-                                   str(tmp_path / "x")] + extra
+    """The streams of these decoders (the NGDBFhw one came with A11.4) and
+    their ``--distributed`` routes (A13) run, one row each; a distributed
+    row has the single-device row's layout, and DD-BMP's (the same QC
+    decoder on the same frames) equals it.  NGDBFhw runs a fixed
+    ``--frames`` count."""
+    args = [decoder] + BASE[1:] + ["--snr", "2.0", "--frames", "64"]
+    assert main(args + ["--log", str(tmp_path / "x")] + extra) == 0
+    (row,) = _rows(tmp_path / "x")
     if item == "A11.4":
-        assert main(args + ["--frames", "64"]) == 0
-        assert len(_rows(tmp_path / "x")) == 1
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        main(args)
+    assert main(args + ["--log", str(tmp_path / "s")]) == 0
+    (srow,) = _rows(tmp_path / "s")
+    assert len(row) == len(srow) and row[0] == srow[0] == "2"
+    if decoder == "ngdbfhw":
+        # SNR errors frames BER ...: the grid counts whole rounds of
+        # --batch frames, as the JAX grid does (the single route clips)
+        assert (row[2], srow[2]) == ("128", "64")
+        assert 0.0 <= float(row[3]) <= 0.5
+    else:
+        assert 0.0 <= float(row[1]) <= 0.5
+    if decoder == "ddbmp":
+        assert row == srow
 
 
 @pytest.mark.parametrize("args,width", [
