@@ -244,7 +244,32 @@ the exit code is non-zero):
      then ``simulate_stream`` (QC min-sum, f16) and the GDBF stream
      (SMNGDBF, StochasticNGDBF) on a 2-slot mesh of cuda:0, recorded:
      every retired frame equal to its batch decode on the card, each
-     slot's gids inside its windows, no host sync in a normal call.
+     slot's gids inside its windows, no host sync in a normal call;
+ 40. the dense graph route (``decoders/dense_ops.py``, the sweep's route
+     for the bit-flip decoders on codes without QC structure): its four
+     operations against the slot-array gathers on random decisions at
+     B=32768 on highrate_2048_384 and peg_1008_504 under ``torch.equal``
+     (values and dtypes), each timed beside its gathers with its memory
+     and f16 tensor-core bounds; ``decode_ngdbf_hw`` at [25]'s point (T=600,
+     one batch of 32768) and SMNGDBF ``decode_gdbf`` at [10]'s point on
+     peg_1008_504, dense against generic under ``torch.equal``, with ms per
+     step of both routes (two runs each, alternated; each decode's
+     launches read on their own); the NGDBFhw stream with ``dense=`` (2048
+     lanes, 4096 frames) equal frame by frame to the generic batch decode
+     at the recorded ring offsets; ``simulate_stream_ngdbfhw`` with
+     ``dense=`` at [31]'s full width (32768 lanes, 4·32768 frames), gated
+     on the JAX point, its totals and histograms those of the generic
+     stream; ``simulate_stream_gdbf`` SMNGDBF with ``dense=`` on
+     peg_1008_504 (32768 lanes, 2·32768 frames), its totals those of the
+     dense batch decoder over the same gids; the sweep's ``ngdbfhw --code
+     highrate_2048_384`` route building a ``DenseGraph``, its row and
+     itdist file those of the generic route; slot-array min-sum T=10 on
+     highrate_2048_384 against its memory bound.  Every dense run's
+     launches are read from a window of its own;
+ 41. the public surface: the ``examples/compare_decoders_torch.py`` rows
+     (4096 frames each at 2.5 dB) equal to ``simulate`` with the same
+     arguments; ``native.parse_alist_native`` equal to the Python parser on
+     highrate_2048_384's alist, a GF(8) alist and the packaged one.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -4484,6 +4509,480 @@ def phase_distributed_sweep(qc, device):
                 gdbf_stream_frames=g_frames, stream_syncs=len(syncs))
 
 
+# The dense graph route [40] (ROADMAP C1): the sweep's route for the
+# bit-flip decoders on codes without QC structure, against the slot-array
+# gathers it replaces there; [41] the public names that close the port.
+F16_OPS_PER_S = 989e12
+DENSE_GDBF_CODE = PEG_CODE
+
+
+def op_bounds(ins, out, ops):
+    """(memory ms, f16 tensor-core ms) of a function that reads ``ins``
+    once, writes ``out`` once and does ``ops`` operations."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, out))
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F16_OPS_PER_S * 1e3
+
+
+def dense_ops_vs_gathers(code, dg, device, timer):
+    """The four dense operations against the slot-gather route on random
+    decisions at B=32768, under ``torch.equal`` (values and dtypes), each
+    timed beside its gather twin with its bounds."""
+    from ldpcsimulation_tpu_torch.decoders import dense_ops as do
+    from ldpcsimulation_tpu_torch.decoders import qc_ops
+    from ldpcsimulation_tpu_torch.decoders.ngdbf_hw import hw_graph_ops
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    d = torch.where(torch.rand(code.n, BATCH, generator=gen, device=device)
+                    < 0.05, -1, 1).to(torch.int32)
+    g = qc_ops.slot_graph(code, device)
+    syndrome01, satsum = hw_graph_ops(code)
+    syn = do.dense_syndrome_bipolar(dg, d)
+    synf = syn.float()
+    d01 = (d < 0).to(torch.uint8)
+    s01 = do.dense_syndrome01(dg, d01)
+    cases = {
+        "syndrome_bipolar": (lambda: do.dense_syndrome_bipolar(dg, d),
+                             lambda: qc_ops.syndrome_bipolar(g, d), d),
+        "syndrome_sum_per_vn": (
+            lambda: do.dense_syndrome_sum_per_vn(dg, synf),
+            lambda: qc_ops.syndrome_sum_per_vn(g, synf), synf),
+        "syndrome01": (lambda: do.dense_syndrome01(dg, d01),
+                       lambda: syndrome01(d01), d01),
+        "sat_sum_per_vn": (lambda: do.dense_sat_sum_per_vn(dg, s01),
+                           lambda: satsum(s01), s01),
+    }
+    out = {}
+    for name, (dense, gather, x) in cases.items():
+        got, want = dense(), gather()
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"dense {name} != the gathers on {code.n} x {BATCH}")
+        mem, tc = op_bounds((x, dg.h), got, 2 * dg.m * dg.n * BATCH)
+        ms, gms = timer(dense), timer(gather)
+        out[name] = dict(ms=ms, gather_ms=gms, memory_bound_ms=mem,
+                         f16_bound_ms=tc, dtype=str(got.dtype))
+        print(f"    {name}: dense {ms:.4f} ms, gathers {gms:.4f} ms; bound "
+              f"{max(mem, tc):.4f} ms (bytes {mem:.4f}, f16 tensor cores "
+              f"{tc:.4f}); {100 * max(mem, tc) / ms:.1f} % of the bound; "
+              f"{got.dtype}, equal")
+    return out
+
+
+def timed_decode(fn):
+    """(result, ms of device and host time) of one call, synchronized."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def dense_hw_stream(code, dg, cfg, hint, device):
+    """``simulate_stream_ngdbfhw`` with ``dense=`` at [31]'s full width
+    (BATCH lanes, 4·BATCH frames): gated on the JAX point, its totals and
+    histograms equal to the generic stream's over the same frames (the same
+    gids, rings and iterations); each run's launches read on their own."""
+    from ldpcsimulation_tpu_torch.harness import StopRule
+    from ldpcsimulation_tpu_torch.harness import stream_ngdbfhw as sh
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    runs, launches = {}, {}
+    for route, dense in (("dense", dg), ("generic", None)):
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        runs[route] = sh.simulate_stream_ngdbfhw(
+            code, cfg, HW_SNR_DB, stop=StopRule.fixed_frames(4 * BATCH),
+            lanes=BATCH, refill_every=HW_STREAM_K, avg_iters_hint=hint,
+            seed=SEED, dense=dense, device=device)
+        torch.cuda.synchronize()
+        launches[route] = dict(build.LAUNCHES)
+    d, g = runs["dense"], runs["generic"]
+    label = (f"simulate_stream_ngdbfhw dense {HW_CODE} {HW_SNR_DB} dB "
+             f"T={HW_T}, {BATCH} lanes")
+    check(launches["dense"].get("awgn_philox", 0) >= 1
+          and launches["dense"].get("gauss_philox_lanes", 0) >= 1
+          and "gauss_philox" not in launches["dense"],
+          f"{label}: launches {launches['dense']}")
+    same = ((d.total_words, d.errors, d.word_errors, d.total_iterations,
+             d.satisfied_words, d.extra["steps"])
+            == (g.total_words, g.errors, g.word_errors, g.total_iterations,
+                g.satisfied_words, g.extra["steps"])
+            and np.array_equal(d.iteration_hist, g.iteration_hist)
+            and np.array_equal(d.error_weight_hist, g.error_weight_hist))
+    check(same, f"{label}: totals differ from the generic stream's")
+    rate = {r: s.total_words * code.k / s.wall_seconds
+            for r, s in runs.items()}
+    print(f"  {label}: {d.total_words} frames, BER {d.ber!r} FER {d.fer!r} "
+          f"avg iterations {d.avg_iterations!r}, {d.extra['steps']} stream "
+          f"steps; totals and histograms equal to the generic stream's; "
+          f"{d.wall_seconds:.4f} s dense ({rate['dense']:.6g} decoded info "
+          f"bits/s), {g.wall_seconds:.4f} s generic ({rate['generic']:.6g});"
+          f" launches {launches['dense']}")
+    gate(label, mc_moments(d, code.n), JAX_POINTS["ngdbfhw_highrate"])
+    return dict(frames=d.total_words, steps=d.extra["steps"],
+                seconds={r: s.wall_seconds for r, s in runs.items()},
+                decoded_info_bits_per_s=rate, launches=launches["dense"])
+
+
+def dense_gdbf_stream(code, dg, cfg, sigma, device):
+    """``simulate_stream_gdbf`` SMNGDBF with ``dense=`` at full width
+    (BATCH lanes, 2·BATCH frames) on a code without QC structure, its
+    integer totals equal to the dense batch decoder's over the same gids;
+    its launches read on their own."""
+    from ldpcsimulation_tpu_torch.channel import saturate
+    from ldpcsimulation_tpu_torch.decoders import decode_gdbf
+    from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+    from ldpcsimulation_tpu_torch.harness import stream_gdbf as sg
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    sat = lambda y: saturate(y, GDBF_YMAX)  # noqa: E731
+    label = (f"simulate_stream_gdbf SMNGDBF dense {DENSE_GDBF_CODE} "
+             f"{GDBF_SNR_DB} dB T={GDBF_T}, {BATCH} lanes")
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    s = sg.simulate_stream_gdbf(
+        code, cfg, GDBF_SNR_DB, stop=StopRule.fixed_frames(2 * BATCH),
+        lanes=BATCH, refill_every=STREAM_GDBF_K, seed=SEED, preprocess=sat,
+        dense=dg, device=device)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check(launches.get("awgn_philox", 0) >= 1
+          and launches.get("gauss_philox_lanes", 0) >= 1,
+          f"{label}: launches {launches}")
+    b = simulate(code, lambda yq, key: decode_gdbf(code, yq, sigma, cfg,
+                                                   key=key, dense=dg),
+                 GDBF_SNR_DB, stop=StopRule.fixed_frames(s.total_words),
+                 batch_size=BATCH, seed=SEED, preprocess=sat, device=device)
+    totals = [(r.total_words, r.errors, r.word_errors, r.total_iterations,
+               r.satisfied_words) for r in (s, b)]
+    check(totals[0] == totals[1], f"{label}: stream != batch {totals}")
+    rate = s.total_words * code.k / s.wall_seconds
+    print(f"  {label}: {s.total_words} frames, FER {s.fer!r} avg iterations "
+          f"{s.avg_iterations!r}; (frames, bit errors, word errors, "
+          f"iterations, satisfied) {totals[0]}, the dense batch decoder's "
+          f"over the same gids; {s.wall_seconds:.4f} s ({rate:.6g} decoded "
+          f"info bits/s, drain included); launches {launches}")
+    return dict(frames=s.total_words, seconds=s.wall_seconds,
+                decoded_info_bits_per_s=rate, launches=launches)
+
+
+def phase_dense(device, timer):
+    """[40] The dense graph route on the card: its four operations against
+    the gathers (highrate_2048_384 and peg_1008_504, B=32768); NGDBFhw at
+    T=600 and SMNGDBF decodes, dense against generic under ``torch.equal``,
+    with ms per step of both; the NGDBFhw stream with ``dense=`` equal to
+    its batch decode; the sweep's ngdbfhw route on highrate_2048_384
+    building a DenseGraph, its rows the generic route's; slot-array min-sum
+    T=10 on highrate_2048_384 against its memory bound (the stratified
+    family's cost reference)."""
+    from ldpcsimulation_tpu_torch.channel import saturate, snr_to_sigma
+    from ldpcsimulation_tpu_torch.channel.awgn import awgn_all_zero
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import (
+        NGDBFHwConfig,
+        NoiseKey,
+        decode_gdbf,
+        decode_minsum,
+        decode_ngdbf_hw,
+        preset,
+    )
+    from ldpcsimulation_tpu_torch.decoders.dense_ops import DenseGraph
+    from ldpcsimulation_tpu_torch.harness import stream_ngdbfhw as sh
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools import sweep
+
+    out = {"ops": {}}
+    hw_code = load_named_code(HW_CODE, device)
+    peg_code = load_named_code(DENSE_GDBF_CODE, device)
+    graphs = {HW_CODE: (hw_code, DenseGraph.from_code(hw_code, device)),
+              DENSE_GDBF_CODE: (peg_code,
+                                DenseGraph.from_code(peg_code, device))}
+    for name, (code, dg) in graphs.items():
+        check(dg.h.dtype == torch.float16 and dg.h.is_cuda,
+              f"{name}: dense H {dg.h.dtype} on {dg.h.device}")
+        print(f"  {name} [{dg.m} x {dg.n}] {dg.h.dtype}, B={BATCH}:")
+        out["ops"][name] = dense_ops_vs_gathers(code, dg, device, timer)
+
+    # NGDBFhw at [25]'s point, T=600, one batch: dense against generic
+    hw_dg = graphs[HW_CODE][1]
+    cfg = NGDBFHwConfig(num_iterations=HW_T,
+                        ring_len=max(2648, hw_code.n + 600))
+    sigma = snr_to_sigma(HW_SNR_DB, hw_code.rate)
+    y = awgn_all_zero(SEED, 0, BATCH, hw_code.n, sigma, device)
+    key = NoiseKey(SEED, 0)
+
+    def alternated(decode, dense):
+        """Two decodes of each route, dense first: {route: [(result, ms
+        per step)]}, and the dense decodes' launches, each decode's read
+        from a window of its own."""
+        runs, dense_launches = {}, {}
+        for route, dg in (("dense", dense), ("generic", None),
+                          ("dense", dense), ("generic", None)):
+            build.LAUNCHES.clear()
+            res, ms = timed_decode(lambda: decode(dg))
+            launches = dict(build.LAUNCHES)
+            check(launches.get("gauss_philox", 0) >= 1,
+                  f"{route} decode: launches {launches}")
+            if route == "dense":
+                for k, v in launches.items():
+                    dense_launches[k] = dense_launches.get(k, 0) + v
+            runs.setdefault(route, []).append((res, ms / res.steps))
+        return runs, dense_launches
+
+    runs, hw_launches = alternated(lambda dg: decode_ngdbf_hw(
+        hw_code, y, sigma, cfg, key=key, dense=dg), hw_dg)
+    (dres, _), (gres, _) = runs["dense"][0], runs["generic"][0]
+    for f in ("hard", "iterations", "satisfied", "least_errors", "qpointer"):
+        check(torch.equal(getattr(dres, f), getattr(gres, f)),
+              f"NGDBFhw dense {f} != generic")
+    # one ring per decode
+    check(hw_launches == {"gauss_philox": 2}, f"dense rings {hw_launches}")
+    hw_step = {r: [v[1] for v in runs[r]] for r in runs}
+    print(f"  decode_ngdbf_hw {HW_CODE} {HW_SNR_DB} dB T={HW_T} B={BATCH}: "
+          f"dense equal to generic ({dres.steps} steps, "
+          f"{int(dres.satisfied.sum())} satisfied, least errors "
+          f"{int(dres.least_errors.sum())}); ms per step dense "
+          f"{hw_step['dense']}, generic {hw_step['generic']}; the two dense "
+          f"decodes' launches {hw_launches}")
+    out["ngdbfhw"] = dict(steps=dres.steps, step_ms=hw_step,
+                          launches=hw_launches,
+                          least_errors=int(dres.least_errors.sum()))
+
+    # SMNGDBF at [10]'s point on peg_1008_504 (no QC structure)
+    peg_dg = graphs[DENSE_GDBF_CODE][1]
+    gcfg = preset("SMNGDBF", GDBF_T, **GDBF_KW)
+    gsigma = snr_to_sigma(GDBF_SNR_DB, peg_code.rate)
+    yq = saturate(awgn_all_zero(SEED, 0, BATCH, peg_code.n, gsigma, device),
+                  GDBF_YMAX)
+    runs, g_launches = alternated(lambda dg: decode_gdbf(
+        peg_code, yq, gsigma, gcfg, key=key, dense=dg), peg_dg)
+    (dres, _), (gres, _) = runs["dense"][0], runs["generic"][0]
+    for f in ("hard", "iterations", "satisfied", "phases", "smoothing_used"):
+        check(torch.equal(getattr(dres, f), getattr(gres, f)),
+              f"SMNGDBF dense {f} != generic")
+    g_step = {r: [v[1] for v in runs[r]] for r in runs}
+    print(f"  decode_gdbf SMNGDBF {DENSE_GDBF_CODE} {GDBF_SNR_DB} dB "
+          f"T={GDBF_T} B={BATCH}: dense equal to generic ({dres.steps} "
+          f"steps, FER {1 - float(dres.satisfied.float().mean()):.4g}); ms "
+          f"per step dense {g_step['dense']}, generic {g_step['generic']}; "
+          f"the two dense decodes' launches {g_launches}")
+    out["smngdbf"] = dict(steps=dres.steps, step_ms=g_step,
+                          launches=g_launches)
+
+    # the NGDBFhw stream on the dense graph: a recorded 2048-lane stream
+    # over 4096 frames, every frame equal to the generic batch decode at
+    # its ring offset
+    hint = JAX_POINTS["ngdbfhw_highrate"]["avg_iterations"][0]
+    lanes, frames = 2048, 4096
+    build.LAUNCHES.clear()
+    call = sh.make_hw_stream_call(
+        hw_code, cfg, 16, HW_STREAM_K, dense=hw_dg, record=True,
+        rec_cap=frames + lanes,
+        refill_cap=sh.default_refill_cap(lanes, HW_STREAM_K, hint))
+    state = sh.hw_stream_init(hw_code, cfg, lanes, device, record=True)
+    pool = sh.build_channel_pool_hw(hw_code, SEED, 0, frames, sigma,
+                                    dense=hw_dg, device=device)
+    parts = []
+    for ptr0 in (0, *([frames] * (2 + HW_T // (16 * HW_STREAM_K)))):
+        if ptr0 and bool(state["idle"].all()):
+            break
+        state, acc, rec = call(state, *pool, 0, SEED, sigma, ptr0)
+        parts.append(records_of(acc, rec, HW_STREAM_FIELDS))
+    s_launches = dict(build.LAUNCHES)
+    rec = {f: torch.cat([p[f] for p in parts]) for f in HW_STREAM_FIELDS}
+    order = torch.argsort(rec["gid"])
+    rec = {f: v[order] for f, v in rec.items()}
+    check(torch.equal(rec["gid"], torch.arange(frames)),
+          f"dense stream: frames {len(rec['gid'])} of {frames}")
+    res = decode_ngdbf_hw(hw_code, pool[0], sigma, cfg, key=key,
+                          qpointer0=rec["qp0"].to(device))
+    for f, v in (("iters", res.iterations), ("errs", res.least_errors),
+                 ("sat", res.satisfied), ("hard", res.hard.to(torch.int8))):
+        check(torch.equal(rec[f], v.cpu()), f"dense stream {f} != batch")
+    print(f"  NGDBFhw stream, dense: {frames} frames of a {lanes}-lane "
+          f"stream equal to the generic batch decoder at their ring "
+          f"offsets ({len(set(rec['qp0'].tolist()))} offsets); launches "
+          f"{s_launches}")
+    out["stream"] = dict(frames=frames, lanes=lanes, launches=s_launches)
+    out["hw_stream"] = dense_hw_stream(hw_code, hw_dg, cfg, hint, device)
+    out["gdbf_stream"] = dense_gdbf_stream(peg_code, peg_dg, gcfg, gsigma,
+                                           device)
+
+    # the sweep's ngdbfhw route on highrate_2048_384: it builds a
+    # DenseGraph, and its row is the generic route's
+    built = []
+
+    class Counted(DenseGraph):
+        @classmethod
+        def from_code(cls, code, device=None):
+            built.append(code.n)
+            return super().from_code(code, device)
+
+    args = ["ngdbfhw", "--code", HW_CODE, "--snr", str(HW_SNR_DB), "-T",
+            "100", "--frames", str(BATCH), "--batch", str(BATCH),
+            "--device", str(device)]
+    rows, route_launches = {}, {}
+    real_dg, real_worth = sweep.DenseGraph, sweep.dense_worthwhile
+    try:
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+            for route in ("dense", "generic"):
+                sweep.DenseGraph = Counted
+                if route == "generic":
+                    sweep.dense_worthwhile = lambda code: False
+                t0 = time.perf_counter()
+                log = f"{tmp}/{route}.log"
+                build.LAUNCHES.clear()
+                check(sweep.main(args + ["--log", log]) == 0,
+                      f"sweep {route}")
+                route_launches[route] = dict(build.LAUNCHES)
+                secs = time.perf_counter() - t0
+                with open(log) as f:
+                    rows[route] = (f.read().splitlines(), secs)
+                with open(f"{log}_{HW_SNR_DB:g}_itdist.dat") as f:
+                    rows[route] += (f.read(),)
+    finally:
+        sweep.DenseGraph, sweep.dense_worthwhile = real_dg, real_worth
+    sweep_launches = route_launches["dense"]
+    check(sweep_launches.get("awgn_philox", 0) >= 1
+          and sweep_launches.get("gauss_philox", 0) >= 1,
+          f"dense sweep launches {sweep_launches}")
+    check(built == [hw_code.n], f"sweep built DenseGraphs {built}")
+    check(rows["dense"][0] == rows["generic"][0] and len(rows["dense"][0])
+          == 1 and rows["dense"][2] == rows["generic"][2],
+          f"sweep rows {rows['dense'][0]} != {rows['generic'][0]}")
+    print(f"  sweep ngdbfhw --code {HW_CODE} -T 100: a DenseGraph built, "
+          f"the row and itdist file the generic route's "
+          f"({rows['dense'][1]:.2f} s dense, {rows['generic'][1]:.2f} s "
+          f"generic): {rows['dense'][0]}; the dense route's launches "
+          f"{sweep_launches}")
+    out["sweep"] = dict(row=rows["dense"][0][0],
+                        seconds={r: v[1] for r, v in rows.items()},
+                        launches=sweep_launches)
+
+    # slot-array min-sum T=10 on highrate_2048_384: the stratified family's
+    # cost reference (its gate accepts up to 2x the slot traffic)
+    ym = awgn_all_zero(SEED, 0, BATCH, hw_code.n,
+                       snr_to_sigma(3.5, hw_code.rate), device)
+    ms = timer(lambda: decode_minsum(hw_code, ym, 10,
+                                     storage_dtype=torch.float16), 3)
+    e = int(hw_code.cn_mask.sum())
+    mem = (4 * e * 2 + 8 * hw_code.n) * BATCH * 10 / HBM_BYTES_PER_S * 1e3
+    print(f"  decode_minsum {HW_CODE} T=10 f16 B={BATCH}: {ms:.3f} ms, "
+          f"{ms / 10:.4f} ms per iteration; memory bound {mem:.3f} ms (4 "
+          f"edge passes of f16 messages and 8 bytes per variable); "
+          f"{100 * mem / ms:.1f} % of it")
+    out["minsum_highrate"] = dict(ms=ms, memory_bound_ms=mem)
+    return out
+
+
+def phase_surface(device):
+    """[41] The public names that close the port: the
+    ``compare_decoders_torch`` example's five rows at 4096 frames each equal
+    to ``simulate`` with the same arguments; ``native.parse_alist_native``
+    equal to the Python parser (binary, GF(8), the packaged alist)."""
+    import importlib.util
+    import pathlib
+
+    from ldpcsimulation_tpu_torch import native
+    from ldpcsimulation_tpu_torch.channel import (
+        llr_from_channel,
+        saturate,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import (
+        code_to_alist,
+        dumps_alist,
+        load_named_code,
+        load_named_qc,
+        nb_regular,
+        parse_alist,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_bp_layered_qc,
+        decode_bp_qc,
+        decode_gdbf,
+        decode_minsum_layered_qc,
+        decode_minsum_qc,
+    )
+    from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    root = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "compare_decoders_torch",
+        root / "examples" / "compare_decoders_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    snr, frames = 2.5, 4096
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = ex.rows(snr, frames, frames, device)
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    qc = load_named_qc(CODE)
+    code = qc.to_code(device)
+    n0, sigma = snr_to_n0(snr, code.rate), snr_to_sigma(snr, code.rate)
+
+    def sim(dec, pre=None):
+        return simulate(code, dec, snr, stop=StopRule.fixed_frames(frames),
+                        batch_size=frames, preprocess=pre, seed=ex.SEED,
+                        device=device)
+
+    def llr(y):
+        return llr_from_channel(y, n0)
+
+    want = [
+        sim(lambda y, k: decode_minsum_qc(qc, y, 10, early_termination=True,
+                                          storage_dtype=torch.float16)),
+        sim(lambda y, k: decode_minsum_layered_qc(qc, y, 10,
+                                                  early_termination=True)),
+        sim(lambda x, k: decode_bp_qc(qc, x, 30, early_termination=True),
+            llr),
+        sim(lambda x, k: decode_bp_layered_qc(qc, x, 30,
+                                              early_termination=True), llr),
+        sim(lambda yq, k: decode_gdbf(code, yq, sigma, ex.SM_CFG, key=k,
+                                      qc=qc), lambda y: saturate(y, 2.5)),
+    ]
+    rows = {}
+    for (name, st), w in zip(got, want):
+        t = (st.errors, st.word_errors, st.total_iterations)
+        check(st.total_words == w.total_words == frames and t == (
+            w.errors, w.word_errors, w.total_iterations),
+            f"example row {name}: {t} != simulate's")
+        rows[name] = dict(ber=st.ber, fer=st.fer,
+                          avg_iterations=st.avg_iterations, totals=t)
+        print(f"  {name:26s} {snr:5.2f} dB BER {st.ber:.3e} FER "
+              f"{st.fer:.3e} iterations {st.avg_iterations:.2f}: equal to "
+              f"simulate")
+    print(f"  example: {frames} frames per row in {secs:.2f} s; launches "
+          f"{launches}")
+
+    texts = {
+        "highrate_2048_384": dumps_alist(code_to_alist(
+            load_named_code(HW_CODE))),
+        "gf8": dumps_alist(nb_regular(600, 400, 3, q=8, seed=0)),
+        "peg_1008_504.alist": (root / "ldpcsimulation_tpu_torch" / "data"
+                               / "peg_1008_504.alist").read_text(),
+    }
+    check(native.available(), "native library unavailable")
+    parse = {}
+    for name, text in texts.items():
+        t0 = time.perf_counter()
+        a = native.parse_alist_native(text)
+        t1 = time.perf_counter()
+        b = parse_alist(text)
+        t2 = time.perf_counter()
+        check(a == b, f"parse_alist_native {name} != parse_alist")
+        parse[name] = dict(native_s=t1 - t0, python_s=t2 - t1)
+        print(f"  parse_alist_native {name}: equal to parse_alist "
+              f"({t1 - t0:.4f} s against {t2 - t1:.4f} s)")
+    return dict(example=rows, example_seconds=secs, launches=launches,
+                parse=parse)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4656,6 +5155,12 @@ def main() -> int:
     cluster38 = phase_cluster(device)
     header("[39] sweep --distributed routes; streams on a 2-slot mesh")
     dist39 = phase_distributed_sweep(qc, device)
+    header(f"[40] the dense graph route: {HW_CODE} and {DENSE_GDBF_CODE} at "
+           f"B={BATCH}, dense against the gathers")
+    dense40 = phase_dense(device, time_ms)
+    header("[41] the public surface: compare_decoders_torch, "
+           "parse_alist_native")
+    surface41 = phase_surface(device)
 
     summary = {
         "card": card,
@@ -4705,6 +5210,8 @@ def main() -> int:
         "grid": grid37,
         "cluster": cluster38,
         "distributed": dist39,
+        "dense": dense40,
+        "surface": surface41,
     }
     print(json.dumps(summary))
     print(card)
@@ -4854,6 +5361,36 @@ def main() -> int:
         "uniform_philox gdbf --uniform-noise"]
     for name, _, count, by_path in lane_rows:
         by_path["gdbf stream mesh [39]"] = dist39["gdbf_stream"].get(name, 0)
+    # the dense route [40] and the example [41]
+    extra["gauss_philox"]["launches_by_path"].update({
+        "dense ngdbfhw decodes [40]": dense40["ngdbfhw"]["launches"][
+            "gauss_philox"],
+        "dense smngdbf decodes [40]": dense40["smngdbf"]["launches"][
+            "gauss_philox"],
+        "dense sweep ngdbfhw [40]": dense40["sweep"]["launches"].get(
+            "gauss_philox", 0),
+        "compare_decoders_torch [41]": surface41["launches"].get(
+            "gauss_philox", 0)})
+    extra["awgn_philox"]["launches_by_path"].update({
+        "dense stream [40]": dense40["stream"]["launches"].get(
+            "awgn_philox", 0),
+        "dense ngdbfhw stream full width [40]": dense40["hw_stream"][
+            "launches"].get("awgn_philox", 0),
+        "dense gdbf stream full width [40]": dense40["gdbf_stream"][
+            "launches"].get("awgn_philox", 0),
+        "dense sweep ngdbfhw [40]": dense40["sweep"]["launches"].get(
+            "awgn_philox", 0),
+        "compare_decoders_torch [41]": surface41["launches"].get(
+            "awgn_philox", 0)})
+    extra["minsum_cn_scan"]["launches_by_path"][
+        "compare_decoders_torch [41]"] = surface41["launches"].get(
+        "minsum_cn_scan", 0)
+    lane_rows[1][3].update({
+        f"dense {label} [40]": dense40[k]["launches"].get(
+            "gauss_philox_lanes", 0)
+        for k, label in (("stream", "stream"),
+                         ("hw_stream", "ngdbfhw stream full width"),
+                         ("gdbf_stream", "gdbf stream full width"))})
     for name, _, count, by_path in lane_rows:
         check(count > 0, f"{name} not launched on its path")
     lanes["gauss_philox_lanes"]["max_abs_err"] = max(

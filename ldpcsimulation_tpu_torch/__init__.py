@@ -1,11 +1,17 @@
 """ldpcsimulation_tpu_torch — the PyTorch/CUDA port of ``ldpcsimulation_tpu``.
 
-The flooding min-sum Monte-Carlo path on quasi-cyclic codes, end to end:
-code construction (``codes``), the keyed all-(+1) AWGN channel
-(``channel``), the QC min-sum decoder (``decoders``), the Monte-Carlo
-statistics and reference-format log rows (``harness``) and the sweep CLI
-(``tools.sweep``).  Module names mirror the JAX package, so each
-counterpart is found by path.
+Everything the JAX package does apart from its TPU routing workarounds
+(ROADMAP "Left behind"): code construction, the standards' tables, the
+GF(2) encoder and the GF(q) codes (``codes``, ``native``), the keyed AWGN
+channel and quantizers (``channel``), the decoders — min-sum, sum-product
+BP and their row-layered schedules, DD-BMP, the GDBF/NGDBF bit-flip family
+with its graph operations as row gathers or dense products, the
+hardware-model NGDBFhw and SystemC decoders, the non-binary FFT-QSPA and
+min-sum/min-max (``decoders``) — the Monte-Carlo harness, its streaming
+refill drivers and reference-format log rows (``harness``), multi-device
+runs on ``torch.distributed`` (``parallel``), and the sweep CLI with the
+experiment tools (``tools``).  Module names mirror the JAX package, so
+each counterpart is found by path.
 
 The hot loops are hand-written CUDA kernels for Hopper (``csrc/``), built
 with ``nvcc`` on first use and bound through ``ctypes`` (``kernels``).  On

@@ -3,7 +3,7 @@ structure and its detection, the standard tables, the GF(2) encoder, named
 codes, and the GF(2^m) tables of the non-binary codes."""
 
 from .alist import Alist, dumps_alist, from_dense, load_alist, parse_alist, save_alist
-from .code import Code, build_code, code_to_alist
+from .code import Code, build_code, code_from_dense, code_to_alist
 from .construct import (
     make_regular_code,
     nb_regular,
@@ -26,6 +26,7 @@ __all__ = [
     "from_dense",
     "Code",
     "build_code",
+    "code_from_dense",
     "code_to_alist",
     "peg",
     "random_regular",

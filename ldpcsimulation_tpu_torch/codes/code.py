@@ -23,7 +23,7 @@ from typing import List
 import numpy as np
 import torch
 
-from .alist import Alist
+from .alist import Alist, from_dense
 
 __all__ = ["Code", "build_code", "code_to_alist"]
 
@@ -192,6 +192,11 @@ def build_code(a: Alist, device="cpu") -> Code:
         vn_coef=vn_coef,
         cn_coef=cn_coef,
     )
+
+
+def code_from_dense(h: np.ndarray, q: int = 0, device="cpu") -> Code:
+    """A dense H (rows = checks) as a :class:`Code` on ``device``."""
+    return build_code(from_dense(h, q=q), device)
 
 
 def code_to_alist(code: Code) -> Alist:

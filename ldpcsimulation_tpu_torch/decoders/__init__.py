@@ -1,7 +1,9 @@
 """Decoders: min-sum (slot-array, QC, row-layered), sum-product BP (slot-array,
 QC, row-layered), DD-BMP, the GDBF/NGDBF bit-flip family, the hardware-model
 bit-flip decoders (fixed-point NGDBFhw, the SystemC-model NGDBF), the
-non-binary FFT-QSPA and NB min-sum/min-max, and their shared machinery."""
+non-binary FFT-QSPA and NB min-sum/min-max, and their shared machinery
+(the bit-flip graph operations as row gathers, ``qc_ops``, or as dense
+matrix products, ``dense_ops``)."""
 
 from .base import (
     DecodeResult,
@@ -19,6 +21,15 @@ from .base import (
 from .bp import MAXLLR, bp_cn_update, bp_step, decode_bp, pair_excl_logmags
 from .bp_layered import decode_bp_layered_qc, qc_bp_layered_step
 from .bp_qc import decode_bp_qc, qc_bp_step, qc_cn_bp
+from .dense_ops import (
+    DENSE_MAX_ENTRIES,
+    DenseGraph,
+    dense_sat_sum_per_vn,
+    dense_syndrome01,
+    dense_syndrome_bipolar,
+    dense_syndrome_sum_per_vn,
+    dense_worthwhile,
+)
 from .ddbmp import (
     ddbmp_round,
     decode_ddbmp,
@@ -100,6 +111,13 @@ __all__ = [
     "decode_ddbmp",
     "decode_ddbmp_qc",
     "qc_ddbmp_round",
+    "DENSE_MAX_ENTRIES",
+    "DenseGraph",
+    "dense_sat_sum_per_vn",
+    "dense_syndrome01",
+    "dense_syndrome_bipolar",
+    "dense_syndrome_sum_per_vn",
+    "dense_worthwhile",
     "PRESETS",
     "GDBFConfig",
     "GDBFResult",

@@ -42,7 +42,7 @@ ulp of a level midpoint.
 
 ``trace=True`` runs the whole step budget with no early exit and returns
 every step's decisions as well (the source of :mod:`..tools.replay`'s
-traces).  Not here: the ``dense=`` graph (a TPU workaround, left behind).
+traces).
 """
 
 from __future__ import annotations
@@ -58,6 +58,11 @@ from ..codes.code import Code
 from ..codes.qc import QCCode
 from ..kernels.channel import gauss_philox, noise_stream, uniform_philox
 from .base import NoiseKey, syndrome_from_hard
+from .dense_ops import (
+    DenseGraph,
+    dense_syndrome_bipolar,
+    dense_syndrome_sum_per_vn,
+)
 from .qc_ops import qc_syndrome_bipolar, qc_syndrome_sum_per_vn
 
 __all__ = [
@@ -284,6 +289,7 @@ def decode_gdbf(
     perturbations: Optional[torch.Tensor] = None,
     qc: Optional[QCCode] = None,
     stoch_uniforms: Optional[torch.Tensor] = None,
+    dense: Optional[DenseGraph] = None,
     trace: bool = False,
 ) -> GDBFResult:
     """Batched GDBF-family decode.
@@ -297,6 +303,9 @@ def decode_gdbf(
     bypass the uniform and shaping transforms, as in the JAX decoder).
     qc: optional QC structure of the SAME code — row-gather graph
     operations (:mod:`.qc_ops`), bit-identical to the generic ones.
+    dense: optional :class:`.dense_ops.DenseGraph` of the SAME code — the
+    two graph operations as matrix products (bit-identical; the sweep's
+    route for codes without QC structure).  Ignored when ``qc`` is given.
     trace: run all ``max_phases·T`` steps with no early exit (frames that
     are done keep their state, as in the JAX decoder's masked scan) and
     return ``(result, d_steps)``: ``d_steps`` [max_phases·T, N, B] int32
@@ -307,6 +316,8 @@ def decode_gdbf(
     """
     if qc is not None and (qc.n != code.n or qc.m != code.m):
         raise ValueError("qc structure does not match code dimensions")
+    if dense is not None and (dense.n != code.n or dense.m != code.m):
+        raise ValueError("dense graph does not match code dimensions")
     if (
         (cfg.add_noise and perturbations is None)
         or (cfg.quantize_probabilities and stoch_uniforms is None)
@@ -370,6 +381,8 @@ def decode_gdbf(
         # syndrome check at iteration start
         if qc is not None:
             syn = qc_syndrome_bipolar(qc, d)
+        elif dense is not None:
+            syn = dense_syndrome_bipolar(dense, d)
         else:
             syn = syndrome_from_hard(code, d)
         satisfied = (syn > 0).all(dim=0)
@@ -390,6 +403,8 @@ def decode_gdbf(
         # flip metric
         if qc is not None:
             syn_sum_vn = qc_syndrome_sum_per_vn(qc, syn.to(dtype))
+        elif dense is not None:
+            syn_sum_vn = dense_syndrome_sum_per_vn(dense, syn.to(dtype))
         else:
             syn_sum_vn = _syndrome_sum_per_vn(code, syn).to(dtype)
         e = d.to(dtype) * y_t + w * syn_sum_vn

@@ -35,12 +35,14 @@ from .base import (
     DecodeResult,
     check_columns,
     run_flooding_soft,
+    sgn_pos,
     storage_cast,
     xor_satisfied,
 )
 
 __all__ = ["MinSumPlan", "minsum_plan", "minsum_cn_update", "vn_update",
-           "minsum_step", "decode_minsum"]
+           "apply_normalization", "apply_offset", "minsum_step",
+           "decode_minsum"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -117,6 +119,27 @@ def vn_update(code: Code, y_t: torch.Tensor, c2v_flat: torch.Tensor,
         v2c = torch.clamp(v2c, -clamp, clamp)
     d = torch.where(total > 0, 1, -1).to(torch.int32)
     return v2c.reshape(code.n * code.dv_max, -1), total, d
+
+
+def _scalar(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``v`` as a 0-dim tensor of x's dtype on x's device (a fill, not a
+    host copy): the JAX function's weakly typed scalar, rounded to the
+    messages' dtype."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def apply_normalization(c2v_flat: torch.Tensor, alpha: float) -> torch.Tensor:
+    """check_to_sym /= alpha (decodeMinSum.cpp:493-500 — a division).  The
+    divisor is a 0-dim tensor: by a Python scalar, the CUDA division would
+    run as a multiply by its reciprocal."""
+    return c2v_flat / _scalar(c2v_flat, alpha)
+
+
+def apply_offset(c2v_flat: torch.Tensor, delta: float) -> torch.Tensor:
+    """|msg| -= delta, clamped at 0, sign kept (decodeMinSum.cpp:502-516)."""
+    mag = c2v_flat.abs() - _scalar(c2v_flat, delta)
+    return torch.where(mag > 0, sgn_pos(c2v_flat) * mag,
+                       torch.zeros_like(c2v_flat))
 
 
 def minsum_step(code: Code, variant: str = "plain", alpha: float = 1.0,

@@ -46,16 +46,16 @@ is the same.
 
 The graph operations are one row gather each over the code's (or the QC
 structure's) slot tables: the syndrome as the parity of a check's bits,
-the per-variable count of unsatisfied checks as a sum.  The metric is
+the per-variable count of unsatisfied checks as a sum; or, with
+``dense=``, one matrix product each (:mod:`.dense_ops`).  The metric is
 computed in int16 when its bound ``2·NL + dv_max·Smult`` fits (int32
 otherwise): the same integers.
-
-Not here: the ``dense=`` graph (a TPU workaround, left behind).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -70,6 +70,7 @@ from ..kernels.channel import (
     gauss_philox_lanes,
 )
 from .base import NoiseKey
+from .dense_ops import DenseGraph, dense_sat_sum_per_vn, dense_syndrome01
 from .gdbf import DONE_CHECK_EVERY
 from .qc_ops import qc_graph, slot_graph
 
@@ -168,15 +169,22 @@ def _gather_reduce(x, table, padded, reduce):
     return reduce(x[table])
 
 
-def hw_graph_ops(code: Code, qc: Optional[QCCode] = None):
+def hw_graph_ops(code: Code, qc: Optional[QCCode] = None,
+                 dense: Optional[DenseGraph] = None):
     """(syndrome01, satsum), the graph operations of the NGDBFhw update.
 
     syndrome01(d {0,1} uint8 [N, B]) -> [M, B] uint8 {0,1}, 0 = satisfied
     (the parity of a check's bits); satsum(syn01) -> [N, B] int16, the count
-    of satisfied neighbour checks of each variable.  One row gather each on
-    the QC tables (:func:`.qc_ops.qc_graph`) when ``qc`` is given, else on
-    the code's slot tables: the same integers either way.
+    of satisfied neighbour checks of each variable.  One matrix product
+    each on ``dense`` when it is given (before ``qc``, as in the JAX
+    package); else one row gather each on the QC tables
+    (:func:`.qc_ops.qc_graph`) when ``qc`` is given, else on the code's
+    slot tables: the same integers every way.
     """
+    if dense is not None:
+        return (functools.partial(dense_syndrome01, dense),
+                functools.partial(dense_sat_sum_per_vn, dense))
+
     def graph(device):
         return qc_graph(qc, device) if qc is not None else slot_graph(
             code, device)
@@ -254,6 +262,7 @@ def decode_ngdbf_hw(
     true_bits: Optional[torch.Tensor] = None,
     qpointer0: Optional[torch.Tensor] = None,
     ring_noise: Optional[torch.Tensor] = None,
+    dense: Optional[DenseGraph] = None,
     qc: Optional[QCCode] = None,
 ) -> NGDBFHwResult:
     """Batched fixed-point NGDBF decode.
@@ -264,11 +273,16 @@ def decode_ngdbf_hw(
     bits for the least-errors selection (all-zero if None).  qpointer0: [B]
     initial ring offsets in [0, ring_len − N) (0 if None).  ring_noise:
     optional [ring_len, B] raw ring draws (σ·noise_scale·n) that replace the
-    keyed draw.  qc: optional QC structure of the SAME code — row-gather
-    graph operations on its tables, bit-identical to the generic ones.
+    keyed draw.  dense: optional :class:`.dense_ops.DenseGraph` of the
+    SAME code — the graph operations as matrix products (taken before
+    ``qc``).  qc: optional QC structure of the SAME code — row-gather
+    graph operations on its tables.  Both are bit-identical to the generic
+    ones.
     """
     if qc is not None and (qc.n != code.n or qc.m != code.m):
         raise ValueError("qc structure does not match code dimensions")
+    if dense is not None and (dense.n != code.n or dense.m != code.m):
+        raise ValueError("dense graph does not match code dimensions")
     if ring_noise is None and key is None:
         raise ValueError("decode_ngdbf_hw needs a noise key or ring_noise")
     y_t = y.t().to(torch.float32)  # [N, B]
@@ -315,7 +329,7 @@ def decode_ngdbf_hw(
     qptr = (torch.zeros((b,), dtype=torch.int32, device=device)
             if qpointer0 is None
             else qpointer0.to(device, torch.int32).clone())
-    syndrome01, satsum = hw_graph_ops(code, qc)
+    syndrome01, satsum = hw_graph_ops(code, qc, dense)
 
     least_iters = torch.full((b,), T, dtype=torch.int32, device=device)
     least_errs = torch.full((b,), n, dtype=torch.int32, device=device)

@@ -14,6 +14,13 @@ from .logging import (
 )
 from .montecarlo import MCStats, StopRule, default_min_word_errors, simulate
 from .montecarlo_nb import NBMCStats, simulate_nb
+from .stream import (
+    StreamDecoder,
+    bp_qc_stream,
+    minsum_qc_stream,
+    minsum_stream,
+    simulate_stream,
+)
 
 __all__ = [
     "MCStats",
@@ -22,6 +29,11 @@ __all__ = [
     "simulate",
     "NBMCStats",
     "simulate_nb",
+    "StreamDecoder",
+    "bp_qc_stream",
+    "minsum_qc_stream",
+    "minsum_stream",
+    "simulate_stream",
     "append_row",
     "bp_log_row",
     "fmt",

@@ -35,6 +35,7 @@ the one its batch decode makes.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -44,6 +45,12 @@ import torch
 from ..channel.awgn import awgn_all_zero, snr_to_sigma
 from ..codes.code import Code
 from ..codes.qc import QCCode
+from ..decoders.dense_ops import (
+    DenseGraph,
+    dense_syndrome_bipolar,
+    dense_syndrome_sum_per_vn,
+    graphs_by_device,
+)
 from ..decoders.gdbf import GDBFConfig, _f32, flip_decisions
 from ..decoders.qc_ops import (
     qc_graph,
@@ -85,14 +92,25 @@ def _r_of(y_t):
     return torch.where(torch.signbit(y_t), -1, 1).to(torch.int32)
 
 
-def _graph(code: Code, qc: Optional[QCCode], device):
-    """The row tables of the graph operations: the QC ones, else the slot
-    arrays' (the same syndromes and sums, exactly)."""
+def _graph_ops(code: Code, qc: Optional[QCCode],
+               dense: Optional[DenseGraph], device):
+    """(syndrome, neighbour sum), the graph operations on ``device``: row
+    gathers on the QC tables, else matrix products on the dense H, else
+    row gathers on the slot arrays (the same syndromes and sums, exactly).
+    """
     if qc is not None:
         if qc.n != code.n or qc.m != code.m:
             raise ValueError("qc structure does not match code dimensions")
-        return qc_graph(qc, device)
-    return slot_graph(code, device)
+        g = qc_graph(qc, device)
+    elif dense is not None:
+        if dense.n != code.n or dense.m != code.m:
+            raise ValueError("dense graph does not match code dimensions")
+        return (functools.partial(dense_syndrome_bipolar, dense),
+                functools.partial(dense_syndrome_sum_per_vn, dense))
+    else:
+        g = slot_graph(code, device)
+    return (functools.partial(syndrome_bipolar, g),
+            functools.partial(syndrome_sum_per_vn, g))
 
 
 def gdbf_stream_init(code: Code, cfg: GDBFConfig, lanes: int,
@@ -133,6 +151,7 @@ def gdbf_stream_init(code: Code, cfg: GDBFConfig, lanes: int,
 def build_channel_pool_gdbf(code: Code, seed: int, base: int,
                             pool_frames: int, sigma: float, preprocess=None,
                             pool_dtype=None, qc: Optional[QCCode] = None,
+                            dense: Optional[DenseGraph] = None,
                             device="cuda"):
     """Pool rows ``[F, N]`` of frames base … base+F−1 with ``unc`` and
     ``sat0``, as :func:`.stream.build_channel_pool` (kernel B2 keyed by
@@ -146,13 +165,15 @@ def build_channel_pool_gdbf(code: Code, seed: int, base: int,
     if pool_dtype is not None:
         rows = rows.to(pool_dtype)
     d0 = _r_of(rows.float().t())  # [N, F]
-    syn = syndrome_bipolar(_graph(code, qc, d0.device), d0)
+    syndrome, _ = _graph_ops(code, qc, dense, d0.device)
+    syn = syndrome(d0)
     return rows, unc, (syn > 0).all(dim=0)
 
 
 def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
-                          qc: Optional[QCCode] = None, record: bool = False,
-                          rec_cap: int = 0, mesh=None):
+                          qc: Optional[QCCode] = None,
+                          dense: Optional[DenseGraph] = None,
+                          record: bool = False, rec_cap: int = 0, mesh=None):
     """The persistent-state call of the GDBF family.
 
     ``call(state, pool, pool_unc, pool_sat0, base, seed, sigma, cfg,
@@ -161,7 +182,8 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
     seed of the channel, on the decoder streams of
     :func:`..kernels.channel.noise_stream` — and ``sigma``/``cfg`` given
     per call.  ``qc``: the QC structure of the same code (row-gather graph
-    operations), else the slot arrays'.
+    operations); else ``dense``, its :class:`..decoders.dense_ops.DenseGraph`
+    (matrix products); else the slot arrays' row gathers.
 
     acc adds the family's counters: ``smooth_sum`` (the reference's
     smoothingUsed) and ``phase_hist`` [max_phases + 1] (attempted phases
@@ -174,6 +196,7 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
     K = refill_every
     f32 = torch.float32
     vn_deg = {}  # the code's VN degrees on each device, copied once
+    dense_on = graphs_by_device(dense, code)  # H on each slot's device
 
     def derived(sigma, cfg, device):
         """The call's constants: (cfg, T, total_steps, ns, noise_sigma, w,
@@ -206,7 +229,7 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
             d = torch.where(st["done"], d, d_sm)
         return d
 
-    def iterate(st, graph, seed, C):
+    def iterate(st, ops, seed, C):
         (cfg, T, total_steps, ns, noise_sigma, w, theta0, lam, mu0,
          c_uniform) = C
         d, thetas, mu = st["d"], st["thetas"], st["mu"]
@@ -229,7 +252,8 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
             smooth_used = smooth_used + (is_ps & (phase > 0)).to(torch.int32)
 
         # the syndrome check at the start of the iteration
-        syn = syndrome_bipolar(graph, d)
+        syndrome, syn_sum_vn = ops
+        syn = syndrome(d)
         satisfied = (syn > 0).all(dim=0)
         newly = act & satisfied
         its = torch.where(newly, steps, its)
@@ -245,7 +269,7 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
             syn_sum = syn.sum(dim=0).to(f32)
             f1 = (d.to(f32) * y_t).sum(dim=0) + syn_sum
 
-        e = d.to(f32) * y_t + w * syndrome_sum_per_vn(graph, syn.to(f32))
+        e = d.to(f32) * y_t + w * syn_sum_vn(syn.to(f32))
         out = {}
         if cfg.add_noise:
             if cfg.uniform_noise:
@@ -345,7 +369,7 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
     def call(state, pool, pool_unc, pool_sat0, base, seed, sigma, cfg,
              ptr0=0):
         device = pool.device
-        graph = _graph(code, qc, device)
+        ops = _graph_ops(code, qc, dense_on(device), device)
         C = derived(sigma, cfg, device)
         total_steps = C[2]
         drain = ptr0 >= pool.shape[0]
@@ -375,7 +399,7 @@ def make_gdbf_stream_call(code: Code, rounds: int, refill_every: int = 1,
             st, ptr, rc = boundary(st, ptr, acc, rec, rc, pool, pool_unc,
                                    pool_sat0, base, C)
             for _ in range(K):
-                st = iterate(st, graph, seed, C)
+                st = iterate(st, ops, seed, C)
         acc["consumed"] = ptr - ptr0
         if record:
             acc["rc"] = rc
@@ -402,6 +426,7 @@ def simulate_stream_gdbf(
     pool_dtype=None,
     pool_bytes: Optional[int] = None,
     qc: Optional[QCCode] = None,
+    dense: Optional[DenseGraph] = None,
     verbose: bool = False,
     max_calls: int = 100000,
     device="cuda",
@@ -417,6 +442,8 @@ def simulate_stream_gdbf(
     prefix 0 … total_words−1 and their totals equal ``simulate``'s over
     those frames: the channel rows and the decoder noise are keyed alike.
     ``pool_bytes``: the pool's byte budget (:func:`.stream.pool_policy`).
+    ``qc`` / ``dense``: the graph operations, as
+    :func:`make_gdbf_stream_call` takes them.
     ``device`` defaults to the card; ``device="cpu"`` runs the kernels'
     plain twins.  ``mesh``: stream over the mesh's data slots, as
     :func:`.stream.simulate_stream` does (their devices replace
@@ -437,15 +464,18 @@ def simulate_stream_gdbf(
     iters_per_call = rounds_per_call * refill_every
     total_steps = cfg.max_phases * cfg.num_iterations
 
+    dense_on = graphs_by_device(dense, code)
+
     def pool_of(base, frames, dev):
         return build_channel_pool_gdbf(code, seed, base, frames, sigma,
-                                       preprocess, pool_dtype, qc, dev)
+                                       preprocess, pool_dtype, qc=qc,
+                                       dense=dense_on(dev), device=dev)
 
     nd, pool_frames, state = mesh_setup(
         mesh, lanes, pool_frames, default_pool,
         lambda n_lanes, dev: gdbf_stream_init(code, cfg, n_lanes, pdt, dev))
     call = make_gdbf_stream_call(code, rounds_per_call, refill_every, qc=qc,
-                                 mesh=mesh)
+                                 dense=dense, mesh=mesh)
 
     stats = MCStats(n=code.n)
     stats.iteration_hist = np.zeros(total_steps + 1, np.int64)

@@ -53,8 +53,10 @@ it by the same steps, and after a drain call the slots that stopped early
 (all idle) catch up, over every rank of the mesh.  Each slot draws its
 refilled lanes' rings with B4's per-lane entry, keyed by their own gids.
 
-Left behind: the ``_cached_*`` compile caches and the ``dense=`` graph (a
-TPU workaround).
+``dense=`` takes the graph operations as matrix products
+(:mod:`..decoders.dense_ops`), the batch decoder's ``dense=``: the refilled
+columns' neighbour counts too.  Left behind: the ``_cached_*`` compile
+caches.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ import torch
 from ..channel.awgn import awgn_all_zero, snr_to_sigma
 from ..codes.code import Code
 from ..codes.qc import QCCode
+from ..decoders.dense_ops import DenseGraph, graphs_by_device
 from ..decoders.ngdbf_hw import (
     NGDBFHwConfig,
     _f32,
@@ -143,14 +146,16 @@ def hw_stream_init(code: Code, cfg: NGDBFHwConfig, lanes: int,
 
 def build_channel_pool_hw(code: Code, seed: int, base: int, pool_frames: int,
                           sigma: float, qc: Optional[QCCode] = None,
+                          dense: Optional[DenseGraph] = None,
                           device="cuda"):
     """Pool rows ``[F, N]`` f32 of frames base … base+F−1 (kernel B2 keyed by
     (seed, frame): the rows ``simulate`` gives them; the decoder clips and
     quantizes), ``unc [F]`` int32 (the channel decisions' errors against
     the all-zero word) and ``sat0 [F]`` bool (their syndrome: such a frame
     retires at injection with 0 iterations).  The rings are drawn at
-    refill."""
-    syndrome01, _ = hw_graph_ops(code, qc)
+    refill.  ``qc`` / ``dense``: the graph operations, as
+    :func:`..decoders.ngdbf_hw.hw_graph_ops` takes them."""
+    syndrome01, _ = hw_graph_ops(code, qc, dense)
     y = awgn_all_zero(seed, base, pool_frames, code.n, sigma, device)
     d0 = y <= 0
     unc = d0.sum(dim=1).to(torch.int32)
@@ -169,6 +174,7 @@ def default_refill_cap(lanes: int, refill_every: int,
 
 def make_hw_stream_call(code: Code, cfg: NGDBFHwConfig, rounds: int,
                         refill_every: int = 1, qc: Optional[QCCode] = None,
+                        dense: Optional[DenseGraph] = None,
                         record: bool = False, rec_cap: int = 0,
                         refill_cap: Optional[int] = None, mesh=None):
     """The persistent-state call.
@@ -181,6 +187,8 @@ def make_hw_stream_call(code: Code, cfg: NGDBFHwConfig, rounds: int,
     per round).  The call writes the refilled columns of its state's lane
     planes in place.
 
+    ``qc`` / ``dense``: the graph operations, as
+    :func:`..decoders.ngdbf_hw.hw_graph_ops` takes them.
     ``refill_cap``: the most lanes a boundary refills (default: every
     lane); the rings are drawn and quantized for that many columns.  acc:
     int64 counters (frames, bit_errs = least errors, word_errs, iter_sum =
@@ -196,10 +204,12 @@ def make_hw_stream_call(code: Code, cfg: NGDBFHwConfig, rounds: int,
     there); the slots' ring counters end every call equal.
     """
     if mesh is not None:
+        dense_on = graphs_by_device(dense, code)
         inner = shard_call(
             lambda device: make_hw_stream_call(
                 code.to(device), cfg, rounds, refill_every, qc=qc,
-                record=record, rec_cap=rec_cap, refill_cap=refill_cap),
+                dense=dense_on(device), record=record, rec_cap=rec_cap,
+                refill_cap=refill_cap),
             mesh)
 
         def sharded(state, pool, *args):
@@ -221,7 +231,7 @@ def make_hw_stream_call(code: Code, cfg: NGDBFHwConfig, rounds: int,
     if ring_mod <= 0:
         raise ValueError("ring_len must exceed code length")
     edt = _metric_dtype(code, cfg)
-    syndrome01, satsum = hw_graph_ops(code, qc)
+    syndrome01, satsum = hw_graph_ops(code, qc, dense)
 
     def derive(rows_t):
         """Raw [N, C] samples -> (yint, d_init, ssum_init), the batch
@@ -401,6 +411,7 @@ def simulate_stream_ngdbfhw(
     seed: int = 0,
     pool_bytes: Optional[int] = None,
     qc: Optional[QCCode] = None,
+    dense: Optional[DenseGraph] = None,
     verbose: bool = False,
     max_calls: int = 100000,
     device="cuda",
@@ -437,6 +448,7 @@ def simulate_stream_ngdbfhw(
         rounds_per_call = 32
     T = cfg.num_iterations
     codes = {}
+    dense_on = graphs_by_device(dense, code)
 
     def code_on(dev):
         if dev not in codes:
@@ -445,13 +457,13 @@ def simulate_stream_ngdbfhw(
 
     def pool_of(base, frames, dev):
         return build_channel_pool_hw(code_on(dev), seed, base, frames, sigma,
-                                     qc, dev)
+                                     qc, dense_on(dev), dev)
 
     nd, pool_frames, state = mesh_setup(
         mesh, lanes, pool_frames, default_pool,
         lambda n_lanes, dev: hw_stream_init(code_on(dev), cfg, n_lanes, dev))
     call = make_hw_stream_call(
-        code, cfg, rounds_per_call, refill_every, qc=qc,
+        code, cfg, rounds_per_call, refill_every, qc=qc, dense=dense,
         refill_cap=default_refill_cap(lanes // nd, refill_every,
                                       avg_iters_hint),
         mesh=mesh)

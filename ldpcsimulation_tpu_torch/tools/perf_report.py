@@ -12,14 +12,18 @@ report the pooled rate over the measured calls, as the JAX tool does.
 
 Rows on the C reference's real parity-check matrices (the 802.3an H, the
 GF(4)/GF(8) codes) run only with ``--reference`` pointing at a checkout
-that holds them.  Left behind with their decoders: the JAX tool's dense-MXU
-and stratified rows (TPU workarounds).
+that holds them.  The NGDBFhw rows on codes without QC structure take the
+dense graph operations (``decoders/dense_ops.py``) where the sweep does,
+beside the gather baseline.  Left behind with their decoders: the JAX
+tool's stratified rows.
 
 Byte models are the JAX tool's (the least traffic each algorithm must
 move per frame and iteration); GB/s is that model over the measured time
 and the share is against the H100's 3.35 TB/s.  Early-terminating batched
 rows charge the iteration cap, so their bandwidth is an upper bound (≤);
-stream rows charge the measured average iterations.
+stream rows charge the measured average iterations.  Rows with an
+operation model (the dense products) add their TFLOP/s against the f16
+tensor-core peak below the table.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from ..codes.qc import qc_peg
 from ..decoders.base import NoiseKey
 from ..decoders.bp_qc import decode_bp_qc
 from ..decoders.ddbmp import decode_ddbmp, decode_ddbmp_qc
+from ..decoders.dense_ops import DenseGraph
 from ..decoders.gdbf import decode_gdbf, preset
 from ..decoders.minsum import decode_minsum
 from ..decoders.minsum_layered import decode_minsum_layered_qc
@@ -80,11 +85,13 @@ from ..harness.stream_ngdbfhw import (
     make_hw_stream_call,
 )
 
-__all__ = ["PEAK_HBM", "Measured", "Row", "msg_bytes", "flip_bytes",
-           "nb_bytes", "rows", "main"]
+__all__ = ["PEAK_HBM", "PEAK_F16", "Measured", "Row", "msg_bytes",
+           "flip_bytes", "nb_bytes", "dense_hw_models", "rows", "main"]
 
 #: bytes/s, one H100 SXM (HBM3, at its 700 W limit)
 PEAK_HBM = 3.35e12
+#: dense f16 tensor-core FLOP/s, one H100 SXM (at its 700 W limit)
+PEAK_F16 = 989e12
 SEED = 0
 REAL_802_3 = "C_implementations/codes/802_3/802_3_H.alist"
 REAL_GF4 = "SystemC/NB-LDPC/codes/GF4/q4.sp.9000.6000.4500.1"
@@ -110,12 +117,24 @@ def nb_bytes(e, n, q):
     return 4 * e * q * 2 + 2 * e * 4 + 2 * n * q * 4
 
 
+def dense_hw_models(n, m, batch):
+    """Dense NGDBFhw per frame and iteration: (bytes, operations).  Two
+    products with H per iteration (H·d and Hᵀ·s), 2 operations per entry
+    each; the traffic is the 2-byte H twice per iteration over the batch
+    plus the d/y'/E/noise/syndrome vectors."""
+    flops = 2 * 2 * m * n
+    bytes_ = 2 * m * n * 2 / batch + 8 * m + 24 * n
+    return bytes_, flops
+
+
 @dataclasses.dataclass
 class Measured:
     """One row's result.  ``frames`` per call (streams: retired per call,
     the mean of the measured calls); ``seconds`` per call (median; streams
     the mean); ``bytes_per_s`` the byte model over the time (None without
-    a model); ``upper`` when the model charges the iteration cap."""
+    a model); ``upper`` when the model charges the iteration cap;
+    ``flops_per_s`` the operation model over the time (None without one).
+    """
 
     label: str
     frames: int
@@ -124,6 +143,7 @@ class Measured:
     bytes_per_s: Optional[float]
     upper: bool = False
     avg_iters: Optional[float] = None
+    flops_per_s: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,13 +176,19 @@ def _alist_code(path, device):
 
 
 @functools.lru_cache(maxsize=None)
+def _dense(code):
+    """The dense graph of a code, on the code's device (built once)."""
+    return DenseGraph.from_code(code, code.vn_deg.device)
+
+
+@functools.lru_cache(maxsize=None)
 def _nb64(device):
     """The GF(64) row's (96, 48) symbol code."""
     return build_code(nb_regular(96, 48, 3, q=64, seed=2), device)
 
 
 def _batched(label, batch, rounds, n, sigma, k_info, iters, decode,
-             bytes_fi=None, upper=False):
+             bytes_fi=None, upper=False, flops_fi=None):
     """A batched row: a call is ``rounds`` × (B2 channel of ``batch``
     frames, ``decode(y, device, frame0) -> error count``)."""
 
@@ -190,6 +216,7 @@ def _batched(label, batch, rounds, n, sigma, k_info, iters, decode,
         return Measured(
             label, frames, dt, frames * k_info / dt,
             frames * iters * bytes_fi / dt if bytes_fi else None, upper,
+            flops_per_s=frames * iters * flops_fi / dt if flops_fi else None,
         )
 
     return Row(label, batch, measure)
@@ -265,18 +292,19 @@ def _gdbf_stream(code_name, cfg, sigma, K, avg_hint, pool_dtype=None):
     return setup
 
 
-def _hw_stream(get_code, cfg, sigma, K, avg_hint):
+def _hw_stream(get_code, cfg, sigma, K, avg_hint, dense=False):
     def setup(device, lanes, rounds):
         code = get_code(device)
+        dg = _dense(code) if dense else None
         pool_f = lanes + int(lanes * rounds * K / avg_hint)
         state = hw_stream_init(code, cfg, lanes, device)
-        inner = make_hw_stream_call(code, cfg, rounds, K)
+        inner = make_hw_stream_call(code, cfg, rounds, K, dense=dg)
 
         def call(state, pool, unc, sat0, base):
             return inner(state, pool, unc, sat0, base, SEED, sigma)
 
         return state, call, lambda base: build_channel_pool_hw(
-            code, SEED, base, pool_f, sigma, device=device)
+            code, SEED, base, pool_f, sigma, dense=dg, device=device)
 
     return setup
 
@@ -482,6 +510,23 @@ def rows(reference: Optional[str] = None) -> List[Row]:
             _code(hwn, dev), y, sigma_hw, cfg_hw,
             key=NoiseKey(SEED, f0)).least_errors.sum(),
         flip_bytes(12288, 2048, 384), upper=True))
+    hw_bytes, hw_flops = dense_hw_models(2048, 384, 2048)
+    add(_batched(
+        "NGDBFhw T<=200 (2048,1664-class), dense ops (sweep default)", 2048,
+        2, 2048, sigma_hw, 1664, 200,
+        lambda y, dev, f0: decode_ngdbf_hw(
+            _code(hwn, dev), y, sigma_hw, cfg_hw, key=NoiseKey(SEED, f0),
+            dense=_dense(_code(hwn, dev))).least_errors.sum(),
+        hw_bytes, upper=True, flops_fi=hw_flops))
+    if p8023 is not None:  # the real H is 2048 x 384 as well
+        add(_batched(
+            "NGDBFhw T<=200 REAL 802.3an H, dense ops", 2048, 2, 2048,
+            sigma_hw, 1723, 200,
+            lambda y, dev, f0: decode_ngdbf_hw(
+                _alist_code(p8023, dev), y, sigma_hw, cfg_hw,
+                key=NoiseKey(SEED, f0),
+                dense=_dense(_alist_code(p8023, dev))).least_errors.sum(),
+            hw_bytes, upper=True, flops_fi=hw_flops))
     add(_streamed(
         "NGDBFhw T<=200 (2048,1664-class), STREAM refill (K=16)",
         4096, 32, 1664, flip_bytes(12288, 2048, 384),
@@ -492,7 +537,7 @@ def rows(reference: Optional[str] = None) -> List[Row]:
             "NGDBFhw T<=200 REAL 802.3an H, STREAM refill (K=16)",
             4096, 32, 1723, flip_bytes(12288, 2048, 384),
             _hw_stream(lambda dev: _alist_code(p8023, dev), cfg_hw,
-                       sigma_hw, 16, 26.0)))
+                       sigma_hw, 16, 26.0, dense=True)))
 
     # DD-BMP T=50 on a QC (4000,2000)-class code
     dd_qc = qc_peg(40, 20, 4, z=100, seed=2)
@@ -627,6 +672,16 @@ def format_table(results: List[Measured], card: str,
         lines.append(
             f"| {r.label} | {r.frames} | {r.seconds * 1e3:.1f} | "
             f"{r.bits_per_s / 1e6:.1f} | {bw} | {pct} |"
+        )
+    flops = [r for r in results if r.flops_per_s]
+    if flops:
+        lines.append("")
+    for r in flops:
+        pre = "≤" if r.upper else ""
+        lines.append(
+            f"- {r.label}: {pre}{r.flops_per_s / 1e12:.1f} TFLOP/s "
+            f"({pre}{100 * r.flops_per_s / PEAK_F16:.1f}% of the f16 "
+            "tensor-core peak, 989 TFLOP/s)"
         )
     return "\n".join(lines) + "\n"
 

@@ -65,7 +65,10 @@ operating-point grid on the slot mesh of ``parallel/`` (one slot per CUDA
 device of every rank by default, one per rank with ``--device cpu``; under
 torchrun the ranks join one process group, and without torchrun a host
 with several cards starts one rank per card itself): the routes, rows,
-resume keys and refusals of the JAX CLI's ``_run_distributed``.
+resume keys and refusals of the JAX CLI's ``_run_distributed``.  As in
+the JAX CLI, ``gdbf`` and ``ngdbfhw`` on a code without QC structure take
+the dense graph operations (``decoders/dense_ops.py``) on every route
+wherever ``dense_worthwhile`` holds.
 """
 
 from __future__ import annotations
@@ -99,6 +102,11 @@ from ..decoders.bp import decode_bp
 from ..decoders.bp_layered import decode_bp_layered_qc
 from ..decoders.bp_qc import decode_bp_qc
 from ..decoders.ddbmp import decode_ddbmp, decode_ddbmp_qc
+from ..decoders.dense_ops import (
+    DenseGraph,
+    dense_worthwhile,
+    graphs_by_device,
+)
 from ..decoders.gdbf import PRESETS, decode_gdbf, preset
 from ..decoders.minsum import decode_minsum
 from ..decoders.minsum_layered import decode_minsum_layered_qc
@@ -357,14 +365,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         max_frames=args.max_frames,
     )
 
+    # the bit-flip decoders on a code without QC structure take the dense
+    # graph operations where H is small enough (the JAX CLI's rule)
+    dense = None
+    if (qc is None and args.decoder in ("gdbf", "ngdbfhw")
+            and dense_worthwhile(code)):
+        dense = DenseGraph.from_code(code, device)
+
     if args.distributed:
         cards = torch.cuda.device_count() if device.type == "cuda" else 0
         if cards > 1 and "WORLD_SIZE" not in os.environ:
             return spawn_ranks(
                 [sys.executable, "-m", "ldpcsimulation_tpu_torch.tools.sweep",
                  *(sys.argv[1:] if argv is None else argv)], cards)
-        return _run_distributed(args, code, qc, alist_name, snrs, rate, stop,
-                                T, codewords, device)
+        return _run_distributed(args, code, qc, dense, alist_name, snrs,
+                                rate, stop, T, codewords, device)
 
     def run_point(snr, decode_fn, preprocess=None, stop_override=None,
                   carry0=None):
@@ -433,13 +448,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             stats, row = _ddbmp_point(args, code, qc, alist_name, run_point,
                                       run_stream_point, T, point)
         elif args.decoder == "ngdbfhw":
-            stats, row = _ngdbfhw_point(args, code, qc, rate, run_point, T,
-                                        point, device)
+            stats, row = _ngdbfhw_point(args, code, qc, dense, rate,
+                                        run_point, T, point, device)
         elif args.decoder == "nbqspa":
             stats, row = _nbqspa_point(args, code, alist_name, rate, T, snr,
                                        stop, device)
         else:
-            stats, row = _gdbf_point(args, code, qc, alist_name, rate,
+            stats, row = _gdbf_point(args, code, qc, dense, alist_name, rate,
                                      run_point, T, point, stop, device)
         append_row(args.log, row)
         _mark_done(args.log, gkey)
@@ -594,7 +609,7 @@ def _ddbmp_point(args, code, qc, alist_name, run_point, run_stream_point, T,
     return stats, minsum_log_row(snr, stats, T, alist_name, ymax=ym)
 
 
-def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point,
+def _gdbf_point(args, code, qc, dense, alist_name, rate, run_point, T, point,
                 stop, device):
     """One grid point of the GDBF route: the JAX CLI's defaults (theta
     −0.9, quantizer Ymax 2.25 when only --nq is given), preprocessing
@@ -633,14 +648,14 @@ def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point,
             # a boundary costs a syndrome and a refill pass: at the
             # family's large caps a coarse cadence pays
             refill_every=8 if T >= 64 else 2, seed=args.seed,
-            preprocess=pre, qc=qc, pool_bytes=args.pool_bytes,
+            preprocess=pre, qc=qc, dense=dense, pool_bytes=args.pool_bytes,
             verbose=args.verbose, device=device,
         )
     else:
         stats = run_point(
             snr,
             lambda yq, key: decode_gdbf(code, yq, sigma, cfg, key=key,
-                                        qc=qc),
+                                        qc=qc, dense=dense),
             preprocess=pre,
         )
     row = gdbf_log_row(
@@ -659,7 +674,8 @@ def _gdbf_point(args, code, qc, alist_name, rate, run_point, T, point,
     return stats, row
 
 
-def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
+def _ngdbfhw_point(args, code, qc, dense, rate, run_point, T, point,
+                   device):
     """One grid point of the NGDBFhw route: ``--frames`` frames, the
     802.3an defaults where a flag is absent, ``ring_len = max(2648, n +
     600)``, the ring pointer carried across frames with
@@ -682,11 +698,11 @@ def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
         stats = simulate_stream_ngdbfhw(
             code, cfg, snr, rate=rate, stop=frames, lanes=args.batch,
             pool_bytes=args.pool_bytes, refill_every=16, seed=args.seed,
-            qc=qc, verbose=args.verbose, device=device)
+            qc=qc, dense=dense, verbose=args.verbose, device=device)
     elif args.persistent_qpointer:
         def dec(y, key, carry):
             res = decode_ngdbf_hw(code, y, sigma, cfg, key=key, qc=qc,
-                                  qpointer0=carry)
+                                  dense=dense, qpointer0=carry)
             return res, res.qpointer
 
         stats = run_point(snr, dec, stop_override=frames,
@@ -697,7 +713,7 @@ def _ngdbfhw_point(args, code, qc, rate, run_point, T, point, device):
         stats = run_point(
             snr,
             lambda y, key: decode_ngdbf_hw(code, y, sigma, cfg, key=key,
-                                           qc=qc),
+                                           qc=qc, dense=dense),
             stop_override=frames,
         )
     row = ngdbfhw_log_row(
@@ -740,8 +756,8 @@ def _nbqspa_point(args, code, alist_name, rate, T, snr, stop, device):
     return stats, f"{row}\t{alist_name}"
 
 
-def _run_distributed(args, code, qc, alist_name, snrs, rate, stop, T,
-                     codewords, device):
+def _run_distributed(args, code, qc, dense, alist_name, snrs, rate, stop,
+                     T, codewords, device):
     """``--distributed``: the full operating-point grid on the slot mesh.
 
     Every slot of the default mesh is an operating-point slot;
@@ -752,7 +768,8 @@ def _run_distributed(args, code, qc, alist_name, snrs, rate, stop, T,
     CLI's: flooding BP and min-sum on the slot-array decoders, the layered
     ones on QC codes; ``gdbf`` (no --nq axis) and ``ngdbfhw`` (a fixed
     ``--frames`` count, no pointer carry, its itdist files) on the row
-    gathers; ``nbqspa`` on an SNR-only grid that divides the slot count.
+    gathers, or the dense products where :func:`main` built ``dense``;
+    ``nbqspa`` on an SNR-only grid that divides the slot count.
     The default mesh is one slot per CUDA device of every rank, or, with
     ``--device cpu``, one per rank; under torchrun (``WORLD_SIZE`` set)
     the ranks join one process group first, and rank 0 writes the log
@@ -788,15 +805,15 @@ def _run_distributed(args, code, qc, alist_name, snrs, rate, stop, T,
     if joined:
         init_distributed(devices=[device] if device.type == "cpu" else None)
     try:
-        return _run_grid(args, code, qc, alist_name, snrs, rate, stop, T,
-                         codewords, device, grid)
+        return _run_grid(args, code, qc, dense, alist_name, snrs, rate,
+                         stop, T, codewords, device, grid)
     finally:
         if joined:
             dist.destroy_process_group()
 
 
-def _run_grid(args, code, qc, alist_name, snrs, rate, stop, T, codewords,
-              device, grid):
+def _run_grid(args, code, qc, dense, alist_name, snrs, rate, stop, T,
+              codewords, device, grid):
     """The routes of ``--distributed`` over the points of ``grid``; rank 0
     writes the rows."""
     cpu = device.type == "cpu"
@@ -815,6 +832,8 @@ def _run_grid(args, code, qc, alist_name, snrs, rate, stop, T, codewords,
         if y.device not in codes:
             codes[y.device] = code.to(y.device)
         return codes[y.device]
+
+    dense_on = graphs_by_device(dense, code)  # H on each slot's device
 
     if args.decoder == "nbqspa":
         # the NB path: an SNR-only grid through its own driver
@@ -947,7 +966,8 @@ def _run_grid(args, code, qc, alist_name, snrs, rate, stop, T, codewords,
                 noise_scale=point["noise_scale"], lam=point["lam"],
                 alpha=point["alpha"],
             )
-            return decode_gdbf(code_at(y), y, sigma, cfg, key=key, qc=qc)
+            return decode_gdbf(code_at(y), y, sigma, cfg, key=key, qc=qc,
+                               dense=dense_on(y.device))
 
         defaults = dict(theta=-0.9, noise_scale=base_cfg.noise_scale,
                         lam=base_cfg.lam, alpha=base_cfg.alpha, ymax=None)
@@ -1004,7 +1024,7 @@ def _run_grid(args, code, qc, alist_name, snrs, rate, stop, T, codewords,
                 noise_scale=point["noise_scale"], theta0=point["theta0"],
             )
             return decode_ngdbf_hw(code_at(y), y, sigma, cfg, key=key,
-                                   qc=qc)
+                                   qc=qc, dense=dense_on(y.device))
 
         defaults = dict(w=0.185, ymax=1.625, noise_scale=0.95,
                         theta0=-0.525)

@@ -70,12 +70,13 @@ FAMILIES = {
 }
 
 
-def _stream_frames(cfg, pools, lanes, rounds, refill_every, qc, dtype):
+def _stream_frames(cfg, pools, lanes, rounds, refill_every, qc, dtype,
+                   dense=None):
     """{gid: record} of a recorded stream over [(base, rows, unc, sat0)],
     with the counters checked against the records."""
     state = sg.gdbf_stream_init(CODE, cfg, lanes, dtype, device="cpu")
     call = sg.make_gdbf_stream_call(
-        CODE, rounds, refill_every, qc=qc, record=True,
+        CODE, rounds, refill_every, qc=qc, dense=dense, record=True,
         rec_cap=max(len(p[1]) for p in pools) + lanes)
     per = {}
     total_steps = cfg.max_phases * cfg.num_iterations

@@ -48,14 +48,15 @@ SMALL = dict(num_iterations=16, w=0.25, ymax=1.5, noise_scale=0.9,
 FIELDS = ("iters", "errs", "sat", "hard")
 
 
-def _drive(code, qc, cfg, pools, lanes, rounds, k, cap=None):
+def _drive(code, qc, cfg, pools, lanes, rounds, k, cap=None, dense=None):
     """Records of a recorded stream over pools of the given frame counts,
     each at the gid its predecessors consumed up to, drained at the end, as
     {gid: {field: value}}; the counters checked against them."""
     rec_cap = sum(pools) + lanes
     state = sh.hw_stream_init(code, cfg, lanes, "cpu", record=True)
-    call = sh.make_hw_stream_call(code, cfg, rounds, k, qc=qc, record=True,
-                                  rec_cap=rec_cap, refill_cap=cap)
+    call = sh.make_hw_stream_call(code, cfg, rounds, k, qc=qc, dense=dense,
+                                  record=True, rec_cap=rec_cap,
+                                  refill_cap=cap)
     per = {}
 
     def take(acc, rec):
@@ -76,7 +77,7 @@ def _drive(code, qc, cfg, pools, lanes, rounds, k, cap=None):
     pool, base = None, 0
     for frames in pools:
         pool = sh.build_channel_pool_hw(code, SEED, base, frames, SIGMA, qc,
-                                        device="cpu")
+                                        dense, device="cpu")
         state, acc, rec = call(state, *pool, base, SEED, SIGMA)
         base += take(acc, rec)["consumed"]
     for _ in range(40):  # drain
