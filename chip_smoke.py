@@ -269,7 +269,21 @@ the exit code is non-zero):
  41. the public surface: the ``examples/compare_decoders_torch.py`` rows
      (4096 frames each at 2.5 dB) equal to ``simulate`` with the same
      arguments; ``native.parse_alist_native`` equal to the Python parser on
-     highrate_2048_384's alist, a GF(8) alist and the packaged one.
+     highrate_2048_384's alist, a GF(8) alist and the packaged one;
+ 42. the stratified family on the 802.3an geometry (the script's own
+     generator: 2048 columns, 6 strata of 64 rows, dv 6, dc 32, not QC):
+     the structure (6 x 64 strata, 60 groups of up to 47 columns); min-sum
+     (plain, normalized 1.3, offset 0.15; f16, early termination) and
+     DD-BMP card vs CPU and card stratified vs card slot-array under
+     ``torch.equal``, BP by tolerance (one step) and frame agreement, over
+     256 frames; both stratified streams at 64 lanes, every frame equal to
+     the batch decode; the sweep's stratified routes (minsum,
+     offsetminsum, normalizedminsum, bp, ddbmp, minsum and bp --stream),
+     one row each; B1's refusal of more than 64 column groups; min-sum
+     T=10 f16 at B=32768, 4.25 dB (counts from 0: B1 launched T times),
+     decisions equal to ``decode_minsum``'s, ms per iteration in turns
+     with it, peak memory; B1 at the stratified table's instance against
+     its twin and its bounds.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -4983,6 +4997,531 @@ def phase_surface(device):
                 parse=parse)
 
 
+# The stratified family [42] (codes/stratified.py): the sweep's BP route for
+# an --alist file whose H stratifies, on the 802.3an geometry, against the
+# slot arrays; min-sum and DD-BMP on it against the slot arrays the sweep
+# keeps for them.
+STRAT_GEOMETRY = dict(n=2048, h=64, mb=6, p_edge=1.0, seed=0)
+STRAT_SNR_DB = 4.25
+
+
+def stratified_alist(n, h, mb, p_edge, seed):
+    """A non-QC alist with dense row strata: each of ``mb`` strata of ``h``
+    rows deals a shuffled round-robin of the columns to its rows, keeping
+    each (column, stratum) edge with probability ``p_edge`` (the JAX test
+    suite's generator, ``tests/test_stratified.py``).  With p_edge = 1 and
+    (2048, 64, 6): the 802.3an geometry, 384 rows, dv 6, dc 32."""
+    from ldpcsimulation_tpu_torch.codes import Alist
+
+    rng = np.random.default_rng(seed)
+    m = h * mb
+    nlist = [[] for _ in range(n)]
+    mlist = [[] for _ in range(m)]
+    for b in range(mb):
+        perm = rng.permutation(n)
+        for i, c in enumerate(perm):
+            last_chance = not nlist[c] and b == mb - 1
+            if rng.random() < p_edge or last_chance:
+                r = b * h + (i % h)
+                nlist[c].append(r)
+                mlist[r].append(c)
+    for c in range(n):
+        nlist[c].sort()
+    for r in range(m):
+        mlist[r].sort()
+    return Alist(n=n, m=m, nlist=nlist, mlist=mlist)
+
+
+def stratified_card_vs_cpu(sc, code, device, sigma, rate, frames=256):
+    """Min-sum (three variants, f16, early termination) and DD-BMP on the
+    card against the CPU plain path and against the card's slot-array
+    decoders under ``torch.equal``; BP by tolerance (one step) and frame
+    agreement.  Returns B1's launches per min-sum variant."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        quantize_no_zero,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_bp,
+        decode_bp_stratified,
+        decode_ddbmp,
+        decode_ddbmp_stratified,
+        decode_minsum,
+        decode_minsum_stratified,
+        stratified_bp_step,
+    )
+    from ldpcsimulation_tpu_torch.decoders.minsum_stratified import (
+        stratified_grid,
+        stratified_init,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    def equal_on_card(res, other, what):
+        for f in ("hard", "iterations", "satisfied"):
+            check(torch.equal(getattr(res, f), getattr(other, f)),
+                  f"{what} {f}: stratified != slot-array")
+
+    f16 = torch.float16
+    y = awgn_all_zero(SEED, 42 * frames, frames, code.n, sigma, device)
+    yc = y.cpu()
+    counted = {}
+    for label, kw in (("plain", {}),
+                      ("normalized", dict(variant="normalized", alpha=1.3)),
+                      ("offset", dict(variant="offset", delta=0.15))):
+        kw = dict(kw, storage_dtype=f16, early_termination=True)
+        build.LAUNCHES.clear()
+        res = decode_minsum_stratified(sc, y, T, **kw)
+        counted[label] = build.LAUNCHES.get("minsum_cn_scan", 0)
+        equal_results(res, decode_minsum_stratified(sc, yc, T, **kw),
+                      f"stratified min-sum {label}")
+        equal_on_card(res, decode_minsum(code, y, T, **kw),
+                      f"min-sum {label}")
+        check(counted[label] >= 1, f"B1 not launched ({label})")
+        print(f"  min-sum {label} f16 T={T} ET, {frames} frames: card == CPU"
+              f" == card slot-array; satisfied "
+              f"{float(res.satisfied.float().mean()):.4f}, B1 launches "
+              f"{counted[label]}")
+    # DD-BMP at 5.5 dB, where about half of the frames converge
+    yq = quantize_no_zero(awgn_all_zero(
+        SEED, 43 * frames, frames, code.n, snr_to_sigma(5.5, rate), device),
+        1.5, 8.0)
+    res = decode_ddbmp_stratified(sc, yq, 20)
+    equal_results(res, decode_ddbmp_stratified(sc, yq.cpu(), 20),
+                  "stratified DD-BMP")
+    equal_on_card(res, decode_ddbmp(code, yq, 20), "DD-BMP")
+    print(f"  DD-BMP 5.5 dB T=20: card == CPU == card slot-array; "
+          f"satisfied {float(res.satisfied.float().mean()):.4f}")
+    llr = llr_from_channel(y, snr_to_n0(STRAT_SNR_DB, rate))
+    yg = stratified_grid(sc, llr.t().contiguous())
+    step = stratified_bp_step(sc, storage_dtype=f16)
+    v2c = stratified_init(sc, yg, f16)
+    for _ in range(2):
+        v2c, _ = step(v2c, yg)
+    (v_d, t_d), (v_c, t_c) = step(v2c, yg), step(v2c.cpu(), yg.cpu())
+    worst = float(((t_d.cpu() - t_c).abs() - BP_RTOL * t_c.abs()).max())
+    check(worst <= BP_ATOL, f"stratified BP step total: card off by {worst}")
+    kw = dict(early_termination=True, storage_dtype=f16)
+    res = decode_bp_stratified(sc, llr, T, **kw)
+    agree = {}
+    for other, ref in (("CPU", decode_bp_stratified(sc, llr.cpu(), T, **kw)),
+                       ("card slot-array", decode_bp(code, llr, T, **kw))):
+        same = float(((res.hard.cpu() == ref.hard.cpu()).all(dim=1)
+                      & (res.iterations.cpu() == ref.iterations.cpu()))
+                     .float().mean())
+        agree[other] = same
+        check(same >= BP_FRAME_AGREEMENT,
+              f"stratified BP vs {other}: {same} of the frames agree")
+    print(f"  BP f16 T={T} ET: one step's totals within {BP_ATOL} + "
+          f"{BP_RTOL}|cpu| of the CPU's; frames equal to the CPU's "
+          f"{agree['CPU']:.4f}, to the card slot-array's "
+          f"{agree['card slot-array']:.4f}")
+    return counted, agree
+
+
+def stratified_stream_full(label, dec, pre, batch_dec, sc, sigma, device):
+    """One stratified stream at full width: BATCH lanes over a window of
+    2·BATCH pool rows, recorded, then drained.  Its launches are read in a
+    window of their own (counts from 0 just before its first call, read
+    just after its last); every retired frame equals the card's batch
+    decode of its pool row, in BATCH-frame chunks."""
+    from ldpcsimulation_tpu_torch.harness import stream
+    from ldpcsimulation_tpu_torch.harness.stream import _all_idle, fetch
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    window = 2 * BATCH
+    rows, unc, sat0 = stream.build_channel_pool(
+        dec, SEED, 0, window, sc.n, sigma, pre, device=device)
+    call = stream.make_stream_call(dec, sc.n, T, T, 2, record=True,
+                                   rec_cap=window)
+    state = stream.stream_init(dec, BATCH, sc.n, device=device)
+    recs, ptr, calls = [], 0, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    while calls < 20:
+        state, acc, rec = call(state, rows, unc, sat0, 0, ptr)
+        calls += 1
+        a = fetch(acc)
+        recs.append({k: v[:a["rc"]] for k, v in rec.items()})
+        ptr += a["consumed"]
+        if ptr >= window and _all_idle(state):
+            break
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    got = {k: torch.cat([r[k] for r in recs]) for k in recs[0]}
+    g = got["gid"]
+    check(g.numel() == window and torch.unique(g).numel() == window,
+          f"{label}: {g.numel()} frames retired of {window}")
+    for f0 in range(0, window, BATCH):
+        res = batch_dec(rows[f0:f0 + BATCH])
+        at = ((g >= f0) & (g < f0 + BATCH)).nonzero()[:, 0]
+        gl = g[at] - f0
+        check(torch.equal(got["iters"][at],
+                          res.iterations[gl].to(torch.int32))
+              and torch.equal(got["hard"][at], res.hard[gl].to(torch.int8)),
+              f"{label}: frames {f0}+ != their batch decode")
+        del res
+    avg = float(got["iters"].float().mean())
+    print(f"  {label} f16 T={T} K=2, {BATCH} lanes: {window} frames in "
+          f"{calls} calls (drain included), {secs:.4f} s "
+          f"({window / secs:.6g} frames/s), avg iterations {avg:.4f}; every "
+          f"frame equal to the card's batch decode ({BATCH}-frame chunks); "
+          f"peak {peak:.2f} GiB; launches {launches}")
+    return dict(frames=window, calls=calls, seconds=secs,
+                frames_per_s=window / secs, avg_iterations=avg,
+                peak_gib=peak, launches=launches)
+
+
+def stratified_streams(sc, device, sigma, rate):
+    """Both stratified streams at full width, each against its batch
+    decoder on the card."""
+    from ldpcsimulation_tpu_torch.channel import llr_from_channel, snr_to_n0
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_bp_stratified,
+        decode_minsum_stratified,
+    )
+    from ldpcsimulation_tpu_torch.harness import stream
+
+    f16 = torch.float16
+    n0 = snr_to_n0(STRAT_SNR_DB, rate)
+    out = {
+        "minsum_stratified_stream": stratified_stream_full(
+            "minsum_stratified_stream", stream.minsum_stratified_stream(
+                sc, storage_dtype=f16), None,
+            lambda rows: decode_minsum_stratified(
+                sc, rows, T, early_termination=True, storage_dtype=f16),
+            sc, sigma, device),
+        "bp_stratified_stream": stratified_stream_full(
+            "bp_stratified_stream", stream.bp_stratified_stream(
+                sc, storage_dtype=f16), lambda y: llr_from_channel(y, n0),
+            lambda rows: decode_bp_stratified(
+                sc, rows, T, early_termination=True, storage_dtype=f16),
+            sc, sigma, device),
+    }
+    check(out["minsum_stratified_stream"]["launches"].get(
+        "minsum_cn_scan", 0) > 0, "B1 not launched by the min-sum stream")
+    return out
+
+
+def stratified_bp_ddbmp_full(sc, code, device, rate, timer):
+    """``decode_bp_stratified`` (f16, T=10, 4.25 dB) and
+    ``decode_ddbmp_stratified`` (T=20, 5.5 dB) at B=BATCH against
+    ``decode_bp`` (frame agreement) and ``decode_ddbmp`` (``torch.equal``)
+    on the same inputs: peak memory and time of both, in turns."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        quantize_no_zero,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_bp,
+        decode_bp_stratified,
+        decode_ddbmp,
+        decode_ddbmp_stratified,
+    )
+
+    f16 = torch.float16
+    llr = llr_from_channel(awgn_all_zero(
+        SEED, 0, BATCH, code.n, snr_to_sigma(STRAT_SNR_DB, rate), device),
+        snr_to_n0(STRAT_SNR_DB, rate))
+    yq = quantize_no_zero(awgn_all_zero(
+        SEED, BATCH, BATCH, code.n, snr_to_sigma(5.5, rate), device),
+        1.5, 8.0)
+    routes = {
+        "bp": (lambda: decode_bp_stratified(sc, llr, T, storage_dtype=f16),
+               lambda: decode_bp(code, llr, T, storage_dtype=f16), T),
+        "ddbmp": (lambda: decode_ddbmp_stratified(sc, yq, 20),
+                  lambda: decode_ddbmp(code, yq, 20), 20),
+    }
+    out = {}
+    for name, (strat, slot, t_max) in routes.items():
+        peaks, res = {}, {}
+        for route, fn in (("stratified", strat), ("slot-array", slot)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            res[route] = fn()
+            torch.cuda.synchronize()
+            peaks[route] = torch.cuda.max_memory_allocated(device) / 2**30
+        a, b = res["stratified"], res["slot-array"]
+        if name == "bp":
+            agree = float(((a.hard == b.hard).all(dim=1)
+                           & (a.iterations == b.iterations)).float().mean())
+            check(agree >= BP_FRAME_AGREEMENT,
+                  f"stratified BP at B={BATCH}: {agree} of the frames agree")
+            what = f"frames equal to decode_bp's {agree:.6f}"
+        else:
+            agree = None
+            for f in ("hard", "iterations", "satisfied"):
+                check(torch.equal(getattr(a, f), getattr(b, f)),
+                      f"stratified DD-BMP at B={BATCH} {f} != decode_ddbmp")
+            what = "equal to decode_ddbmp (torch.equal)"
+        rounds = int(a.iterations.max())
+        sat = float(a.satisfied.float().mean())
+        del res, a, b
+        times = {"stratified": [], "slot-array": []}
+        for route in ("stratified", "slot-array", "slot-array",
+                      "stratified"):
+            times[route].append(timer(
+                strat if route == "stratified" else slot, 2))
+        print(f"  decode_{name}_stratified B={BATCH} T={t_max}: {what}; "
+              f"satisfied {sat:.4f}, up to {rounds} iterations; "
+              f"{', '.join(f'{t:.4f}' for t in times['stratified'])} ms per "
+              f"decode against decode_{name}'s "
+              f"{', '.join(f'{t:.4f}' for t in times['slot-array'])} (runs "
+              f"in turns); peak {peaks['stratified']:.2f} GiB against "
+              f"{peaks['slot-array']:.2f}")
+        out[name] = dict(agreement=agree, satisfied=sat, t_max=t_max,
+                         max_iterations=rounds, ms=times["stratified"],
+                         slot_array_ms=times["slot-array"],
+                         peak_gib=peaks["stratified"],
+                         slot_array_peak_gib=peaks["slot-array"])
+    return out
+
+
+def stratified_sweeps(alist, wide, device, batch=8192):
+    """The sweep on a stratifiable --alist file: one row each.  ``bp``
+    takes the stratified decoder (the detection line on stderr); min-sum
+    and DD-BMP keep the slot arrays (no line; B1 launched by min-sum),
+    also on ``wide``, whose structure has more column groups than B1
+    takes."""
+    from ldpcsimulation_tpu_torch.codes import save_alist
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
+
+    line = "sweep: detected stratified structure ("
+    common = ["--snr", str(STRAT_SNR_DB), "-T", str(T), "--batch",
+              str(batch), "--max-frames", str(batch), "--msg-dtype", "f16",
+              "--device", str(device)]
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        path, wide_path = f"{tmp}/strat_2048.alist", f"{tmp}/wide_800.alist"
+        save_alist(alist, path)
+        save_alist(wide, wide_path)
+        for args, on, groups in (
+                (["minsum"], path, None),
+                (["offsetminsum", "--delta", "0.15"], path, None),
+                (["normalizedminsum", "--alpha", "1.3"], path, None),
+                (["bp"], path, "6x64 strata, 60 column groups"),
+                (["ddbmp"], path, None),
+                (["minsum", "--stream", "--early-termination"], path, None),
+                (["bp", "--stream", "--early-termination"], path,
+                 "6x64 strata, 60 column groups"),
+                (["minsum"], wide_path, None),
+                (["bp"], wide_path, "3x16 strata, 66 column groups")):
+            log_path = f"{tmp}/s.log"
+            err = io.StringIO()
+            build.LAUNCHES.clear()
+            with contextlib.redirect_stderr(err):
+                rc = sweep_main(args + ["--alist", on, "--log", log_path]
+                                + common)
+            launched = dict(build.LAUNCHES)
+            with open(log_path) as f:
+                row = f.read().splitlines()
+            os.remove(log_path)
+            os.remove(log_path + ".done")
+            key = " ".join(args) + (" (66 groups)" if on == wide_path
+                                    else "")
+            said = err.getvalue()
+            check(rc == 0 and len(row) == 1
+                  and (line in said) == (groups is not None)
+                  and (groups is None or f"({groups})" in said),
+                  f"sweep {key}: rc {rc}, rows {row}, {said!r}")
+            if "minsum" in args[0]:
+                check(launched.get("minsum_cn_scan", 0) > 0,
+                      f"sweep {key}: B1 not launched")
+            out[key] = dict(row=row[0], launches=launched)
+            print(f"  sweep {key}: {'stratified' if groups else 'slot-array'}"
+                  f" route; {row[0]}; launches {launched}")
+    return out
+
+
+def phase_stratified(device, lib_path, timer):
+    """[42] The stratified family on the 802.3an geometry: the structure,
+    card against CPU and against the slot arrays, both streams at full
+    width, the sweep's routes (BP stratified; min-sum and DD-BMP on the
+    slot arrays, also past B1's 64 groups), stratified BP and DD-BMP at
+    B=32768 against the slot-array decoders, then min-sum T=10 f16 at
+    B=32768 against ``decode_minsum`` on the same code and B1 at its new
+    instance against its bounds."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero, snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import (
+        build_code,
+        detect_qc,
+        detect_stratified,
+        stratify,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_minsum,
+        decode_minsum_stratified,
+        minsum_plan,
+        minsum_step,
+        stratified_check_satisfied,
+        stratified_minsum_step,
+        stratified_plan,
+    )
+    from ldpcsimulation_tpu_torch.decoders.base import xor_satisfied
+    from ldpcsimulation_tpu_torch.decoders.minsum_stratified import (
+        stratified_grid,
+        stratified_init,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        minsum_cn_scan,
+        minsum_cn_scan_plain,
+    )
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    alist = stratified_alist(**STRAT_GEOMETRY)
+    t0 = time.perf_counter()
+    sc = detect_stratified(alist)
+    secs = time.perf_counter() - t0
+    check(sc is not None and (sc.mb, sc.h, sc.kg, sc.w) == (6, 64, 60, 47)
+          and sc.num_edges == 12288 and detect_qc(alist) is None,
+          f"stratified structure {sc}")
+    code = build_code(alist, device)
+    rate = code.rate
+    sigma = snr_to_sigma(STRAT_SNR_DB, rate)
+    print(f"  {sc} in {secs:.2f} s (host); {alist.n} x {alist.m}, dv "
+          f"{set(alist.dv)}, dc {set(alist.dc)}, not QC; rate {rate:.4f}")
+    out = {"structure": dict(mb=sc.mb, h=sc.h, kg=sc.kg, w=sc.w,
+                             cost=sc.cost, detect_seconds=secs)}
+
+    counted, agree = stratified_card_vs_cpu(sc, code, device, sigma, rate)
+    out["card_vs_cpu"] = dict(b1_launches=counted, bp_agreement=agree)
+    out["streams"] = stratified_streams(sc, device, sigma, rate)
+    wide = stratified_alist(800, 16, 3, 1.0, 1)  # 66 groups, dc 50
+    out["sweeps"] = stratified_sweeps(alist, wide, device)
+    out["bp_ddbmp"] = stratified_bp_ddbmp_full(sc, code, device, rate,
+                                               timer)
+
+    # B1 refuses more than 64 column groups by name, never the twin
+    small = stratified_alist(192, 24, 4, 0.9, 3)
+    wide = stratify(small, col_groups=[[c] for c in range(small.n)])
+    try:
+        decode_minsum_stratified(wide, torch.ones((8, small.n),
+                                                  device=device), 1)
+        check(False, f"B1 took kg={wide.kg}")
+    except ValueError as e:
+        check("dc_max <= 64" in str(e), f"B1 refusal: {e}")
+    print(f"  kg={wide.kg} column groups: B1 refuses them by name")
+
+    # full width: the main path's run (counts from 0), then the timings
+    f16 = torch.float16
+    y = awgn_all_zero(SEED, 0, BATCH, code.n, sigma, device)
+    decode_minsum_stratified(sc, y, T, storage_dtype=f16)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    build.LAUNCHES.clear()
+    res = decode_minsum_stratified(sc, y, T, storage_dtype=f16)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    check(launches == {"minsum_cn_scan": T},
+          f"stratified min-sum launches {launches}")
+    slot = decode_minsum(code, y, T, storage_dtype=f16)
+    check(torch.equal(res.hard, slot.hard), "stratified != slot-array at "
+          f"B={BATCH}")
+    torch.cuda.reset_peak_memory_stats(device)
+    decode_minsum(code, y, T, storage_dtype=f16)
+    peak_slot = torch.cuda.max_memory_allocated(device) / 2**30
+    times = {"stratified": [], "slot-array": []}
+    for route in ("stratified", "slot-array", "slot-array", "stratified"):
+        if route == "stratified":
+            ms = timer(lambda: decode_minsum_stratified(
+                sc, y, T, storage_dtype=f16), 3)
+        else:
+            ms = timer(lambda: decode_minsum(code, y, T, storage_dtype=f16),
+                       3)
+        times[route].append(ms)
+    ber = float((res.hard != 1).float().mean())
+    print(f"  decode_minsum_stratified T={T} f16 B={BATCH} at "
+          f"{STRAT_SNR_DB} dB (BER {ber:.4g}): "
+          f"{', '.join(f'{t / T:.4f}' for t in times['stratified'])} ms per "
+          f"iteration against decode_minsum's "
+          f"{', '.join(f'{t / T:.4f}' for t in times['slot-array'])} "
+          f"(runs in turns); equal decisions; peak {peak:.2f} GiB against "
+          f"{peak_slot:.2f}; launches {launches}")
+
+    # one iteration's parts on the same samples (CUDA events)
+    cn_rows = stratified_plan(sc, device).cn_rows
+    plan = minsum_plan(code, device)
+    yt = y.t().contiguous()
+    yg = stratified_grid(sc, yt)
+    v_s = stratified_init(sc, yg, f16)
+    v_g = yt.repeat_interleave(code.dv_max, dim=0).to(f16)
+    d_g = torch.where(yt > 0, 1, -1).to(torch.int8)
+    d_s = torch.where(yg > 0, 1, -1).to(torch.int8)
+    step_s = stratified_minsum_step(sc, storage_dtype=f16)
+    step_g = minsum_step(code, storage_dtype=f16)
+    parts = {
+        "stratified step": timer(lambda: step_s(v_s, yg)),
+        "stratified B1": timer(lambda: minsum_cn_scan(
+            v_s.view(-1, BATCH), cn_rows)),
+        "stratified syndrome": timer(
+            lambda: stratified_check_satisfied(sc, d_s)),
+        "stratified grid gather": timer(lambda: stratified_grid(sc, yt)),
+        "slot-array step": timer(lambda: step_g(v_g, yt)),
+        "slot-array B1": timer(lambda: minsum_cn_scan(v_g, plan.cn_rows)),
+        "slot-array syndrome": timer(
+            lambda: xor_satisfied(plan.check_cols, d_g)),
+    }
+    print("  one iteration's parts, ms: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in parts.items()))
+    del v_s, v_g, yg
+
+    # B1 at the new instance: [mb·kg·w, B] VN-slot planes, [mb·h, kg]
+    gen = torch.Generator(device=device).manual_seed(42)
+    v2c = tied_messages(gen, sc.mb * sc.kg * sc.w, BATCH, f16, device)
+    named = cn_rows[cn_rows >= 0].long()
+    max_err = 0.0
+    for variant, kw in (("plain", {}), ("normalized", dict(alpha=1.3)),
+                        ("offset", dict(delta=0.15))):
+        got = minsum_cn_scan(v2c, cn_rows, variant, **kw)[named]
+        want = minsum_cn_scan_plain(v2c, cn_rows, variant, **kw)[named]
+        max_err = max(max_err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"B1 stratified {variant}: kernel != "
+              "plain")
+        del got, want
+    b1_ms = timer(lambda: minsum_cn_scan(v2c, cn_rows))
+    plain_ms = timer(lambda: minsum_cn_scan_plain(v2c, cn_rows), 2)
+    nbytes = named.numel() * BATCH * (v2c.element_size() + 4) + (
+        cn_rows.numel() * 4)
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    _, top = sm_clocks()
+    kernels = sass_count.parse(sass_count.disassemble(lib_path))
+    issue, path, maxdc = b1_issue(kernels, cn_rows, BATCH, f16, top)
+    bound = max(mem_ms, issue)
+    print(f"  B1 stratified [{v2c.shape[0]} x {BATCH}] f16, table "
+          f"[{cn_rows.shape[0]} x {cn_rows.shape[1]}] ({maxdc}-slot "
+          f"instance): equal to the twin (plain, normalized 1.3, offset "
+          f"0.15); {b1_ms:.4f} ms, plain {plain_ms:.4f} ms; memory "
+          f"{mem_ms:.4f} ms ({nbytes / 1e9:.3f} GB), issue {issue:.4f} ms "
+          f"({path:.0f} SASS on a thread's path): "
+          f"{'bytes' if mem_ms >= issue else 'issue'}, share "
+          f"{bound / b1_ms:.1%}; {b1_ms / (min(times['stratified']) / T):.1%}"
+          f" of a stratified iteration")
+    out["full_width"] = dict(
+        breakdown_ms=parts,
+        ms_per_iteration=[t / T for t in times["stratified"]],
+        slot_array_ms_per_iteration=[t / T for t in times["slot-array"]],
+        peak_gib=peak, slot_array_peak_gib=peak_slot, ber=ber,
+        launches=launches)
+    out["b1"] = dict(shape=[v2c.shape[0], BATCH], dc_max=int(sc.kg),
+                     instance=maxdc, ms=b1_ms, plain_ms=plain_ms,
+                     bytes=nbytes, memory_ms=mem_ms, issue_ms=issue,
+                     sass_path=path, memory_share=mem_ms / b1_ms,
+                     max_abs_err=max_err)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5161,6 +5700,9 @@ def main() -> int:
     header("[41] the public surface: compare_decoders_torch, "
            "parse_alist_native")
     surface41 = phase_surface(device)
+    header(f"[42] the stratified family: the 802.3an geometry at B={BATCH},"
+           " stratified against the slot arrays")
+    strat42 = phase_stratified(device, path, time_ms)
 
     summary = {
         "card": card,
@@ -5212,6 +5754,7 @@ def main() -> int:
         "distributed": dist39,
         "dense": dense40,
         "surface": surface41,
+        "stratified": strat42,
     }
     print(json.dumps(summary))
     print(card)
@@ -5221,7 +5764,8 @@ def main() -> int:
     rows = [
         ("minsum_cn_scan", "minsum_cn_scan.cu", "minsum_pallas.py:60",
          launches["minsum_cn_scan"], max(b1_err, forms_err, layer_err,
-                                         tools36["b1"]["max_abs_err"]),
+                                         tools36["b1"]["max_abs_err"],
+                                         strat42["b1"]["max_abs_err"]),
          None),
         ("awgn_philox", "awgn_philox.cu", "channel_pallas.py:56",
          launches["awgn_philox"],
@@ -5385,6 +5929,28 @@ def main() -> int:
     extra["minsum_cn_scan"]["launches_by_path"][
         "compare_decoders_torch [41]"] = surface41["launches"].get(
         "minsum_cn_scan", 0)
+    # the stratified family [42]: B1 on the stratified routing table
+    by_path = extra["minsum_cn_scan"]["launches_by_path"]
+    by_path["stratified min-sum B=32768 [42]"] = strat42["full_width"][
+        "launches"]["minsum_cn_scan"]
+    by_path.update({
+        f"stratified card vs cpu {k} [42]": v
+        for k, v in strat42["card_vs_cpu"]["b1_launches"].items()})
+    by_path["stratified stream full width [42]"] = strat42["streams"][
+        "minsum_stratified_stream"]["launches"]["minsum_cn_scan"]
+    by_path.update({
+        f"stratifiable alist sweep {k} [42]": v["launches"].get(
+            "minsum_cn_scan", 0)
+        for k, v in strat42["sweeps"].items() if "minsum" in k})
+    check(all(v >= 1 for k, v in by_path.items()
+              if k.startswith("stratifi")),
+          f"B1 not launched on a stratified path: {by_path}")
+    extra["minsum_cn_scan"]["forms"][
+        "stratified 802.3an geometry f16 [42]"] = strat42["b1"]
+    extra["awgn_philox"]["launches_by_path"].update({
+        f"stratifiable alist sweep {k} [42]": v["launches"].get(
+            "awgn_philox", 0)
+        for k, v in strat42["sweeps"].items()})
     lane_rows[1][3].update({
         f"dense {label} [40]": dense40[k]["launches"].get(
             "gauss_philox_lanes", 0)

@@ -1,11 +1,13 @@
 """ldpcsimulation_tpu_torch — the PyTorch/CUDA port of ``ldpcsimulation_tpu``.
 
-Everything the JAX package does apart from its TPU routing workarounds
+Everything the JAX package does apart from its TPU lowering choices
 (ROADMAP "Left behind"): code construction, the standards' tables, the
-GF(2) encoder and the GF(q) codes (``codes``, ``native``), the keyed AWGN
-channel and quantizers (``channel``), the decoders — min-sum, sum-product
-BP and their row-layered schedules, DD-BMP, the GDBF/NGDBF bit-flip family
-with its graph operations as row gathers or dense products, the
+GF(2) encoder, the GF(q) codes and the stratified structure of alists
+without QC structure (``codes``, ``native``), the keyed AWGN channel and
+quantizers (``channel``), the decoders — min-sum, sum-product BP and their
+row-layered schedules and stratified forms, DD-BMP, the GDBF/NGDBF
+bit-flip family with its graph operations as row gathers or dense
+products, the
 hardware-model NGDBFhw and SystemC decoders, the non-binary FFT-QSPA and
 min-sum/min-max (``decoders``) — the Monte-Carlo harness, its streaming
 refill drivers and reference-format log rows (``harness``), multi-device

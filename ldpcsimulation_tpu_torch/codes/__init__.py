@@ -1,6 +1,7 @@
 """Code representation: alist I/O, constructions, padded-slot `Code`, QC
-structure and its detection, the standard tables, the GF(2) encoder, named
-codes, and the GF(2^m) tables of the non-binary codes."""
+structure and its detection, the stratified slot grids of codes without QC
+structure, the standard tables, the GF(2) encoder, named codes, and the
+GF(2^m) tables of the non-binary codes."""
 
 from .alist import Alist, dumps_alist, from_dense, load_alist, parse_alist, save_alist
 from .code import Code, build_code, code_from_dense, code_to_alist
@@ -16,6 +17,7 @@ from .encode import Encoder, gf2_rref, make_encoder, random_codewords
 from .library import NAMED_CODES, QC_NAMES, load_named_code, load_named_qc
 from .qc import QCCode, build_qc_code, build_qc_code_edges, qc_ira, qc_peg
 from .qc_detect import DetectedQC, detect_qc, permuted_decoder
+from .stratified import StratifiedCode, detect_stratified, stratify
 
 __all__ = [
     "Alist",
@@ -53,4 +55,7 @@ __all__ = [
     "DetectedQC",
     "detect_qc",
     "permuted_decoder",
+    "StratifiedCode",
+    "detect_stratified",
+    "stratify",
 ]

@@ -1,4 +1,5 @@
-"""DD-BMP: differential decoding with binary message passing.
+"""DD-BMP: differential decoding with binary message passing, on slot
+arrays, QC row tables and stratified slot grids.
 
 Port of ``ldpcsimulation_tpu.decoders.ddbmp`` (behavioral reference:
 ``decodeDDBMP.cpp``), bit for bit:
@@ -30,6 +31,7 @@ import torch
 
 from ..codes.code import Code
 from ..codes.qc import QCCode
+from ..codes.stratified import StratifiedCode
 from .base import (
     DecodeResult,
     gather_cn,
@@ -39,9 +41,19 @@ from .base import (
 )
 from .minsum import minsum_plan
 from .minsum_qc import qc_fold, qc_plan
+from .minsum_stratified import (
+    stratified_check_satisfied,
+    stratified_grid,
+    stratified_hard,
+    stratified_init,
+    stratified_plan,
+    stratified_to_cn,
+    stratified_to_vn,
+    stratified_zero_pad,
+)
 
 __all__ = ["ddbmp_round", "decode_ddbmp", "qc_ddbmp_round",
-           "decode_ddbmp_qc"]
+           "decode_ddbmp_qc", "decode_ddbmp_stratified"]
 
 
 def _run_rounds(one_round, mem, d, satisfied_of, num_iterations, batch):
@@ -176,4 +188,45 @@ def decode_ddbmp_qc(qc: QCCode, yq: torch.Tensor,
         num_iterations, b,
     )
     return DecodeResult(hard=d.t().to(torch.int32), iterations=iters,
+                        satisfied=done)
+
+
+def decode_ddbmp_stratified(sc: StratifiedCode, yq: torch.Tensor,
+                            num_iterations: int) -> DecodeResult:
+    """DD-BMP on a stratified code (:mod:`..codes.stratified`), with the
+    semantics of :func:`decode_ddbmp`; the messages move between the VN and
+    CN slot grids by row gathers.  Equal to the slot-array decoder for any
+    slot order, by the QC form's argument: messages are ±1 and the sums add
+    small exact f32 values, so there is no rounding order to keep.
+    yq: [B, N] (quantized) channel samples."""
+    y_t = yq.t().contiguous()  # [N, B]
+    n, b = y_t.shape
+    if n != sc.n:
+        raise ValueError(f"yq has {n} columns, the code {sc.n}")
+    cn_pad = ~stratified_plan(sc, y_t.device).sc.cn_valid[..., None]
+    yg = stratified_grid(sc, y_t)
+    sign_y = sgn_pos(yg)
+
+    def one_round(mem):
+        g = stratified_to_cn(sc, sgn_pos(mem))  # [mb, h, kg, B]
+        g = torch.where(cn_pad, 1.0, g)
+        # the row's sign product (±1, order-free), exclusion by self
+        prod = torch.prod(g, dim=2, keepdim=True)
+        c2v = stratified_to_vn(sc, torch.where(cn_pad, 0.0, prod * g))
+        total = yg  # left fold FROM y (decodeDDBMP.cpp:399-407)
+        for s in range(sc.mb):
+            total = total + c2v[s]
+        # mem + (sum − msg), NOT (mem + sum) − msg (decodeDDBMP.cpp:413)
+        mem_new = stratified_zero_pad(sc, mem + (total[None] - c2v))
+        dsum = sign_y + stratified_zero_pad(sc, sgn_pos(mem_new)).sum(dim=0)
+        return mem_new, torch.where(dsum > 0, 1, -1).to(torch.int32)
+
+    d, iters, done = _run_rounds(
+        one_round,
+        stratified_init(sc, yg, y_t.dtype),
+        torch.where(yg > 0, 1, -1).to(torch.int32),
+        lambda d: stratified_check_satisfied(sc, d),
+        num_iterations, b,
+    )
+    return DecodeResult(hard=stratified_hard(sc, d).t(), iterations=iters,
                         satisfied=done)

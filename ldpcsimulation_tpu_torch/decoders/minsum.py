@@ -152,8 +152,10 @@ def minsum_step(code: Code, variant: str = "plain", alpha: float = 1.0,
 
     def step(v2c, y_t):
         sdt = storage_dtype if storage_dtype is not None else y_t.dtype
+        # the fold runs in the channel's dtype (an f16 channel folds in
+        # f16), as the JAX step casts c2v to it
         c2v = minsum_cn_update(code, v2c, variant, alpha, delta)
-        v2c, total, _ = vn_update(code, y_t, c2v)
+        v2c, total, _ = vn_update(code, y_t, c2v.to(y_t.dtype))
         return storage_cast(v2c, sdt), total
 
     return step

@@ -329,7 +329,8 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
     and ``yb``/``total`` the ``[N, B]`` channel samples and posterior.
 
     The same operations as the JAX ``qc_minsum_step``: c2v from the CN
-    update (f32), total = y + ((c₀ + c₁) + c₂ …) in VN slot order, then
+    update (f32, cast to the channel's dtype), total = y + ((c₀ + c₁) +
+    c₂ …) in VN slot order, then
     v2c' = storage_cast(total − c_s).
     """
     if variant not in VARIANTS:
@@ -341,6 +342,7 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
         c2v = minsum_cn_scan(v2c, plan.cn_rows, variant, alpha, delta)
         if plan.absent_rows is not None:  # rows B1 does not write
             c2v.index_fill_(0, plan.absent_rows, 0.0)
+        c2v = c2v.to(yb.dtype)  # an f16 channel folds in f16, as in JAX
         total = yb + qc_fold(plan.fold, c2v)
         v2c_new = storage_cast(total[plan.row_col] - c2v, sdt)
         return v2c_new, total

@@ -78,6 +78,8 @@ __all__ = [
     "bp_qc_stream",
     "minsum_stream",
     "bp_stream",
+    "minsum_stratified_stream",
+    "bp_stratified_stream",
     "minsum_layered_qc_stream",
     "bp_layered_qc_stream",
     "ddbmp_qc_stream",
@@ -261,6 +263,65 @@ def bp_stream(code: Code, max_llr: Optional[float] = None,
     ml = MAXLLR if max_llr is None else max_llr
     return _slot_array_stream(
         code, lambda c: bp_step(c, ml, storage_dtype), ml, storage_dtype)
+
+
+def _stratified_stream(sc, step, clamp: Optional[float],
+                       storage_dtype) -> StreamDecoder:
+    """Shared construction of the stratified adapters: the channel term is
+    the [kg, w, B] group grid of the (clamped) rows, the messages the
+    [mb, kg, w, B] VN-slot planes, decisions go back to column order
+    through ``pos_of_col``."""
+    from ..decoders.minsum_stratified import (
+        stratified_check_satisfied,
+        stratified_grid,
+        stratified_hard,
+        stratified_init,
+    )
+
+    def prep(rows):
+        if clamp is not None:
+            rows = torch.clamp(rows, -clamp, clamp)
+        return stratified_grid(sc, rows.t())
+
+    def init(ych):
+        sdt = storage_dtype if storage_dtype is not None else ych.dtype
+        return stratified_init(sc, ych, sdt)
+
+    return StreamDecoder(
+        prep=prep,
+        init=init,
+        step=_upcast_step(step),
+        satisfied=lambda d: stratified_check_satisfied(sc, d),
+        hard=lambda d: stratified_hard(sc, d),
+    )
+
+
+def minsum_stratified_stream(sc, variant: str = "plain", alpha: float = 1.0,
+                             delta: float = 0.0,
+                             storage_dtype=None) -> StreamDecoder:
+    """Stream adapter for
+    :func:`..decoders.minsum_stratified.decode_minsum_stratified` (its step
+    function: B1 on the stratified routing table), the sweep's ``--stream``
+    route for an alist that stratifies."""
+    from ..decoders.minsum_stratified import stratified_minsum_step
+
+    return _stratified_stream(
+        sc, stratified_minsum_step(sc, variant, alpha, delta, storage_dtype),
+        None, storage_dtype)
+
+
+def bp_stratified_stream(sc, max_llr: Optional[float] = None,
+                         storage_dtype=None) -> StreamDecoder:
+    """Stream adapter for
+    :func:`..decoders.bp_stratified.decode_bp_stratified`.  Pool rows must
+    be LLRs; ``prep`` applies the batch decoder's ±max_llr input clamp
+    before gathering into the group grid."""
+    from ..decoders.bp import MAXLLR
+    from ..decoders.bp_stratified import stratified_bp_step
+
+    ml = MAXLLR if max_llr is None else max_llr
+    return _stratified_stream(sc, stratified_bp_step(sc, ml, storage_dtype),
+                              ml, storage_dtype)
 
 
 def _layered_stream(qc: QCCode, step, storage_dtype) -> StreamDecoder:

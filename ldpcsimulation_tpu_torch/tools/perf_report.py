@@ -14,8 +14,9 @@ Rows on the C reference's real parity-check matrices (the 802.3an H, the
 GF(4)/GF(8) codes) run only with ``--reference`` pointing at a checkout
 that holds them.  The NGDBFhw rows on codes without QC structure take the
 dense graph operations (``decoders/dense_ops.py``) where the sweep does,
-beside the gather baseline.  Left behind with their decoders: the JAX
-tool's stratified rows.
+beside the gather baseline.  The real 802.3an H also runs through the
+stratified decoder (``decoders/minsum_stratified.py``: kernel B1 on the
+stratified routing table) beside the generic row, as in the JAX tool.
 
 Byte models are the JAX tool's (the least traffic each algorithm must
 move per frame and iteration); GB/s is that model over the measured time
@@ -52,6 +53,7 @@ from ..codes import build_code, load_alist
 from ..codes.construct import nb_regular
 from ..codes.library import QC_NAMES, load_named_code, load_named_qc
 from ..codes.qc import qc_peg
+from ..codes.stratified import detect_stratified
 from ..decoders.base import NoiseKey
 from ..decoders.bp_qc import decode_bp_qc
 from ..decoders.ddbmp import decode_ddbmp, decode_ddbmp_qc
@@ -60,6 +62,7 @@ from ..decoders.gdbf import decode_gdbf, preset
 from ..decoders.minsum import decode_minsum
 from ..decoders.minsum_layered import decode_minsum_layered_qc
 from ..decoders.minsum_qc import decode_minsum_qc
+from ..decoders.minsum_stratified import decode_minsum_stratified
 from ..decoders.nb_qspa import decode_nb_qspa
 from ..decoders.ngdbf_hw import NGDBFHwConfig, decode_ngdbf_hw
 from ..harness.stream import (
@@ -86,7 +89,8 @@ from ..harness.stream_ngdbfhw import (
 )
 
 __all__ = ["PEAK_HBM", "PEAK_F16", "Measured", "Row", "msg_bytes",
-           "flip_bytes", "nb_bytes", "dense_hw_models", "rows", "main"]
+           "flip_bytes", "nb_bytes", "dense_hw_models", "stratified_models",
+           "rows", "main"]
 
 #: bytes/s, one H100 SXM (HBM3, at its 700 W limit)
 PEAK_HBM = 3.35e12
@@ -125,6 +129,22 @@ def dense_hw_models(n, m, batch):
     flops = 2 * 2 * m * n
     bytes_ = 2 * m * n * 2 / batch + 8 * m + 24 * n
     return bytes_, flops
+
+
+def stratified_models(sc, batch):
+    """The JAX tool's stratified min-sum model per frame and iteration:
+    (bytes, one-hot operations).  The VN slot grids ``[mb, kg, w]`` move
+    twice in f16 storage and twice in f32, the CN slot grids ``[mb, h, kg]``
+    four times in f32, the one-hot ``[mb, kg, w, h]`` f32 twice per
+    iteration over the batch; the operations are the TPU form's two one-hot
+    einsums, 2 per cell each.  The port moves the messages by B1's routing
+    table and does no products, so its row is charged the bytes only."""
+    s_vn = sc.mb * sc.kg * sc.w
+    s_cn = sc.mb * sc.h * sc.kg
+    oh = s_vn * sc.h
+    bytes_ = s_vn * (2 * 2 + 2 * 4) + s_cn * 4 * 4 + 8 * sc.n + (
+        2 * oh * 4 / batch)
+    return bytes_, 2 * 2 * oh
 
 
 @dataclasses.dataclass
@@ -173,6 +193,12 @@ def _code(name, device):
 @functools.lru_cache(maxsize=None)
 def _alist_code(path, device):
     return build_code(load_alist(path), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _stratified(path):
+    """The stratified structure of an alist file (None if it has none)."""
+    return detect_stratified(load_alist(path))
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,6 +398,16 @@ def rows(reference: Optional[str] = None) -> List[Row]:
             lambda y, dev, f0: _errors(decode_minsum(
                 _alist_code(p8023, dev), y, 10, storage_dtype=f16).hard),
             msg_bytes(12288, 2048, storage=2) + 2 * 12288 * 4))
+        # the same H through the stratified decoder (the JAX tool's row)
+        sc = _stratified(p8023)
+        if sc is not None:
+            add(_batched(
+                f"min-sum T=10, REAL 802.3an H, stratified f16 (cost "
+                f"{sc.cost:g})", 16384, 2, 2048, snr_to_sigma(4.25, 0.8413),
+                1723, 10,
+                lambda y, dev, f0: _errors(decode_minsum_stratified(
+                    sc, y, 10, storage_dtype=f16).hard),
+                stratified_models(sc, 16384)[0]))
 
     dvbn = "dvbs2_1_2_qc"
     dvb = load_named_qc(dvbn)

@@ -52,7 +52,14 @@ GDBF/NGDBF presets and the fixed-point NGDBFhw (a fixed ``--frames`` count,
 the 802.3an defaults unless given, with its ``<log>_<snr>_itdist.dat``
 completion file), on every named code and on ``--alist`` files.  QC codes
 (named, or detected in an alist in natural order) take the QC decoders and
-the QC graph operations, the others the slot-array ones.  ``nbqspa`` runs
+the QC graph operations.  Another binary alist takes, for flooding BP, the
+stratified decoder (``codes/stratified.py``) where ``detect_stratified``
+finds a structure ("sweep: detected stratified structure ..." on stderr),
+as the JAX CLI does: its check update folds in column-group order, so its
+rows are the JAX route's.  Min-sum and DD-BMP keep the slot-array decoders
+there, where the JAX CLI takes its stratified ones: those give the same
+rows bit for bit and run faster on the card (PERF.md).  The rest take the
+slot-array decoders.  ``nbqspa`` runs
 FFT-QSPA (``harness/montecarlo_nb.py``) on a non-binary alist or a
 ``--nb-random N:M:DV:Q`` code, with ``--msg-dtype f16`` message storage and
 the log row ``SNR SER BER avgIters FER T code``.  ``--stream`` runs the
@@ -97,10 +104,12 @@ from ..codes.code import build_code
 from ..codes.construct import nb_regular
 from ..codes.library import NAMED_CODES, load_named_code, load_named_qc
 from ..codes.qc_detect import detect_qc
+from ..codes.stratified import detect_stratified
 from ..decoders.base import syndrome_from_hard
 from ..decoders.bp import decode_bp
 from ..decoders.bp_layered import decode_bp_layered_qc
 from ..decoders.bp_qc import decode_bp_qc
+from ..decoders.bp_stratified import decode_bp_stratified
 from ..decoders.ddbmp import decode_ddbmp, decode_ddbmp_qc
 from ..decoders.dense_ops import (
     DenseGraph,
@@ -127,6 +136,7 @@ from ..harness.fixtures import load_codeword_file
 from ..harness.stream import (
     bp_layered_qc_stream,
     bp_qc_stream,
+    bp_stratified_stream,
     bp_stream,
     ddbmp_qc_stream,
     minsum_layered_qc_stream,
@@ -210,7 +220,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--stream", action="store_true",
-        help="min-sum/BP (with --early-termination; QC, slot-array, or "
+        help="min-sum/BP (with --early-termination; QC, stratified (BP), "
+             "slot-array, or "
              "--schedule layered QC codes), ddbmp (QC codes), gdbf, "
              "ngdbfhw, nbqspa: run "
              "the streaming refill harness (persistent lanes refilled from "
@@ -327,7 +338,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "sweep: error: --device cuda, but no CUDA device is available "
             "(pass --device cpu to run the plain PyTorch path)"
         )
-    code, qc, alist_name = _load_code(args, device)
+    code, qc, strat, alist_name = _load_code(args, device)
     if (args.schedule == "layered" and qc is None and not args.distributed
             and args.decoder in (*_MINSUM, "bp")):
         raise SystemExit(
@@ -442,7 +453,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             stats, row = _minsum_point(args, code, qc, alist_name, run_point,
                                        run_stream_point, T, point)
         elif args.decoder == "bp":
-            stats, row = _bp_point(args, code, qc, alist_name, rate,
+            stats, row = _bp_point(args, code, qc, strat, alist_name, rate,
                                    run_point, run_stream_point, T, point)
         elif args.decoder == "ddbmp":
             stats, row = _ddbmp_point(args, code, qc, alist_name, run_point,
@@ -470,34 +481,48 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _load_code(args, device):
-    """(code, QC structure or None, the log rows' code name) of --code,
-    --alist or --nb-random.  A named code takes its registered QC structure;
-    a binary alist whose H is QC in natural order (rows and columns
-    unpermuted) takes the detected one, as the JAX CLI routes it."""
+    """(code, QC structure or None, stratified structure or None, the log
+    rows' code name) of --code, --alist or --nb-random.  A named code takes
+    its registered QC structure; a binary alist whose H is QC in natural
+    order (rows and columns unpermuted) takes the detected one; any other
+    binary alist takes, for flooding BP, the stratified structure where
+    ``detect_stratified`` finds one, as the JAX CLI routes BP.  Min-sum and
+    DD-BMP never look for one (the slot arrays give their rows bit for bit,
+    faster), nor does a decoder under --schedule layered."""
     if args.code:
         try:
             qc = load_named_qc(args.code)
         except KeyError:
-            return load_named_code(args.code, device), None, args.code
-        return qc.to_code(device), qc, args.code
+            return load_named_code(args.code, device), None, None, args.code
+        return qc.to_code(device), qc, None, args.code
     if args.nb_random:
         n, m, dv, q = (int(x) for x in args.nb_random.split(":"))
         code = build_code(nb_regular(n, m, dv, q=q, seed=args.seed), device)
-        return code, None, f"nb_random_{args.nb_random}"
+        return code, None, None, f"nb_random_{args.nb_random}"
     alist = load_alist(args.alist)
     code = build_code(alist, device)
     if alist.q > 2:
-        return code, None, args.alist
+        return code, None, None, args.alist
     det = detect_qc(alist)
-    if (det is None or (det.col_perm != np.arange(code.n)).any()
-            or (det.row_perm != np.arange(code.m)).any()):
-        return code, None, args.alist
-    print(
-        f"sweep: detected QC structure z={det.qc.z} "
-        f"({det.qc.mb}x{det.qc.nb} base) — using roll decoders",
-        file=sys.stderr,
-    )
-    return code, det.qc, args.alist
+    if (det is not None and (det.col_perm == np.arange(code.n)).all()
+            and (det.row_perm == np.arange(code.m)).all()):
+        print(
+            f"sweep: detected QC structure z={det.qc.z} "
+            f"({det.qc.mb}x{det.qc.nb} base) — using roll decoders",
+            file=sys.stderr,
+        )
+        return code, det.qc, None, args.alist
+    strat = None
+    if args.decoder == "bp" and args.schedule != "layered":
+        strat = detect_stratified(alist)
+        if strat is not None:
+            print(
+                f"sweep: detected stratified structure ({strat.mb}x"
+                f"{strat.h} strata, {strat.kg} column groups) — using "
+                "the stratified BP decoder",
+                file=sys.stderr,
+            )
+    return code, None, strat, args.alist
 
 
 def _minsum_point(args, code, qc, alist_name, run_point, run_stream_point,
@@ -549,12 +574,12 @@ def _minsum_point(args, code, qc, alist_name, run_point, run_stream_point,
     return stats, row
 
 
-def _bp_point(args, code, qc, alist_name, rate, run_point, run_stream_point,
-              T, point):
+def _bp_point(args, code, qc, strat, alist_name, rate, run_point,
+              run_stream_point, T, point):
     """One grid point of the BP route: LLRs ``llr_from_channel(y, N0)``,
     the layered decoder under ``--schedule layered`` (no storage type
-    there), else the QC or the slot-array flooding decoder; with
-    ``--stream``, its stream adapter."""
+    there), else the QC, the stratified or the slot-array flooding decoder;
+    with ``--stream``, its stream adapter."""
     snr = point[0]
     n0 = float(snr_to_n0(snr, rate))
     et = args.early_termination
@@ -564,6 +589,8 @@ def _bp_point(args, code, qc, alist_name, rate, run_point, run_stream_point,
             sdec = bp_layered_qc_stream(qc)
         elif qc is not None:
             sdec = bp_qc_stream(qc, storage_dtype=sdt)
+        elif strat is not None:
+            sdec = bp_stratified_stream(strat, storage_dtype=sdt)
         else:
             sdec = bp_stream(code, storage_dtype=sdt)
         stats = run_stream_point(
@@ -575,6 +602,9 @@ def _bp_point(args, code, qc, alist_name, rate, run_point, run_stream_point,
     elif qc is not None:
         dec = lambda llr, key: decode_bp_qc(  # noqa: E731
             qc, llr, T, early_termination=et, storage_dtype=sdt)
+    elif strat is not None:
+        dec = lambda llr, key: decode_bp_stratified(  # noqa: E731
+            strat, llr, T, early_termination=et, storage_dtype=sdt)
     else:
         dec = lambda llr, key: decode_bp(  # noqa: E731
             code, llr, T, early_termination=et, storage_dtype=sdt)
@@ -765,7 +795,8 @@ def _run_distributed(args, code, qc, dense, alist_name, snrs, rate, stop,
     points over them (any grid on any slot count) with per-point stopping,
     and each point's scalars reach its decode as f32-rounded floats.  The
     routes, rows, stderr lines, resume keys and refusals are the JAX
-    CLI's: flooding BP and min-sum on the slot-array decoders, the layered
+    CLI's: flooding BP and min-sum on the slot-array decoders (a
+    stratified alist too, as in the JAX CLI), the layered
     ones on QC codes; ``gdbf`` (no --nq axis) and ``ngdbfhw`` (a fixed
     ``--frames`` count, no pointer carry, its itdist files) on the row
     gathers, or the dense products where :func:`main` built ``dense``;
