@@ -20,7 +20,7 @@ the exit code is non-zero):
      the compiler's register report);
   3. kernel B1 (min-sum CN update) against its twin at the main path's
      shapes — qc_1008_504, B=32768, f16 and f32 storage, all three
-     variants — equal under ``torch.equal``;
+     variants — equal bit for bit (int32 views: signed zeros too);
   4. kernel B2 (Philox AWGN) against its twin: samples and 24-bit integers
      equal under ``torch.equal``, then the decode of those samples with the
      kernels equal bit for bit to the plain path's decode on the CPU;
@@ -59,17 +59,21 @@ the exit code is non-zero):
  13. bounds of every kernel at the main path's shapes: its time, its plain
      twin's, the nearest PyTorch call's (same work, not the same function),
      the memory bound (bytes over 3.35 TB/s), the operation bound (f32
-     operations over 67 TFLOP/s), the issue bound (the SASS instructions on
+     operations over 67 TFLOP/s), the roofline share (the larger bound over
+     the time), the issue bound as a diagnostic (the SASS instructions on
      one thread's path, ``tools/sass_count.py``, over 132 SMs x 4 warp
-     instructions per clock at the maximum SM clock), the shares, and the
-     launches per batch on each path.
- 14. kernel B1 against its twin under ``torch.equal`` on tied messages in
-     the forms of the slot-array and generalized QC paths: the generic slot
-     form on peg_1008_504 (B=32768, f16 and f32), the 64-slot instance on
-     highrate_4376_282 (dc_max 63, B=32768, all three variants), the
-     generalized plan of dvbs2_1_2_qc (pairs and an absent edge, B=8192)
-     and a synthetic table of 70000 checks (past grid y's 65535); each
-     form's time, plain twin's time, memory and issue bounds;
+     instructions per clock at the maximum SM clock) and its share, and
+     the launches per batch on each path.
+ 14. kernel B1 against its twin bit for bit on tied messages in the forms
+     of the slot-array and generalized QC paths: the generic slot form on
+     peg_1008_504 (B=32768, f16 and f32), highrate_2048_384 (dc_max 33,
+     B=32768, all three variants), highrate_4376_282 (dc_max 63), the
+     generalized plan of dvbs2_1_2_qc (pairs and an absent edge, B=8192),
+     a synthetic table of 70000 checks (past grid y's 65535), an odd batch
+     (B=32771, f16 and f32, three variants: the 1-lane instance) and a
+     view two elements into its buffer (the 2-lane instance); each form's
+     time, plain twin's time, memory bound, roofline share and issue
+     bound;
  15. the card against the CPU plain path, bit for bit, on the card's
      samples: ``decode_minsum`` on peg_1008_504, ``decode_minsum_qc`` on
      dvbs2_1_2_qc and wifi_1944_972 (the offset variant on
@@ -100,8 +104,8 @@ the exit code is non-zero):
      ``BP_FRAME_AGREEMENT`` of the frames;
  20. kernel B1 at a layer's shape (one base row of qc_1008_504,
      wifi_1944_972 and dvbs2_1_2_qc; f32, tied samples, all three variants)
-     against its twin under ``torch.equal``, with its time per launch and its
-     bounds;
+     against its twin bit for bit, with its time per launch (behind a long
+     sleep kernel: device time, not the host's enqueue rate) and its bounds;
  21. ``simulate`` at full width (B=32768), counters reset just before and
      read just after, each gated within 4 joint standard errors of the JAX
      package's CPU run at the same point (``tests/jax_reference_stats.py``):
@@ -341,6 +345,7 @@ JAX_PEG_MINSUM = dict(
     fer=(0.6111602783203125, 0.0013465048084980611),
 )
 DVBS2_CODE = "dvbs2_1_2_qc"
+ODD_BATCH = 32771  # B1's 1-lane instance
 DVBS2_BATCH = 8192
 DVBS2_SNR_DB = 2.5
 
@@ -465,6 +470,12 @@ def tied_messages(gen, rows, batch, dtype, device):
     return v.to(dtype)
 
 
+def same_bits(got, want) -> bool:
+    """f32 tensors equal bit for bit (``torch.equal`` takes -0.0 for 0.0,
+    and B1's outputs carry signed zeros)."""
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def phase_b1(qc, device, batch, sigma, timer):
     """Kernel B1 against its twin at the main path's shapes.  Returns
     (max |kernel - plain|, {dtype: (kernel ms, plain ms)})."""
@@ -494,7 +505,7 @@ def phase_b1(qc, device, batch, sigma, timer):
                 got = minsum_cn_scan(v2c, plan.cn_rows, variant, **kw)
                 want = minsum_cn_scan_plain(v2c, plan.cn_rows, variant, **kw)
                 max_err = max(max_err, float((got - want).abs().max()))
-                check(torch.equal(got, want),
+                check(same_bits(got, want),
                       f"B1 {variant} {dtype} {name}: kernel != plain")
             print(f"  B1 {variant:10s} {str(dtype):13s} equal (2 states)")
         v2c = states["channel"]
@@ -986,8 +997,12 @@ def phase_edges(device):
 
 def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     """Memory, operation and issue bounds of each kernel at the main
-    path's shapes, beside its measured times."""
+    path's shapes, beside its measured times.  The share is the roofline
+    share (the larger of the memory and operation bounds over the time);
+    the issue bound and its share are a diagnostic of the instruction
+    stream, not a bound of the work."""
     from ldpcsimulation_tpu_torch.decoders.minsum_qc import qc_plan
+    from ldpcsimulation_tpu_torch.kernels.minsum import lane_width
     from ldpcsimulation_tpu_torch.tools import sass_count
 
     cur, top = sm_clocks()
@@ -999,14 +1014,17 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     rows = plan.num_planes * qc.z
     degrees = torch.unique((plan.cn_rows >= 0).sum(dim=1),
                            return_counts=True)
-    maxdc = 8 if dc <= 8 else (16 if dc <= 16 else 32)
+    # the main path's f16 planes come from the caching allocator (aligned)
+    lanes = lane_width(batch, torch.float16, 0, 0)
     samples = batch * n
 
     def b1_path(k):
-        """A check of degree d loads all slots (predicated) and stores d:
-        the mean path over the code's checks."""
-        return sum(int(c) * k.path_length(stores=int(d), loads=True)
-                   for d, c in zip(*degrees)) / m
+        """A check of degree d: its scan's loads and d stores (the
+        kernel's slot loops): the mean path over the code's checks."""
+        paths = [b1_sass_path(k, int(d)) for d in degrees[0]]
+        if None in paths:
+            return None
+        return sum(int(c) * p for p, c in zip(paths, degrees[1])) / m
 
     def all_stores(k):
         return k.path_length()
@@ -1016,7 +1034,8 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     # cos, sqrt, erfinv) as one
     spec = {
         "minsum_cn_scan": (
-            f"minsum_cn_scan_kernelI6__halfLi{maxdc}EE", b1_path, m * batch,
+            b1_instance(torch.float16, lanes), b1_path,
+            m * -(-batch // lanes),
             rows * batch * (2 + 4) + plan.cn_rows.numel() * 4,
             rows * batch * 6),
         "awgn_philox": ("awgn_philox_kernelILb1ELb0EE", all_stores,
@@ -1035,56 +1054,144 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
         steps = path_of(k)
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        issue = sass_count.issue_ms(threads, steps, top, SMS)
         bound = max(mem_ms, ops_ms)
+        bound_by = "bytes" if mem_ms >= ops_ms else "operations"
         ms = times[name][0]
-        decides = max((mem_ms, "bytes"), (ops_ms, "operations"),
-                      (issue, "issue"))[1]
+        if steps is None:
+            issue, issue_text = None, "issue not measured (SASS layout)"
+        else:
+            issue = sass_count.issue_ms(threads, steps, top, SMS)
+            issue_text = (f"issue {issue:.4f} ms ({steps:g} SASS on one "
+                          f"thread's path of {k.static_count}, {threads} "
+                          f"threads; share {issue / ms:.1%})")
         out[name] = dict(
-            bound_ms=bound, bound_by="bytes" if mem_ms >= ops_ms else
-            "operations", issue_ms=issue, sass_path=steps,
-            sass_static=k.static_count, threads=threads, bytes=nbytes,
-            operations=ops, decided_by=decides,
-            share=max(bound, issue) / ms, memory_share=mem_ms / ms,
+            bound_ms=bound, bound_by=bound_by, issue_ms=issue,
+            issue_share=None if issue is None else issue / ms,
+            sass_path=steps, sass_static=k.static_count, threads=threads,
+            bytes=nbytes, operations=ops, share=bound / ms,
+            memory_share=mem_ms / ms,
             launches_per_batch=launches_per_batch[name],
         )
         print(f"  {name:15s} {ms:.4f} ms; memory {mem_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), "
-              f"operations {ops_ms:.4f} ms, issue {issue:.4f} ms ({steps:g} "
-              f"SASS on one thread's path of {k.static_count}, {threads} "
-              f"threads): {decides} decide, share {max(bound, issue) / ms:.1%}"
-              f"; plain {times[name][1]:.4f} ms, yardstick "
+              f"({nbytes / 1e6:.1f} MB), operations {ops_ms:.4f} ms: "
+              f"{bound_by} bound, roofline share {bound / ms:.1%}; "
+              f"{issue_text}; plain {times[name][1]:.4f} ms, yardstick "
               f"{'none' if times[name][2] is None else f'{times[name][2]:.4f} ms'}"
               f"; launches per batch {launches_per_batch[name]}")
-    print(f"  (B1's path: all {maxdc} unrolled slots' loads, predicated, "
-          f"and a check's own stores, averaged over the checks' degrees "
-          f"{dict(zip(degrees[0].tolist(), degrees[1].tolist()))})")
+    b1_steps = out["minsum_cn_scan"]["sass_path"]
+    print(f"  (B1's path: the {lanes}-lane instance's slot loops for a "
+          f"check's degree, averaged over the degrees "
+          f"{dict(zip(degrees[0].tolist(), degrees[1].tolist()))}: "
+          + ("not measured" if b1_steps is None else
+             f"{b1_steps / (rows / m * lanes):.1f} SASS per edge-lane") + ")")
     return out
 
 
-def b1_issue(kernels, cn_rows, batch, dtype, top):
-    """Issue bound of one B1 launch from its SASS: every unrolled slot's
-    loads and a check's own stores, averaged over the table's degrees."""
+def b1_instance(dtype, lanes: int) -> str:
+    """The mangled-name key of B1's instance of ``lanes`` lanes."""
+    t = "6__half" if dtype == torch.float16 else "f"
+    return f"minsum_cn_lanes_kernelI{t}Li{lanes}EE"
+
+
+def b1_sass_path(kernel, degree: int):
+    """SASS on one thread's path through a B1 instance for a check of
+    ``degree`` named slots (``Kernel.path_through``): the two row-table
+    loads, the scan's message loads by fours, a two and a one in each
+    32-slot half of the sign mask, and a store per slot in each half —
+    the layout nvcc gives the kernel's loops (2 + 14 loads, 2 stores).
+    None for another layout: the count is a diagnostic, not a check."""
     from ldpcsimulation_tpu_torch.tools import sass_count
 
-    m, dc = cn_rows.shape
-    maxdc = next(c for c in (8, 16, 32, 64) if dc <= c)
-    t = "6__half" if dtype == torch.float16 else "f"  # mangled T
-    k = sass_count.find(kernels, f"minsum_cn_scan_kernelI{t}Li{maxdc}EE")
+    loads = [i for i, x in enumerate(kernel.instrs)
+             if x.base in sass_count.LOADS]
+    stores = [i for i, x in enumerate(kernel.instrs)
+              if x.base in sass_count.STORES]
+    if len(loads) != 16 or len(stores) != 2:
+        return None
+    msg, way = loads[2:], []
+    for h, n in ((0, min(degree, 32)), (1, max(degree - 32, 0))):
+        four, two, one = msg[7 * h:7 * h + 4], msg[7 * h + 4:7 * h + 6], \
+            msg[7 * h + 6]
+        way += four * (n // 4) + (two if n % 4 >= 2 else []) + (
+            [one] if n % 2 else [])
+    way += [stores[0]] * min(degree, 32) + [stores[1]] * max(degree - 32, 0)
+    return kernel.path_through(way)
+
+
+def b1_issue(kernels, cn_rows, v2c, top, ms):
+    """Issue bound of one B1 launch of ``ms`` on ``v2c`` from its SASS: the
+    slot loops of the instance the launcher picks, for each check's degree
+    (:func:`b1_sass_path`).  Returns the fields ``lanes``, ``issue_ms``,
+    ``issue_share`` and ``sass_per_edge_lane`` (None where the library has
+    no such instance or another layout), and a line of text."""
+    from ldpcsimulation_tpu_torch.kernels.minsum import lane_width
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    batch = v2c.shape[1]
+    lanes = lane_width(batch, v2c.dtype, v2c.data_ptr(), 0)
+    fields = dict(lanes=lanes, issue_ms=None, issue_share=None,
+                  sass_per_edge_lane=None)
+    try:
+        k = sass_count.find(kernels, b1_instance(v2c.dtype, lanes))
+    except KeyError:
+        return fields, f"{lanes} lanes; issue not measured (no instance)"
     degs, counts = torch.unique((cn_rows >= 0).sum(dim=1).cpu(),
                                 return_counts=True)
-    # a check with no slot (a synthetic table's) takes the path of one
-    path = sum(int(c) * k.path_length(stores=max(int(d), 1), loads=True)
-               for d, c in zip(degs, counts)) / m
-    return sass_count.issue_ms(m * batch, path, top, SMS), path, maxdc
+    paths = [b1_sass_path(k, int(d)) for d in degs]
+    if None in paths:
+        return fields, f"{lanes} lanes; issue not measured (SASS layout)"
+    total = sum(int(c) * p for p, c in zip(paths, counts))
+    issue = sass_count.issue_ms(cn_rows.shape[0] * -(-batch // lanes),
+                                total / cn_rows.shape[0], top, SMS)
+    fields.update(issue_ms=issue, issue_share=issue / ms,
+                  sass_per_edge_lane=total / (int((cn_rows >= 0).sum())
+                                              * lanes))
+    return fields, (f"{lanes} lanes; issue {issue:.4f} ms "
+                    f"({fields['sass_per_edge_lane']:.1f} SASS per "
+                    f"edge-lane)")
+
+
+def b1_forms(device):
+    """(name, cn_rows, rows of v2c, batch, dtypes, variants) of B1's
+    slot-array and generalized QC forms, an odd batch among them."""
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import minsum_plan, qc_plan
+
+    g = torch.Generator().manual_seed(14)
+    big = torch.randperm(210000, generator=g)[:200000].to(torch.int32)
+    big = torch.cat([big, torch.full((10000,), -1, dtype=torch.int32)])
+    all3 = ("plain", "normalized", "offset")
+    peg = minsum_plan(load_named_code(PEG_CODE), device).cn_rows
+    return (
+        ("generic peg_1008_504", peg, 3024, BATCH,
+         (torch.float16, torch.float32), ("plain",)),
+        ("32-slot highrate_2048_384", minsum_plan(
+            load_named_code("highrate_2048_384"), device).cn_rows, 12288,
+         BATCH, (torch.float16,), all3),
+        ("64-slot highrate_4376_282", minsum_plan(
+            load_named_code("highrate_4376_282"), device).cn_rows, 17504,
+         BATCH, (torch.float16,), all3),
+        ("generalized dvbs2_1_2_qc", qc_plan(
+            load_named_qc(DVBS2_CODE), device).cn_rows, 226800, DVBS2_BATCH,
+         (torch.float16,), ("plain", "offset")),
+        ("70000 checks", big[torch.randperm(210000, generator=g)].view(
+            70000, 3).to(device), 210000, 1024, (torch.float32,),
+         ("plain",)),
+        # an odd batch: the 1-lane instance
+        (f"odd batch peg_1008_504 B={ODD_BATCH}", peg, 3024, ODD_BATCH,
+         (torch.float16, torch.float32), all3),
+    )
 
 
 def phase_b1_forms(device, lib_path, timer):
     """Kernel B1 against its twin in the slot-array and generalized QC
-    forms, with each form's time and bounds."""
-    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
-    from ldpcsimulation_tpu_torch.decoders import minsum_plan, qc_plan
+    forms, bit for bit, with each form's time and bounds; the narrow
+    instances (an odd batch, a misaligned view) against the twin; and a
+    batch of 2^30, whose rows lie 2^32 bytes and more apart in c2v."""
+    from ldpcsimulation_tpu_torch.codes import load_named_code
+    from ldpcsimulation_tpu_torch.decoders import minsum_plan
     from ldpcsimulation_tpu_torch.kernels.minsum import (
+        lane_width,
         minsum_cn_scan,
         minsum_cn_scan_plain,
     )
@@ -1093,26 +1200,11 @@ def phase_b1_forms(device, lib_path, timer):
     _, top = sm_clocks()
     kernels = sass_count.parse(sass_count.disassemble(lib_path))
     gen = torch.Generator(device=device).manual_seed(14)
-    g = torch.Generator().manual_seed(14)
-    big = torch.randperm(210000, generator=g)[:200000].to(torch.int32)
-    big = torch.cat([big, torch.full((10000,), -1, dtype=torch.int32)])
-    forms = (
-        ("generic peg_1008_504", minsum_plan(
-            load_named_code(PEG_CODE), device).cn_rows, 3024, BATCH,
-         (torch.float16, torch.float32), ("plain",)),
-        ("64-slot highrate_4376_282", minsum_plan(
-            load_named_code("highrate_4376_282"), device).cn_rows, 17504,
-         BATCH, (torch.float16,), ("plain", "normalized", "offset")),
-        ("generalized dvbs2_1_2_qc", qc_plan(
-            load_named_qc(DVBS2_CODE), device).cn_rows, 226800, DVBS2_BATCH,
-         (torch.float16,), ("plain", "offset")),
-        ("70000 checks", big[torch.randperm(210000, generator=g)].view(
-            70000, 3).to(device), 210000, 1024, (torch.float32,),
-         ("plain",)),
-    )
+    all3 = ("plain", "normalized", "offset")
+    peg = minsum_plan(load_named_code(PEG_CODE), device).cn_rows
     kw = {"plain": {}, "normalized": {"alpha": 0.8}, "offset": {"delta": 0.15}}
     out, max_err = {}, 0.0
-    for name, cn_rows, rows, batch, dtypes, variants in forms:
+    for name, cn_rows, rows, batch, dtypes, variants in b1_forms(device):
         named = torch.unique(cn_rows[cn_rows >= 0]).long()
         check(named.numel() == int((cn_rows >= 0).sum()),
               f"{name}: a row named twice")
@@ -1124,7 +1216,7 @@ def phase_b1_forms(device, lib_path, timer):
                                             **kw[variant])
                 got, want = got[named], want[named]
                 max_err = max(max_err, float((got - want).abs().max()))
-                check(torch.equal(got, want),
+                check(same_bits(got, want),
                       f"B1 {name} {variant} {dtype}: kernel != plain")
                 del got, want
             ms = timer(lambda: minsum_cn_scan(v2c, cn_rows))
@@ -1132,21 +1224,51 @@ def phase_b1_forms(device, lib_path, timer):
             nbytes = (named.numel() * batch * (v2c.element_size() + 4)
                       + cn_rows.numel() * 4)
             mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            issue, path, maxdc = b1_issue(kernels, cn_rows, batch, dtype, top)
+            diag, diag_text = b1_issue(kernels, cn_rows, v2c, top, ms)
             key = f"{name} {str(dtype).split('.')[-1]}"
             out[key] = dict(
-                shape=[rows, batch], dc_max=int(cn_rows.shape[1]),
-                instance=maxdc, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                memory_ms=mem_ms, issue_ms=issue, sass_path=path,
-                memory_share=mem_ms / ms,
+                shape=[rows, batch], dc_max=int(cn_rows.shape[1]), ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, bound_ms=mem_ms,
+                bound_by="bytes", share=mem_ms / ms, **diag,
             )
             print(f"  B1 {key}: equal ({', '.join(variants)}); {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms [{rows} x {batch}], "
-                  f"{maxdc}-slot instance; memory {mem_ms:.4f} ms "
-                  f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), issue "
-                  f"{issue:.4f} ms ({path:.0f} SASS on a thread's path)")
+                  f"plain {plain_ms:.4f} ms [{rows} x {batch}]; memory bound "
+                  f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB), roofline share "
+                  f"{mem_ms / ms:.1%}; {diag_text}")
             del v2c
         torch.cuda.empty_cache()
+    # a view two elements into its buffer: the 2-lane instance
+    for dtype in (torch.float16, torch.float32):
+        buf = tied_messages(gen, 3024 * BATCH + 2, 1, dtype, device).view(-1)
+        v2c = buf[2:].view(3024, BATCH)
+        check(lane_width(BATCH, dtype, v2c.data_ptr(), 0) == 2,
+              f"B1 lanes on a view 2 elements in ({dtype})")
+        for variant in all3:
+            got = minsum_cn_scan(v2c, peg, variant, **kw[variant])
+            want = minsum_cn_scan_plain(v2c, peg, variant, **kw[variant])
+            check(same_bits(got, want),
+                  f"B1 misaligned {variant} {dtype}: kernel != plain")
+        del buf, v2c, got, want
+    print(f"  B1 on a view 2 elements into its buffer [3024 x {BATCH}] f16 "
+          f"and f32 (the 2-lane instance): equal (three variants)")
+    # one check of two rows at a batch of 2^30: each row's output is the
+    # other row's message, and the tail equals the twin's
+    torch.cuda.empty_cache()
+    huge = 1 << 30
+    pair = torch.tensor([[0, 1]], dtype=torch.int32, device=device)
+    v2c = (torch.randn(2, huge, generator=gen, device=device) + 0.5).to(
+        torch.float16)
+    got = minsum_cn_scan(v2c, pair)
+    check(torch.equal(got[0], v2c[1].float())
+          and torch.equal(got[1], v2c[0].float()),
+          "B1 at batch 2^30: a row's output is not the other row's message")
+    tail = v2c[:, -4096:].contiguous()
+    check(same_bits(got[:, -4096:], minsum_cn_scan_plain(tail, pair)),
+          "B1 at batch 2^30: the tail != plain")
+    del v2c, got, tail
+    torch.cuda.empty_cache()
+    print("  B1 on one check of two rows at batch 2^30 [2 x 2^30] f16: each "
+          "row gets the other's message, the tail equal to the twin")
     wide = torch.zeros((65, 65), dtype=torch.int32, device=device)
     try:
         minsum_cn_scan(torch.zeros((65, 8), device=device), wide)
@@ -1155,6 +1277,110 @@ def phase_b1_forms(device, lib_path, timer):
         check("dc_max <= 64" in str(e), f"B1 refusal: {e}")
     print("  B1 refuses dc_max 65 by name")
     return out, max_err
+
+
+def phase_b1_times(device, timer):
+    """Kernel B1's time at every caller's form, with its memory bound and
+    roofline share, and ms per iteration of the min-sum paths it carries
+    (T=10 f16 decodes at B=32768, no early termination).  It calls only
+    ``minsum_cn_scan`` and the decoders, so ``tools/ab_smoke.py --here``
+    runs it over another checkout's package: two commits' B1 in one call.
+    ``main`` does not call it: [3], [14], [20], [36] and [42] time the
+    same forms beside their checks."""
+    from ldpcsimulation_tpu_torch.channel import awgn_all_zero, snr_to_sigma
+    from ldpcsimulation_tpu_torch.codes import (
+        build_code,
+        detect_stratified,
+        load_named_code,
+        load_named_qc,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        decode_minsum,
+        decode_minsum_qc,
+        decode_minsum_stratified,
+        minsum_plan,
+        qc_plan,
+        stratified_plan,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.minsum import minsum_cn_scan
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    try:  # SASS per edge-lane where the package has the lane instances
+        from ldpcsimulation_tpu_torch.kernels.minsum import lane_width  # noqa
+        kernels = sass_count.parse(sass_count.disassemble(build.build()[0]))
+    except ImportError:
+        kernels = None
+    _, top = sm_clocks()
+    print(f"  {card_line()}")
+    f16, f32 = torch.float16, torch.float32
+    qc = load_named_qc(CODE)
+    plan = qc_plan(qc, device)
+    forms = [(f"QC {CODE}", plan.cn_rows, plan.num_planes * qc.z, BATCH,
+              (f16, f32))]
+    forms += [form[:5] for form in b1_forms(device)]
+    for name, batch in ((CODE, BATCH), (WIFI_CODE, BATCH),
+                        (DVBS2_CODE, DVBS2_BATCH)):
+        code = load_named_qc(name)
+        layers = qc_plan(code, device).layers
+        lp = layers[max(range(code.mb), key=lambda bi: layers[bi].dc)]
+        forms.append((f"{name} layer", lp.scan_rows, lp.dc * code.z, batch,
+                      (f32,)))
+    alist = stratified_alist(**STRAT_GEOMETRY)
+    sc = detect_stratified(alist)
+    forms.append(("stratified", stratified_plan(sc, device).cn_rows,
+                  sc.mb * sc.kg * sc.w, BATCH, (f16,)))
+    forms.append((f"B=1 {PEG_CODE}", minsum_plan(
+        load_named_code(PEG_CODE), device).cn_rows, 3024, 1, (f32,)))
+    gen = torch.Generator(device=device).manual_seed(14)
+    out = {"forms": {}, "paths": {}}
+    for name, cn_rows, rows, batch, dtypes in forms:
+        named = int((cn_rows >= 0).sum())
+        for dtype in dtypes:
+            v2c = tied_messages(gen, rows, batch, dtype, device)
+            ms = time_small_ms(lambda: minsum_cn_scan(v2c, cn_rows), 20)
+            nbytes = (named * batch * (v2c.element_size() + 4)
+                      + cn_rows.numel() * 4)
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            row = dict(shape=[rows, batch], ms=ms, bytes=nbytes,
+                       bound_ms=mem_ms, share=mem_ms / ms)
+            text = ""
+            if kernels is not None:
+                diag, text = b1_issue(kernels, cn_rows, v2c, top, ms)
+                row.update(diag)
+                text = f"; {text}"
+            out["forms"][key] = row
+            print(f"  B1 {key} [{rows} x {batch}]: {ms:.4f} ms; memory "
+                  f"bound {mem_ms:.4f} ms, roofline share {mem_ms / ms:.1%}"
+                  f"{text}", flush=True)
+            del v2c
+        torch.cuda.empty_cache()
+
+    def samples(code, snr):
+        rate = (code.n - code.m) / code.n
+        return awgn_all_zero(0, 0, BATCH, code.n, snr_to_sigma(snr, rate),
+                             device)
+
+    hr = load_named_code(HW_CODE).to(device)
+    strat = build_code(alist, device)
+    y_qc, y_hr, y_st = (samples(qc, SNR_DB), samples(hr, 3.5),
+                        samples(strat, STRAT_SNR_DB))
+    runs = {
+        f"{CODE} QC min-sum": lambda: decode_minsum_qc(
+            qc, y_qc, T, storage_dtype=f16),
+        f"{HW_CODE} slot-array min-sum": lambda: decode_minsum(
+            hr, y_hr, T, storage_dtype=f16),
+        "802.3an geometry stratified min-sum": lambda: (
+            decode_minsum_stratified(sc, y_st, T, storage_dtype=f16)),
+        "802.3an geometry slot-array min-sum": lambda: decode_minsum(
+            strat, y_st, T, storage_dtype=f16),
+    }
+    for name, fn in runs.items():
+        out["paths"][name] = timer(fn, 3) / T
+        print(f"  {name}: {out['paths'][name]:.4f} ms per iteration",
+              flush=True)
+    return out
 
 
 def phase_card_vs_cpu(device):
@@ -1612,28 +1838,29 @@ def phase_b1_layer(device, lib_path, timer):
                 want = minsum_cn_scan_plain(qext, lp.scan_rows, variant,
                                             **kw[variant])[named]
                 max_err = max(max_err, float((got - want).abs().max()))
-                check(torch.equal(got, want),
+                check(same_bits(got, want),
                       f"B1 layer {name}[{bi}] {variant}: kernel != plain")
-            ms = timer(lambda: minsum_cn_scan(qext, lp.scan_rows), 50)
+            # a launch of ~0.06 ms: the long sleep keeps the host's
+            # enqueue rate out of the device time
+            ms = time_small_ms(lambda: minsum_cn_scan(qext, lp.scan_rows), 50)
             plain_ms = timer(
                 lambda: minsum_cn_scan_plain(qext, lp.scan_rows), 3)
             nbytes = named.numel() * batch * 8 + lp.scan_rows.numel() * 4
             mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            issue, path, maxdc = b1_issue(kernels, lp.scan_rows, batch,
-                                          torch.float32, top)
+            diag, diag_text = b1_issue(kernels, lp.scan_rows, qext, top, ms)
             out[f"{name} layer {bi}"] = dict(
-                shape=[rows, batch], checks=qc.z, dc=lp.dc, instance=maxdc,
+                shape=[rows, batch], checks=qc.z, dc=lp.dc,
                 absent=0 if lp.absent is None else int(lp.absent.numel()),
-                ms=ms, plain_ms=plain_ms, bytes=nbytes, memory_ms=mem_ms,
-                issue_ms=issue, sass_path=path, memory_share=mem_ms / ms,
+                ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=mem_ms,
+                bound_by="bytes", share=mem_ms / ms, **diag,
             )
             print(f"  B1 {name} layer {bi} [{rows} x {batch}] f32, {qc.z} "
                   f"checks x {lp.dc} slots"
                   f"{'' if lp.absent is None else ', one absent edge'}: "
                   f"equal (3 variants, tied); {ms:.4f} ms per launch, plain "
-                  f"{plain_ms:.4f} ms; memory {mem_ms:.4f} ms "
-                  f"({nbytes / 1e6:.1f} MB, share {mem_ms / ms:.1%}), issue "
-                  f"{issue:.4f} ms ({path:.0f} SASS); a layered decode "
+                  f"{plain_ms:.4f} ms; memory bound {mem_ms:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB), roofline share "
+                  f"{mem_ms / ms:.1%}; {diag_text}; a layered decode "
                   f"launches it {qc.mb} times per executed iteration")
             del qext
     return out, max_err
@@ -2309,7 +2536,8 @@ def lanes_draws(device, lib_path, timer):
             bound_by="bytes" if mem_ms >= ops_ms else "operations",
             issue_ms=issue, sass_path=path, sass_static=k.static_count,
             threads=threads, bytes=nbytes, operations=ops,
-            share=max(mem_ms, ops_ms, issue) / ms, memory_share=mem_ms / ms)
+            share=max(mem_ms, ops_ms) / ms, issue_share=issue / ms,
+            memory_share=mem_ms / ms)
         print(f"  {name}: kernel == plain at [{n} x {BATCH}] and [33 x "
               f"1007], both domains and layouts, and == the contiguous "
               f"kernel on contiguous gids; {ms:.4f} ms (contiguous "
@@ -2317,7 +2545,8 @@ def lanes_draws(device, lib_path, timer):
               f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB, share "
               f"{mem_ms / ms:.1%}), operations {ops_ms:.4f} ms, issue "
               f"{issue:.4f} ms ({path:g} SASS on one thread's path of "
-              f"{k.static_count}), share {max(mem_ms, issue) / ms:.1%}")
+              f"{k.static_count}, share {issue / ms:.1%}), roofline share "
+              f"{max(mem_ms, ops_ms) / ms:.1%}")
     paths = {k: v for k, v in build.PATHS.items() if "lanes" in k[0]}
     check(all(paths.get((nm, p), 0) > 0 for nm in kinds
               for p in ("fast", "tail")), f"per-lane instances {paths}")
@@ -3872,7 +4101,7 @@ def phase_tools_card(device, timer, rates):
     named = torch.unique(plan.cn_rows[plan.cn_rows >= 0]).long()
     got = minsum_cn_scan(v, plan.cn_rows)[named]
     want = minsum_cn_scan_plain(v, plan.cn_rows)[named]
-    check(torch.equal(got, want), "B1 at B=1: kernel != plain")
+    check(same_bits(got, want), "B1 at B=1: kernel != plain")
     ms = time_small_ms(lambda: minsum_cn_scan(v, plan.cn_rows))
     plain_ms = timer(lambda: minsum_cn_scan_plain(v, plan.cn_rows), 5)
     nbytes = named.numel() * (4 + 4) + plan.cn_rows.numel() * 4
@@ -5487,7 +5716,7 @@ def phase_stratified(device, lib_path, timer):
         got = minsum_cn_scan(v2c, cn_rows, variant, **kw)[named]
         want = minsum_cn_scan_plain(v2c, cn_rows, variant, **kw)[named]
         max_err = max(max_err, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"B1 stratified {variant}: kernel != "
+        check(same_bits(got, want), f"B1 stratified {variant}: kernel != "
               "plain")
         del got, want
     b1_ms = timer(lambda: minsum_cn_scan(v2c, cn_rows))
@@ -5497,16 +5726,13 @@ def phase_stratified(device, lib_path, timer):
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     _, top = sm_clocks()
     kernels = sass_count.parse(sass_count.disassemble(lib_path))
-    issue, path, maxdc = b1_issue(kernels, cn_rows, BATCH, f16, top)
-    bound = max(mem_ms, issue)
+    diag, diag_text = b1_issue(kernels, cn_rows, v2c, top, b1_ms)
     print(f"  B1 stratified [{v2c.shape[0]} x {BATCH}] f16, table "
-          f"[{cn_rows.shape[0]} x {cn_rows.shape[1]}] ({maxdc}-slot "
-          f"instance): equal to the twin (plain, normalized 1.3, offset "
-          f"0.15); {b1_ms:.4f} ms, plain {plain_ms:.4f} ms; memory "
-          f"{mem_ms:.4f} ms ({nbytes / 1e9:.3f} GB), issue {issue:.4f} ms "
-          f"({path:.0f} SASS on a thread's path): "
-          f"{'bytes' if mem_ms >= issue else 'issue'}, share "
-          f"{bound / b1_ms:.1%}; {b1_ms / (min(times['stratified']) / T):.1%}"
+          f"[{cn_rows.shape[0]} x {cn_rows.shape[1]}]: equal to the twin "
+          f"(plain, normalized 1.3, offset 0.15); {b1_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; memory bound {mem_ms:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB), roofline share {mem_ms / b1_ms:.1%}; "
+          f"{diag_text}; {b1_ms / (min(times['stratified']) / T):.1%}"
           f" of a stratified iteration")
     out["full_width"] = dict(
         breakdown_ms=parts,
@@ -5515,10 +5741,9 @@ def phase_stratified(device, lib_path, timer):
         peak_gib=peak, slot_array_peak_gib=peak_slot, ber=ber,
         launches=launches)
     out["b1"] = dict(shape=[v2c.shape[0], BATCH], dc_max=int(sc.kg),
-                     instance=maxdc, ms=b1_ms, plain_ms=plain_ms,
-                     bytes=nbytes, memory_ms=mem_ms, issue_ms=issue,
-                     sass_path=path, memory_share=mem_ms / b1_ms,
-                     max_abs_err=max_err)
+                     ms=b1_ms, plain_ms=plain_ms, bytes=nbytes,
+                     bound_ms=mem_ms, bound_by="bytes", share=mem_ms / b1_ms,
+                     max_abs_err=max_err, **diag)
     return out
 
 

@@ -122,8 +122,8 @@ def library() -> ctypes.CDLL:
         lib.ldpc_awgn_philox.restype = ctypes.c_int
         lib.ldpc_minsum_cn_scan.argtypes = [
             _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            _P, ctypes.c_int, _P,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, _P, ctypes.c_int, _P,
         ]
         lib.ldpc_minsum_cn_scan.restype = ctypes.c_int
         draw = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,

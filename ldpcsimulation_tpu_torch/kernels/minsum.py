@@ -13,7 +13,9 @@ names is left unwritten (``torch.empty``): the callers zero it themselves
 (the slot-array decoder's padding slots, the QC decoder's absent edges).
 The kernel takes any M and ``dc_max`` up to 64, as the Pallas kernel's
 tiles can hold; a table of more than 65535 checks takes one grid per 65535
-(still one call, one count in ``LAUNCHES``).
+(still one call, one count in ``LAUNCHES``).  Each thread takes several
+contiguous batch lanes: :func:`lane_width` picks the kernel instance from
+the batch, the storage type and the pointers' alignment.
 
 :func:`minsum_cn_scan` launches the kernel for CUDA tensors and runs
 :func:`minsum_cn_scan_plain` for CPU tensors.  Both are exact: the scan only
@@ -27,12 +29,28 @@ import torch
 
 from . import build
 
-__all__ = ["VARIANTS", "minsum_cn_scan", "minsum_cn_scan_plain",
-           "in_storage"]
+__all__ = ["VARIANTS", "LANES", "minsum_cn_scan", "minsum_cn_scan_plain",
+           "in_storage", "lane_width"]
 
 #: variant name -> id passed to the kernel
 VARIANTS = {"plain": 0, "normalized": 1, "offset": 2}
-_MAX_DC = 64  # the kernel's largest compile-time slot cap
+#: lanes per thread of the kernel's instances (f16 and f32), widest first
+LANES = (4, 2, 1)
+_MAX_DC = 64  # the most slots a check's sign mask holds
+
+
+def lane_width(batch: int, dtype: torch.dtype, v2c_ptr: int,
+               c2v_ptr: int) -> int:
+    """Lanes per thread of the instance that takes a call: the widest
+    whose vector accesses stay aligned — ``batch`` a multiple of it, the
+    v2c address of its load (lanes × element bytes) and the c2v address of
+    its f32 stores (lanes × 4 bytes, at most 16)."""
+    size = torch.finfo(dtype).bits // 8
+    for lanes in LANES[:-1]:
+        if (batch % lanes == 0 and v2c_ptr % (lanes * size) == 0
+                and c2v_ptr % min(lanes * 4, 16) == 0):
+            return lanes
+    return 1  # takes any call
 
 
 def in_storage(x: float, dtype: torch.dtype) -> float:
@@ -126,10 +144,12 @@ def minsum_cn_scan(v2c, cn_rows, variant="plain", alpha=1.0, delta=0.0):
             f"dc_max={dc}"
         )
     sdt = v2c.dtype
+    batch = v2c.shape[1]
     c2v = torch.empty(v2c.shape, dtype=torch.float32, device=v2c.device)
     rc = build.library().ldpc_minsum_cn_scan(
         v2c.data_ptr(), int(sdt == torch.float16), cn_rows.data_ptr(), m, dc,
-        v2c.shape[1], VARIANTS[variant], in_storage(alpha, sdt),
+        batch, lane_width(batch, sdt, v2c.data_ptr(), c2v.data_ptr()),
+        VARIANTS[variant], in_storage(alpha, sdt),
         in_storage(delta, sdt), c2v.data_ptr(), v2c.device.index,
         build.stream_of(v2c.device),
     )

@@ -15,7 +15,12 @@ non-zero exit code, after running every DIR.
 runs, in place of the whole script, one phase function of the signature
 ``phase(device, timer)`` several times in each DIR's process: the host-clock
 rates of one path, with their spread inside a process, free of what the other
-phases leave behind.
+phases leave behind.  With ``--here`` the phase is this checkout's, run over
+each DIR's package and kernels; so ``phase_b1_times`` times kernel B1 at
+every caller's form, and the min-sum paths, in turns with an older commit:
+
+    python -m ldpcsimulation_tpu_torch.tools.ab_smoke --here --phase \
+        phase_b1_times build/parent . . build/parent
 """
 
 from __future__ import annotations
@@ -33,15 +38,18 @@ spec = importlib.util.spec_from_file_location("timer_source", {timer!r})
 timer_source = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(timer_source)
 sys.path.insert(0, ".")
-import chip_smoke
-chip_smoke.time_ms = timer_source.time_ms
-phase, repeat = {phase!r}, {repeat!r}
+phase, repeat, here = {phase!r}, {repeat!r}, {here!r}
+if here:
+    source = timer_source
+else:
+    import chip_smoke as source
+    source.time_ms = timer_source.time_ms
 if phase is None:
-    sys.exit(chip_smoke.main())
+    sys.exit(source.main())
 import torch
 for i in range(repeat):
     print(f"-- {{phase}} run {{i}}", flush=True)
-    getattr(chip_smoke, phase)(torch.device("cuda", 0), chip_smoke.time_ms)
+    getattr(source, phase)(torch.device("cuda", 0), source.time_ms)
 """
 
 
@@ -53,9 +61,14 @@ def main(argv=None) -> int:
                     "function of each chip_smoke.py")
     ap.add_argument("--repeat", type=int, default=1,
                     help="times to run --phase in each process")
+    ap.add_argument("--here", action="store_true",
+                    help="run this checkout's --phase over each DIR's "
+                    "package")
     args = ap.parse_args(argv)
+    if args.here and args.phase is None:
+        ap.error("--here needs --phase")
     code = _RUN.format(timer=str(TIMER), phase=args.phase,
-                       repeat=args.repeat)
+                       repeat=args.repeat, here=args.here)
     rcs = []
     for d in args.dirs:
         print(f"== {d} (timer: {TIMER})", flush=True)

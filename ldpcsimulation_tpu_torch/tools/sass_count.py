@@ -18,10 +18,13 @@ accurate math functions (the Payne–Hanek reduction of ``cosf``, the
 special-operand fix-ups of ``sqrtf``) behind branches or in called
 subroutines, so the shortest such path skips them; a subroutine called
 without a predicate counts with its own shortest path to ``RET``.  Where
-a run-time branch picks one of several copies of the stores (the min-sum
-kernel's variants), the first copy in address order is the path's, with the
-loads inside it (the 64-slot min-sum instance re-reads its row table there)
-and not those of the other copies.
+a run-time branch picks one of several copies of the stores, the first copy
+in address order is the path's, with the loads inside it and not those of
+the other copies.
+
+A kernel with run-time loops (the min-sum kernel's slot loops) has no
+single such path: :meth:`Kernel.path_through` gives the path through a
+list of its loads and stores in order, one entry per trip of a loop.
 
 The issue bound of a launch is its warp instructions over the card's issue
 rate: ``threads × path / 32`` over ``SMs × 4 × SM clock`` (four warp
@@ -151,6 +154,45 @@ class Kernel:
             if s is not None:
                 at = s
         return total + 1
+
+    def path_through(self, waypoints: Iterable[int]) -> int:
+        """Instructions on the shortest path from the entry through the
+        instructions of ``waypoints`` (indices into ``instrs``), in order,
+        to an EXIT (counted).  An index twice in a row goes once around the
+        loop that holds it: a kernel with run-time loops gets the path of a
+        given trip count by naming its loads or stores once per trip."""
+        exits = self._ops({"EXIT"})
+        total, at = 0, None
+        for goal in list(waypoints) + [None]:
+            goals = exits if goal is None else {goal}
+            d = self._hop(0 if at is None else at, goals, first=at is None)
+            if d is None:
+                raise ValueError(f"{self.name}: no path from {at} to "
+                                 f"{'EXIT' if goal is None else goal}")
+            total += d
+            at = goal
+        return total + 1
+
+    def _hop(self, start: int, goals: set, first: bool) -> Optional[int]:
+        """Instructions executed from ``start`` (counted) until the first
+        of ``goals`` (not counted), reached after at least one step unless
+        ``first`` allows ``start`` itself."""
+        if first and start in goals:
+            return 0
+        best: Dict[int, int] = {}
+        heap = [(1 + extra, j) for j, extra in self._succ(start)]
+        heapq.heapify(heap)
+        while heap:
+            d, i = heapq.heappop(heap)
+            if i in best:
+                continue
+            best[i] = d
+            if i in goals:
+                return d
+            for j, extra in self._succ(i):
+                if j not in best:
+                    heapq.heappush(heap, (d + 1 + extra, j))
+        return None
 
     @property
     def static_count(self) -> int:

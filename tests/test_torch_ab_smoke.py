@@ -4,6 +4,8 @@ back."""
 
 from pathlib import Path
 
+import pytest
+
 from ldpcsimulation_tpu_torch.tools import ab_smoke
 
 FAKE = """
@@ -48,3 +50,26 @@ def test_ab_smoke_runs_one_phase_repeatedly(tmp_path, capfd):
     out = capfd.readouterr().out
     assert out.count("phase_x on cuda:0 timer_source") == 2 and "cwd" not in out
     assert "-- phase_x run 1" in out
+
+
+def test_ab_smoke_here_runs_this_phase_in_each_checkout(tmp_path, capfd,
+                                                        monkeypatch):
+    """``--here``: the phase is this checkout's script's, run from each
+    DIR (its package and build), which needs no chip_smoke.py of its own;
+    without ``--phase`` it is refused."""
+    here = tmp_path / "here"
+    here.mkdir()
+    (here / "chip_smoke.py").write_text(FAKE.format(rc=0) + """
+
+def phase_y(device, timer):
+    print("phase_y in", os.path.basename(os.getcwd()), timer.__module__)
+""")
+    monkeypatch.setattr(ab_smoke, "TIMER", here / "chip_smoke.py")
+    (tmp_path / "old").mkdir()
+    args = ["--here", "--phase", "phase_y"]
+    assert ab_smoke.main(args + [str(tmp_path / "old"), str(here)]) == 0
+    out = capfd.readouterr().out
+    assert "phase_y in old timer_source" in out
+    assert "phase_y in here timer_source" in out
+    with pytest.raises(SystemExit):
+        ab_smoke.main(["--here", str(tmp_path / "old")])

@@ -113,3 +113,90 @@ def test_issue_bound_and_lookup():
     assert sc.issue_ms(32 * 528, 1_000_000, 1000.0) == pytest.approx(1.0)
     with pytest.raises(KeyError):
         sc.find(sc.parse(_listing(True)), "absent")
+
+
+LOOP = HEADER + """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   MOV R2, RZ ;
+        /*0020*/                   LDG.E R3, [R4.64] ;
+        /*0030*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0040*/                   ISETP.GE.AND P0, PT, R2, R0, PT ;
+        /*0050*/              @!P0 BRA 0x20 ;
+        /*0060*/                   ISETP.GT.AND P1, PT, R0, 0x20, PT ;
+        /*0070*/               @P1 BRA 0xa0 ;
+        /*0080*/                   STG.E [R4.64], R3 ;
+        /*0090*/                   EXIT ;
+        /*00a0*/                   LDG.E R3, [R4.64+0x4] ;
+        /*00b0*/                   STG.E [R4.64], R3 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("trips,extra,want", [
+    # S2R MOV, [LDG IADD3 ISETP BRA] per trip, ISETP BRA, STG EXIT
+    (1, False, 2 + 4 + 2 + 2),
+    (3, False, 2 + 3 * 4 + 2 + 2),
+    # the other side of the second branch: LDG STG EXIT
+    (2, True, 2 + 2 * 4 + 2 + 3),
+])
+def test_path_through_loop_trips(trips, extra, want):
+    """A run-time loop's trips are named by repeating one of its loads;
+    the path between two waypoints takes the branch that reaches the
+    next one."""
+    k = sc.find(sc.parse(LOOP), "demo")
+    ld, st = 2, (11 if extra else 8)
+    waypoints = [ld] * trips + ([10] if extra else []) + [st]
+    assert k.path_through(waypoints) == want
+    # no waypoint: one trip (the loop's body precedes its test)
+    assert k.path_through([]) == k.path_length(stores=1) == 10
+
+
+def test_path_through_refuses_unreachable_order():
+    k = sc.find(sc.parse(LOOP), "demo")
+    with pytest.raises(ValueError, match="no path"):
+        k.path_through([8, 2])  # no way back into the loop from its exit
+
+
+def _b1_listing() -> str:
+    """B1's loop layout: two row-table loads; in each 32-slot half a loop
+    of four message loads, then two, then one; a loop of one store per
+    half; EXIT."""
+    body = ["S2R R0, SR_TID.X ;", "LDG.E R6, [R4.64] ;",
+            "LDG.E R7, [R4.64+0x80] ;"]
+    loops = {}
+    for h in range(2):
+        loops[f"four{h}"] = len(body)
+        body += [f"LDG.E.64 R{8 + j}, [R2.64] ;" for j in range(4)]
+        body += ["ISETP.GE.AND P0, PT, R0, 0x4, PT ;",
+                 f"@!P0 BRA {loops[f'four{h}'] * 16:#x} ;"]
+        body += ["LDG.E.64 R8, [R2.64] ;", "LDG.E.64 R9, [R2.64] ;",
+                 "LDG.E.64 R8, [R2.64] ;"]
+    for h in range(2):
+        loops[f"store{h}"] = len(body)
+        body += ["STG.E.128 [R2.64], R8 ;",
+                 "ISETP.GE.AND P1, PT, R0, 0x1, PT ;",
+                 f"@!P1 BRA {loops[f'store{h}'] * 16:#x} ;"]
+    body.append("EXIT ;")
+    return HEADER + "".join(f"        /*{i * 16:04x}*/                   "
+                            f"{x}\n" for i, x in enumerate(body))
+
+
+@pytest.mark.parametrize("degree,way", [
+    # loads at 1, 2; half 0: fours 3-6, two 9-10, one 11; half 1: fours
+    # 12-15, two 18-19, one 20; stores 21 (half 0) and 24 (half 1)
+    (1, [11, 21]),
+    (6, [3, 4, 5, 6, 9, 10] + [21] * 6),
+    (32, [3, 4, 5, 6] * 8 + [21] * 32),
+    (39, [3, 4, 5, 6] * 8 + [12, 13, 14, 15, 18, 19, 20] + [21] * 32
+     + [24] * 7),
+])
+def test_b1_sass_path_walks_the_slot_loops(degree, way):
+    """``chip_smoke.b1_sass_path`` names a check's loads and stores in the
+    order its slot loops execute them; another layout gives None (the
+    count is a diagnostic, never a failure)."""
+    import chip_smoke
+
+    k = sc.find(sc.parse(_b1_listing()), "demo")
+    assert chip_smoke.b1_sass_path(k, degree) == k.path_through(way)
+    assert chip_smoke.b1_sass_path(sc.find(sc.parse(LOOP), "demo"),
+                                   degree) is None
