@@ -20,16 +20,19 @@ the exit code is non-zero):
      the compiler's register report);
   3. kernel B1 (min-sum CN update) against its twin at the main path's
      shapes — qc_1008_504, B=32768, f16 and f32 storage, all three
-     variants — equal bit for bit (int32 views: signed zeros too);
+     variants — equal bit for bit (int32 views: signed zeros too); its f16
+     store (the flooding steps' instance) equal to the twin's and to the
+     f32 output cast (int16 views);
   4. kernel B2 (Philox AWGN) against its twin: samples and 24-bit integers
      equal under ``torch.equal``, then the decode of those samples with the
      kernels equal bit for bit to the plain path's decode on the CPU;
   5. the main path: ``simulate`` on qc_1008_504 at 2.0 dB, T=10, f16
      storage, 4 batches of 32768 frames, with the launch counters reset just
-     before and read just after — BER in [2.2e-2, 2.6e-2], both kernels
-     launched (B2 by its float4 instance); bit errors, word errors and
-     iterations equal to the parent commit's run (the noise is keyed);
-     decoded info bits/s and a per-layer time breakdown;
+     before and read just after — BER in [2.2e-2, 2.6e-2], B1 and B5 T
+     times per batch, B2 once (by its float4 instance); bit errors, word
+     errors and iterations equal to the parent commit's run (the noise is
+     keyed); decoded info bits/s and a per-layer time breakdown (B1's f16
+     store, B5, the iteration);
   6. the sweep CLI in-process for one point, and its log row;
   7. kernel B3 (keyed Philox uniforms) against its twin at [1008 x 32768]
      in both layouts: equal under ``torch.equal``, on the 24-bit grid;
@@ -71,9 +74,10 @@ the exit code is non-zero):
      generalized plan of dvbs2_1_2_qc (pairs and an absent edge, B=8192),
      a synthetic table of 70000 checks (past grid y's 65535), an odd batch
      (B=32771, f16 and f32, three variants: the 1-lane instance) and a
-     view two elements into its buffer (the 2-lane instance); each form's
-     time, plain twin's time, memory bound, roofline share and issue
-     bound;
+     view two elements into its buffer (the 2-lane instance), each f16
+     form also with the f16 store; each form's time, plain twin's time,
+     memory bound, roofline share and issue bound, and the f16 store's
+     time and bound;
  15. the card against the CPU plain path, bit for bit, on the card's
      samples: ``decode_minsum`` on peg_1008_504, ``decode_minsum_qc`` on
      dvbs2_1_2_qc and wifi_1944_972 (the offset variant on
@@ -83,8 +87,9 @@ the exit code is non-zero):
      after a warm-up, counters reset just before and read just after — BER
      and FER within 4 joint standard errors of the JAX package's CPU run
      (``tests/jax_reference_stats.py``), decoded info bits/s and a per-layer
-     breakdown; then one dvbs2_1_2_qc point at B=8192 on real codewords
-     (``dvbs2_rate12_encode``, every word checked against H);
+     breakdown; then one dvbs2_1_2_qc point at B=32768 on real codewords
+     (``dvbs2_rate12_encode``, every word checked against H), its peak
+     device memory under ``DVBS2_PEAK_GIB``;
  17. the sweep CLI's new routes for one point each: ``--alist`` on a
      temporary alist of qc_1008_504 (the "detected QC" note),
      ``offsetminsum`` on wifi_1944_972 and ``normalizedminsum`` on
@@ -287,7 +292,15 @@ the exit code is non-zero):
      T=10 f16 at B=32768, 4.25 dB (counts from 0: B1 launched T times),
      decisions equal to ``decode_minsum``'s, ms per iteration in turns
      with it, peak memory; B1 at the stratified table's instance against
-     its twin and its bounds.
+     its twin and its bounds;
+ 43. kernel B5 (the flooding min-sum VN update, in place over c2v) against
+     its twin bit for bit (int16/int32 views) on four tables — QC
+     qc_1008_504, slot-array peg_1008_504, the generalized dvbs2_1_2_qc
+     plan (pairs, an absent edge) and the irregular slot array of
+     wifi_1944_972 (dv_max 11, padding slots) — in f16 and f32 storage with
+     f32 and f16 channels, at B=32768, 32770, 32771 and 1 (the 4-, 2- and
+     1-lane instances; the DVB-S2 twin on 4096-lane chunks); each table's
+     time at B=32768, its twin's, the memory bound and the roofline share.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -346,7 +359,9 @@ JAX_PEG_MINSUM = dict(
 )
 DVBS2_CODE = "dvbs2_1_2_qc"
 ODD_BATCH = 32771  # B1's 1-lane instance
-DVBS2_BATCH = 8192
+DVBS2_BATCH = 8192  # B1's DVB-S2 form: its twin's f32 temporaries
+DVBS2_POINT_BATCH = BATCH  # [16]'s DVB-S2 point (B1 and B5 store f16)
+DVBS2_PEAK_GIB = 70.0
 DVBS2_SNR_DB = 2.5
 
 # The BP, layered and DD-BMP paths [21].  The JAX package's CPU runs at the
@@ -471,9 +486,12 @@ def tied_messages(gen, rows, batch, dtype, device):
 
 
 def same_bits(got, want) -> bool:
-    """f32 tensors equal bit for bit (``torch.equal`` takes -0.0 for 0.0,
-    and B1's outputs carry signed zeros)."""
-    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    """f32 or f16 tensors equal bit for bit (``torch.equal`` takes -0.0 for
+    0.0, and B1's outputs carry signed zeros)."""
+    if got.dtype != want.dtype:
+        return False
+    it = torch.int16 if got.dtype == torch.float16 else torch.int32
+    return torch.equal(got.view(it), want.view(it))
 
 
 def phase_b1(qc, device, batch, sigma, timer):
@@ -507,8 +525,21 @@ def phase_b1(qc, device, batch, sigma, timer):
                 max_err = max(max_err, float((got - want).abs().max()))
                 check(same_bits(got, want),
                       f"B1 {variant} {dtype} {name}: kernel != plain")
-            print(f"  B1 {variant:10s} {str(dtype):13s} equal (2 states)")
+                if dtype == torch.float16:  # the storage-typed store
+                    got16 = minsum_cn_scan(v2c, plan.cn_rows, variant,
+                                           out_dtype=dtype, **kw)
+                    want16 = minsum_cn_scan_plain(v2c, plan.cn_rows, variant,
+                                                  out_dtype=dtype, **kw)
+                    check(same_bits(got16, want16)
+                          and same_bits(got16, want.half()),
+                          f"B1 f16 store {variant} {name}: kernel != plain "
+                          "or != the f32 output cast")
+            print(f"  B1 {variant:10s} {str(dtype):13s} equal (2 states"
+                  + (", f32 and f16 stores)" if dtype == torch.float16
+                     else ")"))
         v2c = states["channel"]
+        if dtype == torch.float16:
+            v2c16 = v2c  # the main path's state
         times[dtype] = (
             timer(lambda: minsum_cn_scan(v2c, plan.cn_rows)),
             timer(lambda: minsum_cn_scan_plain(v2c, plan.cn_rows), 3),
@@ -516,6 +547,15 @@ def phase_b1(qc, device, batch, sigma, timer):
         print(f"  B1 {str(dtype)} kernel {times[dtype][0]:.4f} ms, plain "
               f"{times[dtype][1]:.4f} ms per call [{plan.num_planes * qc.z}"
               f" x {batch}]")
+    f16 = torch.float16  # the main path's store
+    times["f16 store"] = (
+        timer(lambda: minsum_cn_scan(v2c16, plan.cn_rows, out_dtype=f16)),
+        timer(lambda: minsum_cn_scan_plain(v2c16, plan.cn_rows,
+                                           out_dtype=f16), 3),
+    )
+    print(f"  B1 f16 store kernel {times['f16 store'][0]:.4f} ms, plain "
+          f"{times['f16 store'][1]:.4f} ms per call (the main path's "
+          "instance)")
     return max_err, times
 
 
@@ -580,19 +620,28 @@ def breakdown(qc, device, batch, sigma, timer):
         qc_ragged_init,
     )
     from ldpcsimulation_tpu_torch.kernels.channel import awgn_philox
-    from ldpcsimulation_tpu_torch.kernels.minsum import minsum_cn_scan
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        minsum_cn_scan,
+        minsum_vn_update,
+    )
 
+    f16 = torch.float16
     plan = qc_plan(qc, device)
     y = awgn_philox(SEED, 0, batch, qc.n, sigma, device)
     yt = y.t().contiguous()
-    v2c = qc_ragged_init(qc, yt, torch.float16)
-    step = qc_minsum_step(qc, storage_dtype=torch.float16)
+    v2c = qc_ragged_init(qc, yt, f16)
+    step = qc_minsum_step(qc, storage_dtype=f16)
     d = torch.where(yt > 0, 1, -1).to(torch.int32)
+    c2v = minsum_cn_scan(v2c, plan.cn_rows, out_dtype=f16)
     parts = {
         "channel (B2)": timer(
             lambda: awgn_philox(SEED, 0, batch, qc.n, sigma, device)),
-        "CN update (B1)": timer(lambda: minsum_cn_scan(v2c, plan.cn_rows)),
-        "iteration (B1 + VN)": timer(lambda: step(v2c, yt)),
+        "CN update (B1)": timer(
+            lambda: minsum_cn_scan(v2c, plan.cn_rows, out_dtype=f16)),
+        # in place: each call folds the last one's output (the same work)
+        "VN update (B5)": timer(
+            lambda: minsum_vn_update(c2v, yt, plan.vn_rows)),
+        "iteration (B1 + B5)": timer(lambda: step(v2c, yt)),
         "syndrome check": timer(lambda: qc_check_satisfied(qc, d)),
         "decode T=10": timer(
             lambda: decode_minsum_qc(qc, y, T, storage_dtype=torch.float16),
@@ -1015,7 +1064,8 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     degrees = torch.unique((plan.cn_rows >= 0).sum(dim=1),
                            return_counts=True)
     # the main path's f16 planes come from the caching allocator (aligned)
-    lanes = lane_width(batch, torch.float16, 0, 0)
+    f16 = torch.float16
+    lanes = lane_width(batch, f16, 0, 0, f16)
     samples = batch * n
 
     def b1_path(k):
@@ -1033,10 +1083,10 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     # count the formula's f32 arithmetic with each transcendental (log,
     # cos, sqrt, erfinv) as one
     spec = {
-        "minsum_cn_scan": (
-            b1_instance(torch.float16, lanes), b1_path,
+        "minsum_cn_scan": (  # the f16 store, as the main path runs it
+            b1_instance(f16, lanes, f16), b1_path,
             m * -(-batch // lanes),
-            rows * batch * (2 + 4) + plan.cn_rows.numel() * 4,
+            rows * batch * (2 + 2) + plan.cn_rows.numel() * 4,
             rows * batch * 6),
         "awgn_philox": ("awgn_philox_kernelILb1ELb0EE", all_stores,
                         batch * nquads, samples * 4, samples * 12),
@@ -1087,10 +1137,12 @@ def phase_bounds(path, card, launches_per_batch, times, qc, batch):
     return out
 
 
-def b1_instance(dtype, lanes: int) -> str:
-    """The mangled-name key of B1's instance of ``lanes`` lanes."""
+def b1_instance(dtype, lanes: int, out_dtype=torch.float32) -> str:
+    """The mangled-name key of B1's instance of ``lanes`` lanes (an f16
+    store names its type by the substitution of v2c's ``__half``)."""
     t = "6__half" if dtype == torch.float16 else "f"
-    return f"minsum_cn_lanes_kernelI{t}Li{lanes}EE"
+    o = "S1_" if out_dtype == torch.float16 else "f"
+    return f"minsum_cn_lanes_kernelI{t}Li{lanes}E{o}E"
 
 
 def b1_sass_path(kernel, degree: int):
@@ -1131,10 +1183,15 @@ def b1_issue(kernels, cn_rows, v2c, top, ms):
     lanes = lane_width(batch, v2c.dtype, v2c.data_ptr(), 0)
     fields = dict(lanes=lanes, issue_ms=None, issue_share=None,
                   sass_per_edge_lane=None)
-    try:
-        k = sass_count.find(kernels, b1_instance(v2c.dtype, lanes))
-    except KeyError:
+    # the f32 store's instance; before the store type became a template
+    # parameter (an older package in tools/ab_smoke.py), its only one
+    keys = (b1_instance(v2c.dtype, lanes),
+            b1_instance(v2c.dtype, lanes).replace("EfE", "EE"))
+    hits = [sass_count.find(kernels, key) for key in keys
+            if sum(key in name for name in kernels) == 1]
+    if not hits:
         return fields, f"{lanes} lanes; issue not measured (no instance)"
+    k = hits[0]
     degs, counts = torch.unique((cn_rows >= 0).sum(dim=1).cpu(),
                                 return_counts=True)
     paths = [b1_sass_path(k, int(d)) for d in degs]
@@ -1218,6 +1275,16 @@ def phase_b1_forms(device, lib_path, timer):
                 max_err = max(max_err, float((got - want).abs().max()))
                 check(same_bits(got, want),
                       f"B1 {name} {variant} {dtype}: kernel != plain")
+                if dtype == torch.float16:  # the storage-typed store
+                    got16 = minsum_cn_scan(v2c, cn_rows, variant,
+                                           out_dtype=dtype, **kw[variant])
+                    check(same_bits(got16[named], minsum_cn_scan_plain(
+                        v2c, cn_rows, variant, out_dtype=dtype,
+                        **kw[variant])[named])
+                          and same_bits(got16[named], want.half()),
+                          f"B1 {name} {variant} f16 store: kernel != plain "
+                          "or != the f32 output cast")
+                    del got16
                 del got, want
             ms = timer(lambda: minsum_cn_scan(v2c, cn_rows))
             plain_ms = timer(lambda: minsum_cn_scan_plain(v2c, cn_rows), 2)
@@ -1231,10 +1298,23 @@ def phase_b1_forms(device, lib_path, timer):
                 plain_ms=plain_ms, bytes=nbytes, bound_ms=mem_ms,
                 bound_by="bytes", share=mem_ms / ms, **diag,
             )
-            print(f"  B1 {key}: equal ({', '.join(variants)}); {ms:.4f} ms, "
+            stores = " f32 and f16 stores" if dtype == torch.float16 else ""
+            print(f"  B1 {key}: equal ({', '.join(variants)}{stores}); "
+                  f"{ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms [{rows} x {batch}]; memory bound "
                   f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB), roofline share "
                   f"{mem_ms / ms:.1%}; {diag_text}")
+            if dtype == torch.float16:  # the flooding steps' instance
+                ms = timer(lambda: minsum_cn_scan(v2c, cn_rows,
+                                                  out_dtype=dtype))
+                nbytes = (named.numel() * batch * 4 + cn_rows.numel() * 4)
+                mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                out[f"{key} f16 store"] = dict(
+                    shape=[rows, batch], dc_max=int(cn_rows.shape[1]),
+                    ms=ms, bytes=nbytes, bound_ms=mem_ms, bound_by="bytes",
+                    share=mem_ms / ms)
+                print(f"  B1 {key} f16 store: {ms:.4f} ms; memory bound "
+                      f"{mem_ms:.4f} ms, roofline share {mem_ms / ms:.1%}")
             del v2c
         torch.cuda.empty_cache()
     # a view two elements into its buffer: the 2-lane instance
@@ -1438,26 +1518,32 @@ def generic_breakdown(code, device, batch, sigma, timer):
     """Device time of each layer of one slot-array batch (CUDA events)."""
     from ldpcsimulation_tpu_torch.decoders import (
         decode_minsum,
-        minsum_cn_update,
         minsum_plan,
         minsum_step,
     )
     from ldpcsimulation_tpu_torch.decoders.base import xor_satisfied
     from ldpcsimulation_tpu_torch.kernels.channel import awgn_philox
-    from ldpcsimulation_tpu_torch.kernels.minsum import minsum_cn_scan
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        minsum_cn_scan,
+        minsum_vn_update,
+    )
 
+    f16 = torch.float16
     plan = minsum_plan(code, device)
     y = awgn_philox(SEED, 0, batch, code.n, sigma, device)
     yt = y.t().contiguous()
-    v2c = yt.repeat_interleave(code.dv_max, dim=0).to(torch.float16)
-    step = minsum_step(code, storage_dtype=torch.float16)
+    v2c = yt.to(f16).repeat_interleave(code.dv_max, dim=0)
+    step = minsum_step(code, storage_dtype=f16)
     d = torch.where(yt > 0, 1, -1).to(torch.int32)
+    c2v = minsum_cn_scan(v2c, plan.cn_rows, out_dtype=f16)
     parts = {
         "channel (B2)": timer(
             lambda: awgn_philox(SEED, 0, batch, code.n, sigma, device)),
-        "CN update (B1)": timer(lambda: minsum_cn_scan(v2c, plan.cn_rows)),
-        "CN update + padding": timer(lambda: minsum_cn_update(code, v2c)),
-        "iteration (B1 + VN)": timer(lambda: step(v2c, yt)),
+        "CN update (B1)": timer(
+            lambda: minsum_cn_scan(v2c, plan.cn_rows, out_dtype=f16)),
+        "VN update (B5)": timer(
+            lambda: minsum_vn_update(c2v, yt, plan.vn_rows)),
+        "iteration (B1 + B5)": timer(lambda: step(v2c, yt)),
         "syndrome check": timer(lambda: xor_satisfied(plan.check_cols, d)),
         "decode T=10": timer(
             lambda: decode_minsum(code, y, T, storage_dtype=torch.float16),
@@ -1500,7 +1586,8 @@ def phase_generic_main(device, timer):
           f"info bits/s; totals (bit errors, word errors, iterations) "
           f"{(stats.errors, stats.word_errors, stats.total_iterations)}; "
           f"launches {launches}")
-    check(launches == {"minsum_cn_scan": 4 * T, "awgn_philox": 4},
+    check(launches == {"minsum_cn_scan": 4 * T, "minsum_vn_update": 4 * T,
+                       "awgn_philox": 4},
           f"slot-array path launches {launches}")
     got = mc_moments(stats, code.n)
     for k, (want, want_se) in JAX_PEG_MINSUM.items():
@@ -1515,8 +1602,9 @@ def phase_generic_main(device, timer):
 
 
 def phase_dvbs2_point(device):
-    """One dvbs2_1_2_qc point at B=8192 on real codewords: the encoder's
-    words, relabeled to the QC column order, each checked against H."""
+    """One dvbs2_1_2_qc point at B=32768 on real codewords: the encoder's
+    words, relabeled to the QC column order, each checked against H; the
+    peak device memory under ``DVBS2_PEAK_GIB``."""
     from ldpcsimulation_tpu_torch.codes import load_named_qc
     from ldpcsimulation_tpu_torch.codes.standards import (
         dvbs2_rate12_encode,
@@ -1545,9 +1633,9 @@ def phase_dvbs2_point(device):
 
     def run():
         return simulate(code, dec, DVBS2_SNR_DB,
-                        stop=StopRule.fixed_frames(DVBS2_BATCH),
-                        batch_size=DVBS2_BATCH, seed=SEED, codewords=cw,
-                        device=device)
+                        stop=StopRule.fixed_frames(DVBS2_POINT_BATCH),
+                        batch_size=DVBS2_POINT_BATCH, seed=SEED,
+                        codewords=cw, device=device)
 
     first = run()  # warm-up: the tables and the allocator
     torch.cuda.synchronize()
@@ -1558,7 +1646,7 @@ def phase_dvbs2_point(device):
     launches = dict(build.LAUNCHES)
     rate_bits = stats.total_words * 32400 / stats.wall_seconds
     peak = torch.cuda.max_memory_allocated(device) / 2**30
-    y = awgn_philox(SEED, 0, DVBS2_BATCH, qc.n,
+    y = awgn_philox(SEED, 0, DVBS2_POINT_BATCH, qc.n,
                     snr_to_sigma(DVBS2_SNR_DB, 0.5), device)
     decode_ms = time_ms(lambda: dec(y, None), 2)
     print(f"  {DVBS2_CODE} {DVBS2_SNR_DB} dB T={T} f16 on {cw.shape[0]} "
@@ -1567,14 +1655,16 @@ def phase_dvbs2_point(device):
           f"({first.wall_seconds:.4f} s in the first call), "
           f"{rate_bits:.6g} decoded info bits/s; the decode alone "
           f"{decode_ms:.2f} ms (device); launches {launches}; peak device "
-          f"memory {peak:.1f} GiB")
+          f"memory {peak:.2f} GiB at B={DVBS2_POINT_BATCH}")
     check((stats.errors, stats.word_errors) == (first.errors,
                                                 first.word_errors),
           "DVB-S2 run not repeatable")
     check(0.0 <= stats.ber <= 0.5, f"DVB-S2 BER {stats.ber}")
-    check(launches == {"minsum_cn_scan": T, "awgn_philox": 1},
-          f"DVB-S2 launches {launches}")
-    return stats, rate_bits, launches, decode_ms
+    check(launches == {"minsum_cn_scan": T, "minsum_vn_update": T,
+                       "awgn_philox": 1}, f"DVB-S2 launches {launches}")
+    check(peak < DVBS2_PEAK_GIB, f"DVB-S2 peak {peak:.1f} GiB at "
+          f"B={DVBS2_POINT_BATCH}")
+    return stats, rate_bits, launches, decode_ms, peak
 
 
 def phase_minsum_sweep(device, batch):
@@ -1625,7 +1715,8 @@ def phase_minsum_sweep(device, batch):
             print(f"  {' '.join(args[:3])}: {row[0]}")
     launches = dict(build.LAUNCHES)
     print(f"  launches {launches}")
-    check(launches == {"minsum_cn_scan": 3 * T, "awgn_philox": 3},
+    check(launches == {"minsum_cn_scan": 3 * T, "minsum_vn_update": 3 * T,
+                       "awgn_philox": 3},
           f"min-sum sweep launches {launches}")
     return rows, launches
 
@@ -2034,7 +2125,7 @@ def phase_new_paths(device, timer):
     parts_of("minsum_layered_wifi", {
         f"layered iteration ({wifi.mb} layers)": timer(
             lambda: lstep(state), 5),
-        "flooding iteration (B1 + VN)": timer(lambda: fstep(fplanes, y_t), 5),
+        "flooding iteration (B1 + B5)": timer(lambda: fstep(fplanes, y_t), 5),
     })
     del state, fplanes, y_t
 
@@ -4069,8 +4160,8 @@ def phase_tools_card(device, timer, rates):
         for a, b in zip(getattr(ms_d, field), getattr(ms_c, field)):
             check(np.array_equal(a, b), f"msg_trace min-sum {field}: card "
                   "!= CPU")
-    check(launches == {"minsum_cn_scan": T}, f"min-sum trace launches "
-          f"{launches}")
+    check(launches == {"minsum_cn_scan": T, "minsum_vn_update": T},
+          f"min-sum trace launches {launches}")
     llr = llr_from_channel(y, snr_to_n0(1.6, 0.5))
     bp_d = trace_soft_decoder(code_c, llr, truth, 20, "bp", device=device)
     bp_c = trace_soft_decoder(code_c, llr, truth, 20, "bp", device="cpu")
@@ -4246,8 +4337,8 @@ def phase_grid(qc, device, rate5):
     print(f"  one slot: BER {st.ber!r} over {st.total_words} frames in "
           f"{st.wall_seconds:.4f} s: {rate1:.6g} decoded info bits/s "
           f"([5]'s simulate: {rate5:.6g}); launches {single}")
-    check(single == {"minsum_cn_scan": 4 * T, "awgn_philox": 4},
-          f"single-slot launches {single}")
+    check(single == {"minsum_cn_scan": 4 * T, "minsum_vn_update": 4 * T,
+                     "awgn_philox": 4}, f"single-slot launches {single}")
     check_totals("minsum", st)
 
     cfg0 = preset("SMNGDBF", GRID_T, **GDBF_KW)
@@ -5747,6 +5838,126 @@ def phase_stratified(device, lib_path, timer):
     return out
 
 
+B5_CHUNK = 4096  # lanes per twin comparison on the DVB-S2 table
+B5_PAIRS = ((torch.float16, torch.float32), (torch.float32, torch.float32),
+            (torch.float16, torch.float16), (torch.float32, torch.float16))
+
+
+def b5_tables(device):
+    """(name, vn_rows) of kernel B5's four tables: QC, slot-array, the
+    DVB-S2 generalized plan (pairs, an absent edge, degrees 2, 3 and 8) and
+    an irregular slot array (dv_max 11: past the 8 terms held in
+    registers, and padding slots)."""
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import minsum_plan, qc_plan
+
+    return (
+        (f"QC {CODE}", qc_plan(load_named_qc(CODE), device).vn_rows),
+        (f"slot-array {PEG_CODE}", minsum_plan(
+            load_named_code(PEG_CODE), device).vn_rows),
+        (f"generalized {DVBS2_CODE}", qc_plan(
+            load_named_qc(DVBS2_CODE), device).vn_rows),
+        (f"slot-array {WIFI_CODE}", minsum_plan(
+            load_named_code(WIFI_CODE), device).vn_rows),
+    )
+
+
+def b5_inputs(rows, n, lo, hi, sdt, cdt, device):
+    """c2v [rows, hi - lo] and y [n, hi - lo] for lanes [lo, hi) of a B5
+    check (keyed by lo): tied messages with -0.0 and 1 % at +-60000.5
+    (past f16's range once summed), samples around 1 with 1 % at 65510
+    (an f32 sum past 65504 reaches the clamp, an f16 one inf)."""
+    g = torch.Generator(device=device).manual_seed(43 + lo)
+    w = hi - lo
+    c2v = tied_messages(g, rows, w, torch.float32, device)
+    big = torch.rand(rows, w, generator=g, device=device) < 0.01
+    c2v = torch.where(big, torch.where(c2v < 0, -60000.5, 60000.5), c2v)
+    y = 1.0 + 0.8 * torch.randn(n, w, generator=g, device=device)
+    big = torch.rand(n, w, generator=g, device=device) < 0.01
+    y = torch.where(big, 65510.0, y)
+    return c2v.to(sdt), y.to(cdt)
+
+
+def phase_b5(device, timer):
+    """Kernel B5 against its twin bit for bit (int views: signed zeros,
+    the clamp, f16 infinities) on its four tables, in the four (storage,
+    channel) dtype pairs, at B=32768, B=32770 (2 lanes a thread), an odd
+    batch (1 lane) and B=1; the DVB-S2 table's twin runs on chunks of
+    ``B5_CHUNK`` lanes (its full-width temporaries would not fit beside the
+    kernel's).  Each table's time at B=32768 (f16 storage, f32 channel: the
+    main path's; and f32), its twin's, the memory bound and the roofline
+    share."""
+    from ldpcsimulation_tpu_torch.kernels.minsum import (
+        NO_TERM,
+        minsum_vn_update,
+        minsum_vn_update_plain,
+        vn_lane_width,
+    )
+
+    out, max_err, lanes_seen = {}, 0.0, set()
+    for name, vn_rows in b5_tables(device):
+        n, dv = vn_rows.shape
+        rows = int((vn_rows != NO_TERM).sum())
+        read = int((vn_rows >= 0).sum())
+        named = torch.where(vn_rows >= 0, vn_rows, -vn_rows - 2)[
+            vn_rows != NO_TERM]
+        check(torch.equal(named.sort().values.long(),
+                          torch.arange(rows, device=device)),
+              f"B5 {name}: the table does not name rows 0..R-1 once each")
+        wide = rows * BATCH * 4 > 8 << 30
+        for batch in (BATCH, BATCH + 2, ODD_BATCH, 1):
+            step = B5_CHUNK if wide else batch
+            spans = [(lo, min(lo + step, batch))
+                     for lo in range(0, batch, step)]
+            for sdt, cdt in B5_PAIRS:
+                c2v = torch.empty((rows, batch), dtype=sdt, device=device)
+                y = torch.empty((n, batch), dtype=cdt, device=device)
+                for lo, hi in spans:
+                    c2v[:, lo:hi], y[:, lo:hi] = b5_inputs(
+                        rows, n, lo, hi, sdt, cdt, device)
+                # total is a fresh allocation, aligned as y is
+                lanes_seen.add(vn_lane_width(c2v, y, y))
+                v2c, total = minsum_vn_update(c2v, y, vn_rows)
+                for lo, hi in spans:
+                    want = minsum_vn_update_plain(*b5_inputs(
+                        rows, n, lo, hi, sdt, cdt, device), vn_rows)
+                    for got, ref in zip((v2c[:, lo:hi], total[:, lo:hi]),
+                                        want):
+                        check(same_bits(got, ref), f"B5 {name} B={batch} "
+                              f"{sdt}/{cdt} lanes [{lo}, {hi}): kernel != "
+                              "plain")
+                        d = (got.float() - ref.float()).abs_()
+                        max_err = max(max_err, float(torch.nan_to_num_(
+                            d, 0.0, 0.0, 0.0).max()))  # inf - inf
+                        del d
+                    del want
+                key = (f"{name} B={batch} "
+                       f"{str(sdt).split('.')[-1]}/{str(cdt).split('.')[-1]}")
+                if batch == BATCH and cdt == torch.float32:
+                    ms = timer(lambda: minsum_vn_update(c2v, y, vn_rows))
+                    plain_ms = (None if wide else timer(
+                        lambda: minsum_vn_update_plain(c2v, y, vn_rows), 2))
+                    ssize = c2v.element_size()
+                    nbytes = ((read + rows) * batch * ssize
+                              + 2 * n * batch * 4 + vn_rows.numel() * 4)
+                    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    out[key] = dict(
+                        shape=[rows, batch], n=n, dv_max=dv, ms=ms,
+                        plain_ms=plain_ms, bytes=nbytes, bound_ms=mem_ms,
+                        bound_by="bytes", share=mem_ms / ms)
+                    plain = ("not measured (full width)" if plain_ms is None
+                             else f"{plain_ms:.4f} ms")
+                    print(f"  B5 {key}: {ms:.4f} ms, plain {plain}; memory "
+                          f"bound {mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                          f"roofline share {mem_ms / ms:.1%}", flush=True)
+                del c2v, y, v2c, total
+                torch.cuda.empty_cache()
+            print(f"  B5 {name} [{rows} x {batch}], dv_max {dv}: equal to "
+                  f"the twin in {len(B5_PAIRS)} dtype pairs", flush=True)
+    check(lanes_seen == {1, 2, 4}, f"B5 instances {lanes_seen}")
+    return dict(forms=out, max_abs_err=max_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5803,8 +6014,10 @@ def main() -> int:
     check(2.2e-2 <= stats.ber <= 2.6e-2, f"BER {stats.ber} outside "
           "[2.2e-2, 2.6e-2]")
     check(launches.get("minsum_cn_scan", 0) > 0, "B1 not launched")
+    check(launches.get("minsum_vn_update", 0) > 0, "B5 not launched")
     check(launches.get("awgn_philox", 0) > 0, "B2 not launched")
-    check(launches["minsum_cn_scan"] == 4 * T and launches["awgn_philox"] == 4,
+    check(launches == {"minsum_cn_scan": 4 * T, "minsum_vn_update": 4 * T,
+                       "awgn_philox": 4},
           f"unexpected launch counts {launches}")
     check(paths == {("awgn_philox", "fast"): 4}, f"B2 instances {paths}")
     check_totals("minsum", stats)
@@ -5845,7 +6058,7 @@ def main() -> int:
 
     header("[13] bounds at the main path's shapes")
     times = {
-        "minsum_cn_scan": (*b1_times[torch.float16], None),
+        "minsum_cn_scan": (*b1_times["f16 store"], None),
         "awgn_philox": b2_times[:3],
         "uniform_philox": b3_times[:3],
         "gauss_philox": b4_times[:3],
@@ -5864,9 +6077,9 @@ def main() -> int:
     header("[15] min-sum decodes: card vs CPU plain path")
     phase_card_vs_cpu(device)
     header(f"[16] slot-array path: simulate {PEG_CODE} {SNR_DB} dB T={T} f16, "
-          f"4 x {BATCH} frames; then {DVBS2_CODE} at B={DVBS2_BATCH}")
+          f"4 x {BATCH} frames; then {DVBS2_CODE} at B={DVBS2_POINT_BATCH}")
     p_stats, p_rate, p_launches, p_parts = phase_generic_main(device, time_ms)
-    d_stats, d_rate, d_launches, d_ms = phase_dvbs2_point(device)
+    d_stats, d_rate, d_launches, d_ms, d_peak = phase_dvbs2_point(device)
     header("[17] sweep CLI, --alist and the quantized min-sum routes")
     _, ms_launches = phase_minsum_sweep(device, 8192)
     header("[18] layered min-sum and DD-BMP: card vs CPU plain path")
@@ -5928,6 +6141,10 @@ def main() -> int:
     header(f"[42] the stratified family: the 802.3an geometry at B={BATCH},"
            " stratified against the slot arrays")
     strat42 = phase_stratified(device, path, time_ms)
+    torch.cuda.empty_cache()
+    header(f"[43] B5 vs plain: four tables, {len(B5_PAIRS)} dtype pairs, "
+           f"B={BATCH}, {BATCH + 2}, {ODD_BATCH} and 1")
+    b5 = phase_b5(device, time_ms)
 
     summary = {
         "card": card,
@@ -5959,7 +6176,8 @@ def main() -> int:
         "dvbs2": {"code": DVBS2_CODE, "ber": d_stats.ber, "fer": d_stats.fer,
                   "frames": d_stats.total_words,
                   "decoded_info_bits_per_s": d_rate,
-                  "decode_ms": d_ms},
+                  "decode_ms": d_ms, "batch": DVBS2_POINT_BATCH,
+                  "peak_gib": d_peak},
         "b1_forms": forms,
         "b1_layer_forms": layer_forms,
         "bp_card_vs_cpu": bp_seen,
@@ -5980,6 +6198,7 @@ def main() -> int:
         "dense": dense40,
         "surface": surface41,
         "stratified": strat42,
+        "b5": b5,
     }
     print(json.dumps(summary))
     print(card)
@@ -6186,6 +6405,42 @@ def main() -> int:
         check(count > 0, f"{name} not launched on its path")
     lanes["gauss_philox_lanes"]["max_abs_err"] = max(
         lanes["gauss_philox_lanes"]["max_abs_err"], rings["max_abs_err"])
+    # B5: no Pallas original (the XLA fusion of the JAX QC step's VN side);
+    # its launches on each flooding min-sum path of this run
+    b5_main = b5["forms"][f"QC {CODE} B={BATCH} float16/float32"]
+    b5_row = {
+        "name": "minsum_vn_update", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/minsum_vn_update.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/minsum_qc.py:425",
+        "pallas_original": None,
+        "launches": launches["minsum_vn_update"],
+        "max_abs_err": b5["max_abs_err"], "ms": b5_main["ms"],
+        "plain_ms": b5_main["plain_ms"], "bound_ms": b5_main["bound_ms"],
+        "bound_by": b5_main["bound_by"], "share": b5_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            "minsum qc [5]": launches["minsum_vn_update"],
+            "slot-array [16]": p_launches["minsum_vn_update"],
+            "dvbs2 [16]": d_launches["minsum_vn_update"],
+            "sweep [17]": ms_launches["minsum_vn_update"],
+            "flooding wifi [21]": new_paths["minsum_flooding_wifi"][
+                "launches"].get("minsum_vn_update", 0),
+            **{f"stream card vs cpu [27] {k}": v.get("minsum_vn_update", 0)
+               for k, v in stream_counted.items() if "minsum" in k
+               and "layered" not in k},
+            "stream sweep [29]": stream_sweep.get("minsum_vn_update", 0),
+            "msg_trace [36]": tools36["msg_trace_launches"][
+                "minsum_vn_update"],
+            "grid one slot [37]": grid37["single"]["launches"][
+                "minsum_vn_update"],
+            "stream mesh [39]": dist39["stream"].get("minsum_vn_update", 0),
+            "compare_decoders_torch [41]": surface41["launches"].get(
+                "minsum_vn_update", 0)},
+        "forms": b5["forms"]}
+    check(all(v >= 1 for k, v in b5_row["launches_by_path"].items()
+              if "[41]" not in k),
+          f"B5 not launched on a flooding min-sum path: "
+          f"{b5_row['launches_by_path']}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",
@@ -6205,7 +6460,7 @@ def main() -> int:
          **({"ring_shapes": rings["shapes"]}
             if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
-    ]}))
+    ] + [b5_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,7 +5,9 @@
 // Mosaic had no row gathers.  Hopper gathers rows well, so this kernel reads
 // each check's messages straight from the VN-ordered message planes: for
 // check c and slot t it reads row cn_rows[c, t] of v2c [R, B] and writes its
-// output to the SAME row of c2v [R, B] (f32).  For a QC code that row is
+// output to the SAME row of c2v [R, B] (f32, or f16 for f16 storage: the
+// flooding steps ask for the storage type, which kernel B5 then overwrites
+// in place with v2c'; see store_lanes).  For a QC code that row is
 // plane(bj, slot) * z + (r + shift) % z, so the read is the JAX decoder's
 // roll by -shift and the write its roll back by +shift
 // (decoders/minsum_qc.py:278,311); every named row is written exactly once.
@@ -18,8 +20,9 @@
 //
 // Bound on the H100: device memory.  A call reads each named row of v2c
 // once (2 or 4 bytes per edge and lane) and writes it once to c2v (4
-// bytes): 6 bytes per edge-lane in f16, which 3.35 TB/s moves at 0.56e12
-// edge-lanes/s.  The card issues ~33e12 thread instructions/s, so memory
+// bytes, or 2 in the f16 store): 6 bytes per edge-lane in f16 (4 with the
+// f16 store), which 3.35 TB/s moves at 0.56e12 (0.84e12) edge-lanes/s.
+// The card issues ~33e12 thread instructions/s, so memory
 // decides while a thread spends fewer than ~60 instructions per edge-lane.
 // The first design (one thread per (check, lane), every slot unrolled to a
 // cap of 8/16/32/64 slots, the post-op per slot) spent 60-130 and stayed
@@ -30,11 +33,13 @@
 //  * Several lanes per thread.  A thread takes L contiguous lanes, one
 //    vector load per slot and one vector store (4 lanes: 8-byte f16 or
 //    16-byte f32 loads, a float4 store); the row index and its address cost
-//    once per slot for all L lanes.  Instances <__half, 4/2/1> and
-//    <float, 4/2/1>: kernels/minsum.py::lane_width, the one place that
-//    decides, takes the widest L that the batch and both pointers' alignment
-//    allow, so an odd batch or a misaligned view runs the 1- or 2-lane
-//    instance of the same kernel.  An 8-lane f16 instance ran slower.
+//    once per slot for all L lanes.  Instances <__half, 4/2/1, float>,
+//    <float, 4/2/1, float> and <__half, 4/2/1, __half> (the f16 store:
+//    8-, 4- or 2-byte stores): kernels/minsum.py::lane_width, the one
+//    place that decides, takes the widest L that the batch and both
+//    pointers' alignment allow, so an odd batch or a misaligned view runs
+//    the 1- or 2-lane instance of the same kernel.  An 8-lane f16
+//    instance ran slower.
 //  * An integer scan.  A magnitude is the bit pattern without its sign, and
 //    for finite values and +-inf integer order is float order.  f16 packs
 //    the magnitude and the slot into one 32-bit key (mag << 16 | slot), so
@@ -110,9 +115,27 @@ __device__ __forceinline__ Lanes<T, L> load_lanes(const T* p) {
   return v;
 }
 
-template <int L>
-__device__ __forceinline__ void store_lanes(float* p, const uint32_t (&o)[L]) {
-  if constexpr (L == 4) {
+// L outputs (f32 bit patterns) to c2v in its type O: f32, or f16 for f16
+// storage, where every output is already an f16 value (the scan selects
+// stored magnitudes and the post-op rounds to the storage type), so the
+// conversion is exact.
+template <typename O, int L>
+__device__ __forceinline__ void store_lanes(O* p, const uint32_t (&o)[L]) {
+  if constexpr (std::is_same_v<O, __half>) {
+    uint32_t h[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      h[l] = __half_as_ushort(__float2half_rn(__uint_as_float(o[l])));
+    }
+    if constexpr (L == 4) {
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+    } else if constexpr (L == 2) {
+      *reinterpret_cast<uint32_t*>(p) = h[0] | h[1] << 16;
+    } else {
+      *reinterpret_cast<unsigned short*>(p) = (unsigned short)h[0];
+    }
+  } else if constexpr (L == 4) {
     *reinterpret_cast<uint4*>(p) = make_uint4(o[0], o[1], o[2], o[3]);
   } else if constexpr (L == 2) {
     *reinterpret_cast<uint2*>(p) = make_uint2(o[0], o[1]);
@@ -233,13 +256,13 @@ __device__ __forceinline__ uint32_t post(float v, float alpha, float delta,
   }
 }
 
-// Checks c0 + blockIdx.y; L lanes per thread on grid x.
-template <typename T, int L>
+// Checks c0 + blockIdx.y; L lanes per thread on grid x; outputs in O.
+template <typename T, int L, typename O>
 __global__ void __launch_bounds__(kThreads)
     minsum_cn_lanes_kernel(const T* __restrict__ v2c,
                            const int32_t* __restrict__ cn_rows, int c0,
                            int dc_max, int64_t batch, int variant,
-                           float alpha, float delta, float* __restrict__ c2v) {
+                           float alpha, float delta, O* __restrict__ c2v) {
   __shared__ int32_t staged[kWarps][kMaxDc];
   const int lane = threadIdx.x & 31;
   const int64_t b = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * L;
@@ -247,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
   char* out = reinterpret_cast<char*>(c2v + b);
   // row r's lanes sit r * stride bytes on
   const uint64_t in_stride = (uint64_t)batch * sizeof(T);
-  const uint64_t out_stride = (uint64_t)batch * 4u;
+  const uint64_t out_stride = (uint64_t)batch * sizeof(O);
 
   // the check's named rows, compacted in slot order (per warp)
   const int32_t* rows = cn_rows + ((int64_t)c0 + blockIdx.y) * dc_max;
@@ -340,17 +363,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int l = 0; l < L; ++l) {
         o[l] = (k == idx[l] ? p2[l] : p1[l]) ^ ((sm[l][H] << shift) & kSign);
       }
-      store_lanes<L>(reinterpret_cast<float*>(out + at), o);
+      store_lanes<O, L>(reinterpret_cast<O*>(out + at), o);
     }
   };
   emit(std::integral_constant<int, 0>{}, 0, deg < 32 ? deg : 32);
   emit(std::integral_constant<int, 1>{}, 32, deg);
 }
 
-template <typename T, int L>
+template <typename T, int L, typename O>
 cudaError_t launch_lanes(const T* v2c, const int32_t* cn_rows, int m,
                          int dc_max, int64_t batch, int variant, float alpha,
-                         float delta, float* c2v, cudaStream_t stream) {
+                         float delta, O* c2v, cudaStream_t stream) {
   const int64_t threads_needed = batch / L;
   const int threads = threads_needed >= kThreads
                           ? kThreads
@@ -359,7 +382,7 @@ cudaError_t launch_lanes(const T* v2c, const int32_t* cn_rows, int m,
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   for (int c0 = 0; c0 < m; c0 += 65535) {
     const int chunk = m - c0 < 65535 ? m - c0 : 65535;
-    minsum_cn_lanes_kernel<T, L>
+    minsum_cn_lanes_kernel<T, L, O>
         <<<dim3((unsigned)blocks, chunk), threads, 0, stream>>>(
             v2c, cn_rows, c0, dc_max, batch, variant, alpha, delta, c2v);
     const cudaError_t err = cudaGetLastError();
@@ -371,42 +394,48 @@ cudaError_t launch_lanes(const T* v2c, const int32_t* cn_rows, int m,
 // The instance of `lanes` lanes per thread: kernels/minsum.py::lane_width
 // picks it so that the batch is a multiple of it and both pointers keep its
 // vector accesses aligned.
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch(const T* v2c, const int32_t* cn_rows, int m, int dc_max,
                    int64_t batch, int lanes, int variant, float alpha,
-                   float delta, float* c2v, cudaStream_t stream) {
+                   float delta, O* c2v, cudaStream_t stream) {
   switch (lanes) {
     case 1:
-      return launch_lanes<T, 1>(v2c, cn_rows, m, dc_max, batch, variant,
-                                alpha, delta, c2v, stream);
+      return launch_lanes<T, 1, O>(v2c, cn_rows, m, dc_max, batch, variant,
+                                   alpha, delta, c2v, stream);
     case 2:
-      return launch_lanes<T, 2>(v2c, cn_rows, m, dc_max, batch, variant,
-                                alpha, delta, c2v, stream);
+      return launch_lanes<T, 2, O>(v2c, cn_rows, m, dc_max, batch, variant,
+                                   alpha, delta, c2v, stream);
     case 4:
-      return launch_lanes<T, 4>(v2c, cn_rows, m, dc_max, batch, variant,
-                                alpha, delta, c2v, stream);
+      return launch_lanes<T, 4, O>(v2c, cn_rows, m, dc_max, batch, variant,
+                                   alpha, delta, c2v, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// c2v is f32, or f16 when v2c is (c2v_is_f16: the storage-typed output).
 extern "C" int ldpc_minsum_cn_scan(const void* v2c, int v2c_is_f16,
                                    const int32_t* cn_rows, int m, int dc_max,
                                    int64_t batch, int lanes, int variant,
-                                   float alpha, float delta, float* c2v,
-                                   int device, void* stream) {
+                                   float alpha, float delta, void* c2v,
+                                   int c2v_is_f16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (m <= 0 || batch <= 0) return (int)cudaSuccess;
-  if (variant < 0 || variant > 2 || dc_max > kMaxDc)
+  if (variant < 0 || variant > 2 || dc_max > kMaxDc ||
+      (c2v_is_f16 && !v2c_is_f16))
     return (int)cudaErrorInvalidValue;
-  if (v2c_is_f16) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (c2v_is_f16) {
     err = launch(static_cast<const __half*>(v2c), cn_rows, m, dc_max, batch,
-                 lanes, variant, alpha, delta, c2v, (cudaStream_t)stream);
+                 lanes, variant, alpha, delta, static_cast<__half*>(c2v), s);
+  } else if (v2c_is_f16) {
+    err = launch(static_cast<const __half*>(v2c), cn_rows, m, dc_max, batch,
+                 lanes, variant, alpha, delta, static_cast<float*>(c2v), s);
   } else {
     err = launch(static_cast<const float*>(v2c), cn_rows, m, dc_max, batch,
-                 lanes, variant, alpha, delta, c2v, (cudaStream_t)stream);
+                 lanes, variant, alpha, delta, static_cast<float*>(c2v), s);
   }
   return (int)err;
 }

@@ -22,6 +22,7 @@ __all__ = [
     "sgn_pos",
     "sgn_neg",
     "storage_cast",
+    "message_storage",
     "run_flooding",
     "run_flooding_soft",
     "gather_cn",
@@ -71,6 +72,17 @@ def storage_cast(x: torch.Tensor, sdt: torch.dtype) -> torch.Tensor:
         m = torch.finfo(sdt).max
         x = torch.clamp(x, -m, m)
     return x.to(sdt)
+
+
+def message_storage(v2c: torch.Tensor, y: torch.Tensor,
+                    storage_dtype=None) -> torch.dtype:
+    """A flooding step's storage dtype (``storage_dtype``, else the
+    channel's), which its messages must already have: the min-sum steps
+    store c2v in it and v2c' over c2v."""
+    sdt = storage_dtype if storage_dtype is not None else y.dtype
+    if v2c.dtype != sdt:
+        raise ValueError(f"v2c is {v2c.dtype}, the storage dtype {sdt}")
+    return sdt
 
 
 def sgn_pos(x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +148,9 @@ def check_satisfied(code, d: torch.Tensor) -> torch.Tensor:
 
 
 def _decide(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return torch.where(total > 0, 1, -1).to(dtype)
+    """±1 decisions (sgn(0) = −1) made in ``dtype`` (no int64 temporary)."""
+    one = torch.ones((), dtype=dtype, device=total.device)
+    return torch.where(total > 0, one, -one)
 
 
 def run_flooding(
@@ -214,16 +228,20 @@ def run_flooding_soft(
     used.  The host reads the all-done flag once per iteration.
 
     Returns (d int32 in total's layout, iterations [B] int32, done [B] bool).
+
+    No reference to a superseded message buffer or total is kept: a caller
+    that passes ``msgs0`` without a name of its own lets it go after the
+    first step (DVB-S2 at B=32768 fits on one card only so).
     """
     device = total0.device
+    msgs, msgs0 = msgs0, None
     if not early_termination:
         if num_iterations <= 0:
             d = _decide(total0, torch.int32)
         else:
-            msgs = msgs0
             for _ in range(num_iterations - 1):
-                msgs, _ = step(msgs)
-            _, total = step(msgs)
+                msgs = step(msgs)[0]
+            total, msgs = step(msgs)[1], None
             d = _decide(total, torch.int32)
         iters = torch.full((batch,), num_iterations, dtype=torch.int32,
                            device=device)
@@ -232,7 +250,6 @@ def run_flooding_soft(
     d = _decide(total0, torch.int8)
     done = satisfied_of(d)
     iters = torch.zeros((batch,), dtype=torch.int32, device=device)
-    msgs = msgs0
     t = 0
     while t < num_iterations and not bool(done.all()):
         msgs, total = step(msgs)

@@ -9,12 +9,15 @@ for bit on the same samples.  Messages live in VN-slot layout
 The CN update is kernel B1 in its TPU kernel's own generic form: the
 routing table is ``where(cn_mask, cn_from_vn, −1)``, so check c's slot t
 reads VN slot ``cn_from_vn[c, t]`` of v2c and writes that slot of c2v.
-The c2v messages therefore land in VN-slot layout and the VN update needs
-no gather: a reshape to ``[N, dv_max, B]``, a left fold over the slots and
-the channel term added last.  B1 does not write the padding slots; they
-are set to exact zeros, which the fold adds as the JAX decoder does.
-The variant post-op (``/ alpha``, ``|·| − delta``) runs inside B1 in the
-storage precision, as the JAX decoder's weakly typed scalars do.
+The c2v messages therefore land in VN-slot layout (in the storage type:
+exact) and the VN update needs no gather: kernel B5
+(:func:`..kernels.minsum.minsum_vn_update`) folds each column's dv_max
+slots left to right, adds the channel term last and stores v2c' over
+c2v, in one pass on the table ``MinSumPlan.vn_rows``.  B1 does not write
+the padding slots; the table names them as +0.0 terms, which the fold
+adds as the JAX decoder does.  The variant post-op (``/ alpha``,
+``|·| − delta``) runs inside B1 in the storage precision, as the JAX
+decoder's weakly typed scalars do.
 
 The reference min-sum (``decodeMinSum.cpp``) always runs all T iterations;
 ``early_termination=True`` is the framework's extension.  Min-sum works on
@@ -30,13 +33,18 @@ from typing import Optional
 import torch
 
 from ..codes.code import Code
-from ..kernels.minsum import VARIANTS, minsum_cn_scan
+from ..kernels.minsum import (
+    VARIANTS,
+    minsum_cn_scan,
+    minsum_vn_update,
+    zero_term,
+)
 from .base import (
     DecodeResult,
     check_columns,
+    message_storage,
     run_flooding_soft,
     sgn_pos,
-    storage_cast,
     xor_satisfied,
 )
 
@@ -56,12 +64,15 @@ class MinSumPlan:
                 in padding slots; the syndrome check's table.
     vn_pad:     [N * dv_max, 1] bool — True in VN padding slots (None for a
                 code without any).
+    vn_rows:    [N, dv_max] int32 — kernel B5's table: slot ``v * dv_max +
+                s`` at column v, position s; padding slots as +0.0 terms.
     """
 
     code: Code
     cn_rows: torch.Tensor
     check_cols: torch.Tensor
     vn_pad: Optional[torch.Tensor]
+    vn_rows: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,11 +82,14 @@ def minsum_plan(code: Code, device) -> MinSumPlan:
     cn_rows = torch.where(code.cn_mask, code.cn_from_vn,
                           torch.full_like(code.cn_from_vn, -1))
     pad = ~code.vn_mask.reshape(-1, 1)
+    slots = torch.arange(code.n * code.dv_max, device=code.vn_mask.device)
+    vn_rows = torch.where(code.vn_mask.reshape(-1), slots, zero_term(slots))
     return MinSumPlan(
         code=code,
         cn_rows=cn_rows.to(torch.int32).contiguous(),
         check_cols=check_columns(code),
         vn_pad=pad if bool(pad.any()) else None,
+        vn_rows=vn_rows.view(code.n, code.dv_max).to(torch.int32),
     )
 
 
@@ -145,18 +159,20 @@ def apply_offset(c2v_flat: torch.Tensor, delta: float) -> torch.Tensor:
 def minsum_step(code: Code, variant: str = "plain", alpha: float = 1.0,
                 delta: float = 0.0, storage_dtype=None):
     """The :func:`decode_minsum` iteration as a function of (messages,
-    channel term): ``step(v2c, y_t) -> (v2c', total)`` with ``y_t`` the
-    ``[N, B]`` channel samples."""
+    channel term): ``step(v2c, y_t) -> (v2c', total)`` with ``v2c`` in the
+    storage dtype and ``y_t`` the ``[N, B]`` channel samples.  Kernel B1
+    stores c2v in the storage dtype; kernel B5 folds it in the channel's
+    dtype (an f16 channel folds in f16, as the JAX step casts c2v to it)
+    and writes v2c' over it (``v2c`` itself is not written)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown min-sum variant {variant!r}")
 
     def step(v2c, y_t):
-        sdt = storage_dtype if storage_dtype is not None else y_t.dtype
-        # the fold runs in the channel's dtype (an f16 channel folds in
-        # f16), as the JAX step casts c2v to it
-        c2v = minsum_cn_update(code, v2c, variant, alpha, delta)
-        v2c, total, _ = vn_update(code, y_t, c2v.to(y_t.dtype))
-        return storage_cast(v2c, sdt), total
+        plan = minsum_plan(code, v2c.device)
+        sdt = message_storage(v2c, y_t, storage_dtype)
+        c2v = minsum_cn_scan(v2c.contiguous(), plan.cn_rows, variant, alpha,
+                             delta, out_dtype=sdt)
+        return minsum_vn_update(c2v, y_t.contiguous(), plan.vn_rows)
 
     return step
 
@@ -188,11 +204,12 @@ def decode_minsum(
         raise ValueError(f"y has {n} columns, the code {code.n}")
     plan = minsum_plan(code, y_t.device)
     sdt = storage_dtype if storage_dtype is not None else y_t.dtype
-    # initializeSymMessages: every VN slot starts at the channel sample
-    v2c0 = y_t.repeat_interleave(code.dv_max, dim=0).to(sdt)
     step_y = minsum_step(plan.code, variant, alpha, delta, storage_dtype)
+    # initializeSymMessages: every VN slot starts at the channel sample (no
+    # name of its own: the flooding loop lets it go after the first step)
     d, iters, done = run_flooding_soft(
-        y_t, v2c0, lambda v2c: step_y(v2c, y_t),
+        y_t, y_t.to(sdt).repeat_interleave(code.dv_max, dim=0),
+        lambda v2c: step_y(v2c, y_t),
         lambda d: xor_satisfied(plan.check_cols, d),
         num_iterations, early_termination, b,
     )

@@ -16,9 +16,12 @@ by −shift and rolls its output back by +shift).  Here :func:`qc_plan` turns
 the block structure into row tables once per code and device, and kernel B1
 (:func:`..kernels.minsum.minsum_cn_scan`) does the routing: check (bi, r)
 reads and writes, for its slot t, row ``p(bj_t, vslot_t) * z +
-(r + shift_t) % z``.  The VN update (messages left-folded in the generic
-decoder's slot order, channel term added last), the saturating storage cast
-and the syndrome check are plain torch.
+(r + shift_t) % z``, in the storage type.  Kernel B5
+(:func:`..kernels.minsum.minsum_vn_update`) then runs the VN update in one
+pass on the table ``QCPlan.vn_rows`` (messages left-folded in the generic
+decoder's slot order, channel term added last, the extrinsic and the
+saturating storage cast) and writes v2c' over B1's output, as the JAX step
+keeps c2v out of memory.  The syndrome check is plain torch.
 
 The generalized structures of real standards (``extra_edges``: two
 circulants on one block pair; ``minus_edges``: single absent edges, as in
@@ -31,8 +34,9 @@ DVB-S2) live in the same tables, where the JAX decoder keeps per-row
   VN fold takes the pair's two terms in the same per-column order;
 * **absent edges**: −1 in ``cn_rows`` (the scan skips the slot, as the JAX
   decoder's +inf read does) and the sentinel column N in ``check_cols``;
-  B1 leaves that message row unwritten, so the step fills it with zeros
-  before the fold, where the JAX decoder adds an exact zero.
+  B1 leaves that message row unwritten, and ``vn_rows`` names it as a +0.0
+  term (:func:`..kernels.minsum.zero_term`), where the JAX decoder adds an
+  exact zero.
 """
 
 from __future__ import annotations
@@ -45,11 +49,17 @@ import numpy as np
 import torch
 
 from ..codes.qc import QCCode
-from ..kernels.minsum import VARIANTS, minsum_cn_scan
+from ..kernels.minsum import (
+    NO_TERM,
+    VARIANTS,
+    minsum_cn_scan,
+    minsum_vn_update,
+    zero_term,
+)
 from .base import (
     DecodeResult,
+    message_storage,
     run_flooding_soft,
-    storage_cast,
     xor_satisfied,
 )
 
@@ -111,6 +121,9 @@ class QCPlan:
                  order.
     absent_rows: int64 message rows of absent edges (None if there are
                  none), zeroed before the fold.
+    vn_rows:     [N, dv_max] int32 — kernel B5's table: column j's terms in
+                 ``fold`` order (a pair's two swapped per column), absent
+                 edges as +0.0 terms, ``NO_TERM`` past a column's degree.
     fold_phys:   ``fold`` in the physical circulant order of
                  ``qc.vn_blocks`` (no per-column pair exchange; ``fold``
                  itself for a code without pairs).
@@ -131,6 +144,7 @@ class QCPlan:
     row_col: torch.Tensor
     fold: Tuple[Tuple[Optional[torch.Tensor], torch.Tensor], ...]
     absent_rows: Optional[torch.Tensor]
+    vn_rows: torch.Tensor
     fold_phys: Tuple[Tuple[Optional[torch.Tensor], torch.Tensor], ...]
     row_check: torch.Tensor
     slots: Tuple[Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor],
@@ -235,6 +249,13 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
         return tuple(fold)
 
     fold = fold_of(fold_rows)
+    vn_rows = np.full((n, qc.dv_max), NO_TERM, np.int64)
+    for bj, rows in enumerate(fold_rows):
+        for s, rt in enumerate(rows):
+            vn_rows[bj * z + off, s] = rt
+    if absent:
+        gone = np.isin(vn_rows, absent)
+        vn_rows[gone] = zero_term(vn_rows[gone])
     spare = len(plane_block) * z
     slots = []
     for t in range(qc.dc_max):
@@ -255,6 +276,7 @@ def qc_plan(qc: QCCode, device) -> QCPlan:
         row_col=dev((np.asarray(plane_block)[:, None] * z + off).reshape(-1)),
         fold=fold,
         absent_rows=dev(absent) if absent else None,
+        vn_rows=torch.as_tensor(vn_rows.astype(np.int32), device=device),
         fold_phys=fold_of(phys_rows) if qc.extra_edges else fold,
         row_check=dev(row_check),
         slots=tuple(slots),
@@ -326,34 +348,33 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
                    delta: float = 0.0, storage_dtype=None):
     """One flooding iteration as a function of (messages, channel term):
     ``step(v2c, yb) -> (v2c', total)`` with ``v2c`` the ``[P*z, B]`` planes
-    and ``yb``/``total`` the ``[N, B]`` channel samples and posterior.
+    in the storage dtype and ``yb``/``total`` the ``[N, B]`` channel
+    samples and posterior.
 
     The same operations as the JAX ``qc_minsum_step``: c2v from the CN
-    update (f32, cast to the channel's dtype), total = y + ((c₀ + c₁) +
-    c₂ …) in VN slot order, then
-    v2c' = storage_cast(total − c_s).
+    update (kernel B1, stored in the storage dtype, which is exact; cast
+    to the channel's dtype), total = y + ((c₀ + c₁) + c₂ …) in VN slot
+    order, then v2c' = storage_cast(total − c_s) (kernel B5, over B1's
+    output: ``v2c`` itself is not written).
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown min-sum variant {variant!r}")
 
     def step(v2c, yb):
         plan = qc_plan(qc, v2c.device)
-        sdt = storage_dtype if storage_dtype is not None else yb.dtype
-        c2v = minsum_cn_scan(v2c, plan.cn_rows, variant, alpha, delta)
-        if plan.absent_rows is not None:  # rows B1 does not write
-            c2v.index_fill_(0, plan.absent_rows, 0.0)
-        c2v = c2v.to(yb.dtype)  # an f16 channel folds in f16, as in JAX
-        total = yb + qc_fold(plan.fold, c2v)
-        v2c_new = storage_cast(total[plan.row_col] - c2v, sdt)
-        return v2c_new, total
+        sdt = message_storage(v2c, yb, storage_dtype)
+        c2v = minsum_cn_scan(v2c, plan.cn_rows, variant, alpha, delta,
+                             out_dtype=sdt)
+        return minsum_vn_update(c2v, yb.contiguous(), plan.vn_rows)
 
     return step
 
 
+
 def qc_ragged_init(qc: QCCode, yb: torch.Tensor, sdt) -> torch.Tensor:
     """Initial v2c planes ``[P*z, B]``: every slot starts at its column's
-    channel sample."""
-    return yb[qc_plan(qc, yb.device).row_col].to(sdt)
+    channel sample (cast first: the gather then moves storage words)."""
+    return yb.to(sdt)[qc_plan(qc, yb.device).row_col]
 
 
 def decode_minsum_qc(
@@ -376,10 +397,9 @@ def decode_minsum_qc(
     if n != qc.n:
         raise ValueError(f"y has {n} columns, the code {qc.n}")
     sdt = storage_dtype if storage_dtype is not None else y_t.dtype
-    v2c0 = qc_ragged_init(qc, y_t, sdt)
     step_y = qc_minsum_step(qc, variant, alpha, delta, storage_dtype)
-    d, iters, done = run_flooding_soft(
-        y_t, v2c0, lambda v2c: step_y(v2c, y_t),
+    d, iters, done = run_flooding_soft(  # the initial planes without a name
+        y_t, qc_ragged_init(qc, y_t, sdt), lambda v2c: step_y(v2c, y_t),
         lambda d: qc_check_satisfied(qc, d),
         num_iterations, early_termination, b,
     )

@@ -2,6 +2,9 @@
 
   * B1 :func:`.minsum.minsum_cn_scan` — min-sum check-node update, routing
     inside (replaces ``minsum_pallas.minsum_cn_scan_pallas``);
+  * B5 :func:`.minsum.minsum_vn_update` — flooding min-sum variable-node
+    update: fold, total, extrinsic and saturating store in one pass, in
+    place over c2v (no Pallas original: the JAX steps' XLA fusion);
   * B2 :func:`.channel.awgn_philox` — keyed Philox + Box–Muller AWGN of the
     all-(+1) word (replaces ``channel_pallas.awgn_all_zero_pallas``);
   * B3 :func:`.channel.uniform_philox` — keyed Philox uniforms (replaces
@@ -23,7 +26,13 @@ from .channel import (
     uniform_philox,
     uniform_philox_plain,
 )
-from .minsum import VARIANTS, minsum_cn_scan, minsum_cn_scan_plain
+from .minsum import (
+    VARIANTS,
+    minsum_cn_scan,
+    minsum_cn_scan_plain,
+    minsum_vn_update,
+    minsum_vn_update_plain,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -38,4 +47,6 @@ __all__ = [
     "VARIANTS",
     "minsum_cn_scan",
     "minsum_cn_scan_plain",
+    "minsum_vn_update",
+    "minsum_vn_update_plain",
 ]
