@@ -29,7 +29,7 @@ the exit code is non-zero):
   5. the main path: ``simulate`` on qc_1008_504 at 2.0 dB, T=10, f16
      storage, 4 batches of 32768 frames, with the launch counters reset just
      before and read just after — BER in [2.2e-2, 2.6e-2], B1 and B5 T
-     times per batch, B2 once (by its float4 instance); bit errors, word
+     times per batch, B2 and B6 once (B2 by its float4 instance); bit errors, word
      errors and iterations equal to the parent commit's run (the noise is
      keyed); decoded info bits/s and a per-layer time breakdown (B1's f16
      store, B5, the iteration);
@@ -47,8 +47,9 @@ the exit code is non-zero):
      with its own draws injected;
  10. the SMNGDBF main path: ``simulate`` on qc_1008_504 at 3.25 dB, T=300,
      4 batches of 32768 frames after a warm-up batch, counters reset just
-     before and read just after — B2 launched once per batch, B4 once per
-     executed decoder step (its float2 instance), B1 never; bit errors,
+     before and read just after — B2 launched once per batch, B4, B6 and
+     B7 once per executed decoder step (B4 by its float2 instance), B1
+     never; bit errors,
      word errors and iterations equal to the parent commit's run; BER, FER
      and average iterations within 4 joint standard errors of the JAX
      package's values; decoded info bits/s and a per-layer breakdown;
@@ -300,7 +301,20 @@ the exit code is non-zero):
      wifi_1944_972 (dv_max 11, padding slots) — in f16 and f32 storage with
      f32 and f16 channels, at B=32768, 32770, 32771 and 1 (the 4-, 2- and
      1-lane instances; the DVB-S2 twin on 4096-lane chunks); each table's
-     time at B=32768, its twin's, the memory bound and the roofline share.
+     time at B=32768, its twin's, the memory bound and the roofline share;
+ 44. kernel B6 (the parity check) against its twin under ``torch.equal``
+     (satisfied flags and the bipolar syndrome) on every caller's table at
+     B=32768 — the QC min-sum check of qc_1008_504 and its QCGraph
+     syndrome (int32 and int8), peg_1008_504, dvbs2_1_2_qc, the
+     stratified 802.3an table — and at an odd batch and a misaligned view
+     (the 1-lane instance); kernel B7 (the parallel GDBF step) against its
+     twin bit for bit (d, the thresholds' int32 views, the smoothing sums)
+     in all 16 parallel flag combinations on qc_1008_504 with int8
+     decisions, a quarter of the lanes inactive, then int32 decisions, the
+     slot-array graph of peg_1008_504 and an odd batch; each form's time,
+     its twin's, the memory bound and the roofline share.  B6 counts on
+     every path that checks decisions and B7 on every parallel bit-flip
+     path are part of the launch checks above.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -436,6 +450,13 @@ def header(text: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def b6_and_rest(launches) -> tuple[int, dict]:
+    """(B6's launches, the others): the paths whose parity checks depend on
+    the data (early exits) check B6 apart from their exact counts."""
+    rest = dict(launches)
+    return rest.pop("parity_check", 0), rest
 
 
 def card_line() -> str:
@@ -760,6 +781,7 @@ def phase_gdbf_equal(qc, device, frames=256):
     fields = ("hard", "iterations", "satisfied", "phases", "smoothing_used")
     code_d, code_c = qc.to_code(device), qc.to_code("cpu")
     rate = (qc.n - qc.m) / qc.n
+    seen = {}
     for name, snr, T, extra in (
         ("SMNGDBF", 3.25, 100, {}),
         ("RSMNGDBF", 3.0, 40, dict(max_phases=3)),
@@ -774,9 +796,14 @@ def phase_gdbf_equal(qc, device, frames=256):
         build.LAUNCHES.clear()
         res = decode_gdbf(code_d, y, sigma, cfg, key=key, qc=qc)
         launched = dict(build.LAUNCHES)
+        # B6 every step; B7 every step of the parallel rule
         want = {"gauss_philox": res.steps} if cfg.add_noise else {
             "uniform_philox": res.steps}
+        want["parity_check"] = res.steps
+        if not cfg.quantize_probabilities:
+            want["gdbf_parallel_step"] = res.steps
         check(launched == want, f"{name}: launches {launched} != {want}")
+        seen.update({f"{name} {k}": v for k, v in launched.items()})
         steps = cfg.max_phases * T
         pert, unif = keyed_draws(cfg, sigma, key, qc.n, frames, steps,
                                  device)
@@ -799,6 +826,7 @@ def phase_gdbf_equal(qc, device, frames=256):
               f"{frames} frames ({res.steps} steps, {drawn / 1e6:.0f} MB "
               f"injected, unsatisfied {unsat:.3g}, max phases "
               f"{int(res.phases.max())}); launches {launched}")
+    return seen
 
 
 def check_totals(path: str, stats) -> tuple[int, int, int]:
@@ -830,57 +858,64 @@ def mc_moments(stats, n):
 
 
 def gdbf_breakdown(qc, device, batch, sigma, timer):
-    """Device time of each layer of one SMNGDBF step at full width."""
+    """Device time of each part of one SMNGDBF step at full width (B4's
+    draw, B6's syndrome and check, B7's VN side in and out of the smoothing
+    window, the [B] bookkeeping in plain torch) and of one batch's decode,
+    with its time per step."""
     from ldpcsimulation_tpu_torch.channel import awgn_all_zero, saturate
     from ldpcsimulation_tpu_torch.decoders import NoiseKey, decode_gdbf
     from ldpcsimulation_tpu_torch.decoders import gdbf as gd
-    from ldpcsimulation_tpu_torch.decoders.qc_ops import (
-        qc_syndrome_bipolar,
-        qc_syndrome_sum_per_vn,
-    )
+    from ldpcsimulation_tpu_torch.decoders.qc_ops import qc_graph
     from ldpcsimulation_tpu_torch.kernels.channel import gauss_philox
+    from ldpcsimulation_tpu_torch.kernels.check import parity_check
+    from ldpcsimulation_tpu_torch.kernels.gdbf import gdbf_parallel_step
 
     cfg = gd.preset("SMNGDBF", GDBF_T, **GDBF_KW)
     code = qc.to_code(device)
+    g = qc_graph(qc, device)
     y = saturate(awgn_all_zero(SEED, 0, batch, qc.n, sigma, device),
                  GDBF_YMAX)
     yt = y.t().contiguous()
     ns = float(np.float32(sigma * cfg.noise_scale))
-    d = torch.where(torch.signbit(yt), -1, 1).to(torch.int32)
-    syn = qc_syndrome_bipolar(qc, d)
-    svn = qc_syndrome_sum_per_vn(qc, syn.float())
+    d = torch.where(torch.signbit(yt), -1, 1).to(torch.int8)
+    _, syn = parity_check(g.check_cols, d, syndrome=True)
     pert = gauss_philox(SEED, 0, batch, qc.n, 1, 0.0, ns, device)
-    thetas = torch.full_like(yt, cfg.theta)
-    mu = torch.ones(batch, dtype=torch.int32, device=device)
-    act = torch.ones(batch, dtype=torch.bool, device=device)
-    dsum = torch.zeros_like(d)
-    nsig = torch.tensor(ns, device=device)
+    thetas = torch.full_like(yt, float(np.float32(cfg.theta)))
+    dsum = torch.zeros(d.shape, dtype=torch.int32, device=device)
+    done = torch.zeros(batch, dtype=torch.bool, device=device)
+    act = ~done
+    iters = torch.zeros(batch, dtype=torch.int32, device=device)
+    lam = float(np.float32(cfg.lam))
+    alpha = float(np.float32(cfg.alpha))
 
-    def metric_and_flip():
-        e = d.float() * yt + cfg.alpha * svn + pert
-        flip, _ = gd.flip_decisions(cfg, e, thetas, mu, nsig, None)
-        return torch.where(act[None, :] & flip, -d, d)
+    def b7(window):
+        return lambda: gdbf_parallel_step(d, yt, syn, g.vn_checks, thetas,
+                                          dsum, act, alpha, pert, lam,
+                                          window)
 
-    flip, _ = gd.flip_decisions(cfg, yt, thetas, mu, nsig, None)
+    def bookkeeping():  # the decode's [B] updates of one step
+        sat = syn[0] > 0
+        newly = act & sat
+        it = torch.where(newly, 5, iters)
+        ph = torch.where(newly, 1, iters)
+        used = iters + newly.to(torch.int32)
+        return it, ph, used, ~(done | sat), done | newly
 
-    def adapt_and_smooth():
-        th = torch.where(act[None, :] & ~flip, thetas * cfg.lam, thetas)
-        ds = torch.where(act[None, :], dsum + d, dsum)
-        return th, ds
-
+    res = decode_gdbf(code, y, sigma, cfg, key=NoiseKey(SEED, 0), qc=qc)
     parts = {
         "noise draw (B4)": timer(
             lambda: gauss_philox(SEED, 0, batch, qc.n, 1, 0.0, ns, device)),
-        "syndrome": timer(lambda: qc_syndrome_bipolar(qc, d)),
-        "syndrome test (all > 0)": timer(lambda: (syn > 0).all(dim=0)),
-        "per-VN syndrome sum": timer(
-            lambda: qc_syndrome_sum_per_vn(qc, syn.float())),
-        "flip metric + decision": timer(metric_and_flip),
-        "adaptation + smoothing": timer(adapt_and_smooth),
+        "syndrome + check (B6)": timer(
+            lambda: parity_check(g.check_cols, d, syndrome=True)),
+        "VN step in the window (B7)": timer(b7(True)),
+        "VN step out of the window (B7)": timer(b7(False)),
+        "[B] bookkeeping (plain torch)": timer(bookkeeping),
         f"decode T={GDBF_T} (one batch)": timer(
             lambda: decode_gdbf(code, y, sigma, cfg, key=NoiseKey(SEED, 0),
                                 qc=qc), 2),
     }
+    parts[f"decode, per step of {res.steps}"] = (
+        parts[f"decode T={GDBF_T} (one batch)"] / res.steps)
     for k, v in parts.items():
         print(f"  {k:30s} {v:9.4f} ms")
     return parts
@@ -924,7 +959,11 @@ def phase_gdbf_main(qc, device, batch, timer):
           f"{stats.wall_seconds:.4f} s: {rate_bits:.6g} decoded info bits/s;"
           f" steps per batch {steps}; launches {launches}; smoothing used "
           f"{stats.extra.get('smoothing_used')}")
-    check(launches == {"awgn_philox": 4, "gauss_philox": sum(steps)},
+    check(launches.get("parity_check", 0) > 0, "B6 not launched")
+    check(launches.get("gdbf_parallel_step", 0) > 0, "B7 not launched")
+    check(launches == {"awgn_philox": 4, "gauss_philox": sum(steps),
+                       "parity_check": sum(steps),
+                       "gdbf_parallel_step": sum(steps)},
           f"SMNGDBF path launches {launches}, steps {steps}")
     check(paths == {("awgn_philox", "fast"): 4,
                     ("gauss_philox", "fast"): sum(steps)},
@@ -1587,7 +1626,7 @@ def phase_generic_main(device, timer):
           f"{(stats.errors, stats.word_errors, stats.total_iterations)}; "
           f"launches {launches}")
     check(launches == {"minsum_cn_scan": 4 * T, "minsum_vn_update": 4 * T,
-                       "awgn_philox": 4},
+                       "awgn_philox": 4, "parity_check": 4},
           f"slot-array path launches {launches}")
     got = mc_moments(stats, code.n)
     for k, (want, want_se) in JAX_PEG_MINSUM.items():
@@ -1661,7 +1700,8 @@ def phase_dvbs2_point(device):
           "DVB-S2 run not repeatable")
     check(0.0 <= stats.ber <= 0.5, f"DVB-S2 BER {stats.ber}")
     check(launches == {"minsum_cn_scan": T, "minsum_vn_update": T,
-                       "awgn_philox": 1}, f"DVB-S2 launches {launches}")
+                       "awgn_philox": 1, "parity_check": 1},
+          f"DVB-S2 launches {launches}")
     check(peak < DVBS2_PEAK_GIB, f"DVB-S2 peak {peak:.1f} GiB at "
           f"B={DVBS2_POINT_BATCH}")
     return stats, rate_bits, launches, decode_ms, peak
@@ -1716,7 +1756,7 @@ def phase_minsum_sweep(device, batch):
     launches = dict(build.LAUNCHES)
     print(f"  launches {launches}")
     check(launches == {"minsum_cn_scan": 3 * T, "minsum_vn_update": 3 * T,
-                       "awgn_philox": 3},
+                       "awgn_philox": 3, "parity_check": 3},
           f"min-sum sweep launches {launches}")
     return rows, launches
 
@@ -1755,7 +1795,7 @@ def phase_layered_ddbmp_card_vs_cpu(device):
         (DVBS2_CODE, 32, DVBS2_SNR_DB, (2.0, 8.0), dict(
             variant="offset", delta=0.15, storage_dtype=f16)),
     )
-    counted = {}
+    counted, checks_seen = {}, {}
     for name, frames, snr, quant, kw in layered:
         qc = load_named_qc(name)
         y = awgn_all_zero(SEED, 19 * frames, frames, qc.n,
@@ -1769,17 +1809,21 @@ def phase_layered_ddbmp_card_vs_cpu(device):
         check(dict(build.LAUNCHES) == launched, "the CPU decode launched B1")
         equal_results(res, ref, f"layered min-sum {name} {kw}")
         rounds = int(res.iterations.max())
-        check(launched == {"minsum_cn_scan": qc.mb * rounds},
-              f"layered {name}: launches {launched}, {qc.mb} layers x "
-              f"{rounds} iterations")
         et = " ET" if kw.get("early_termination") else ""
+        # B6: once at the end, or (ET) once before and after every round
+        checks = 1 + (rounds if et else 0)
+        check(launched == {"minsum_cn_scan": qc.mb * rounds,
+                           "parity_check": checks},
+              f"layered {name}: launches {launched}, {qc.mb} layers x "
+              f"{rounds} iterations, {checks} checks")
         counted[f"{name}{et}, one decode of {frames} frames"] = launched[
             "minsum_cn_scan"]
+        checks_seen[f"{name}{et}, one decode of {frames} frames"] = checks
         print(f"  layered min-sum {name} {kw}: card == CPU for {frames} "
               f"frames, T={T}; satisfied "
               f"{float(res.satisfied.float().mean()):.3g}, mean iterations "
               f"{float(res.iterations.float().mean()):.3g}; B1 launches "
-              f"{qc.mb * rounds} = {qc.mb} layers x {rounds}")
+              f"{qc.mb * rounds} = {qc.mb} layers x {rounds}, B6 {checks}")
     for name, is_qc, frames, snr, ymax, t_max in (
             (CODE, True, 256, 3.5, 1.5, 50),
             (REG4_CODE, False, 64, 3.9, 1.6, 100)):
@@ -1800,7 +1844,7 @@ def phase_layered_ddbmp_card_vs_cpu(device):
               f"card == CPU for {frames} frames; satisfied "
               f"{float(res.satisfied.float().mean()):.3g}, mean break index "
               f"{float(res.iterations.float().mean()):.4g}")
-    return counted
+    return counted, checks_seen
 
 
 def phase_bp_card_vs_cpu(device, frames=256):
@@ -2101,8 +2145,10 @@ def phase_new_paths(device, timer):
                                                 early_termination=True),
         until_done, 2.0, 4, device)
     lay = out["minsum_layered_wifi"]
+    # B6: before the first round and after every round of each batch
     check(lay["launches"] == {
-        "minsum_cn_scan": wifi.mb * sum(lay["rounds"]), "awgn_philox": 4},
+        "minsum_cn_scan": wifi.mb * sum(lay["rounds"]), "awgn_philox": 4,
+        "parity_check": sum(lay["rounds"]) + len(lay["rounds"])},
         f"layered path launches {lay['launches']}, rounds {lay['rounds']}")
     out["minsum_flooding_wifi"] = gated_simulate(
         f"(c) decode_minsum_qc {WIFI_CODE} 2.0 dB T={T} ET f32 (flooding, "
@@ -2176,7 +2222,8 @@ def phase_new_sweep(device, batch):
                   and 0.0 <= float(cols[1]) < 0.1
                   and 0.0 <= float(cols[2]) <= float(t_col),
                   f"{args[0]} row {cols}")
-            check(launches == {"awgn_philox": 1, **b1},
+            checks, rest = b6_and_rest(launches)
+            check(checks >= 1 and rest == {"awgn_philox": 1, **b1},
                   f"{' '.join(args[:5])}: launches {launches}")
             rows.append(row[0])
             print(f"  {' '.join(args[:5])}: {row[0]}; launches {launches}")
@@ -2257,7 +2304,7 @@ def phase_systemc_card_vs_cpu(device, frames=256):
     peg_d = load_named_code(PEG_CODE, device)
     peg_c = peg_d.to("cpu")
     sigma = snr_to_sigma(SYSTEMC_SNR_DB, peg_d.rate)
-    counted = {}
+    counted, checks_seen = {}, {}
     for smoothed in (True, False):
         cfg = SystemCNGDBFConfig(num_iterations=100, **dict(
             SYSTEMC_KW, smoothed=smoothed))
@@ -2269,7 +2316,8 @@ def phase_systemc_card_vs_cpu(device, frames=256):
         res = decode_ngdbf_systemc(peg_d, y, sigma, cfg, key=key)
         launched = dict(build.LAUNCHES)
         what = f"{PEG_CODE} {'smoothed' if smoothed else 'unsmoothed'}"
-        check(launched == {"gauss_philox": 1},
+        checks, rest = b6_and_rest(launched)
+        check(checks >= 1 and rest == {"gauss_philox": 1},
               f"SystemC {what}: launches {launched}")
         src = keyed_source(cfg, sigma, key, peg_d.n, frames, device)
         cpu = decode_ngdbf_systemc(peg_c, y.cpu(), sigma, cfg,
@@ -2278,10 +2326,12 @@ def phase_systemc_card_vs_cpu(device, frames=256):
             check(torch.equal(getattr(res, f).cpu(), getattr(cpu, f)),
                   f"SystemC {what} {f}: card != CPU plain path")
         counted[what] = launched.get("gauss_philox", 0)
+        checks_seen[what] = checks
         unsat = float((~res.satisfied).float().mean())
         print(f"  {what}: card == CPU for {frames} frames (T=100, "
-              f"unsatisfied {unsat:.3g}); B4 launched once")
-    return counted
+              f"unsatisfied {unsat:.3g}); B4 launched once, B6 {checks} "
+              f"times")
+    return counted, checks_seen
 
 
 def b4_at_shape(device, lib_path, timer, rows, stream, scale, label):
@@ -2417,8 +2467,7 @@ def systemc_breakdown(code, cfg, sigma, device, timer):
     parts = {
         "source draw (B4) + quantizer": timer(lambda: qz(keyed_source(
             cfg, sigma, NoiseKey(SEED, 0), code.n, BATCH, device))),
-        "syndrome (row gathers)": timer(
-            lambda: syndrome_bipolar(graph, x)),
+        "syndrome (B6)": timer(lambda: syndrome_bipolar(graph, x)),
         "syndrome test (all > 0)": timer(lambda: (syn > 0).all(dim=0)),
         "per-VN syndrome sum": timer(
             lambda: syndrome_sum_per_vn(graph, syn).float()),
@@ -2470,7 +2519,10 @@ def phase_hw_paths(device, lib_path, timer):
         lambda y, key: decode_ngdbf_systemc(peg, y, ssigma, scfg, key=key),
         systemc_rounds, SYSTEMC_SNR_DB, 2, device, awgn_form="additive")
     for label, path in out.items():
-        check(path["launches"] == {"awgn_philox": 2, "gauss_philox": 2},
+        # the SystemC model's syndrome is B6; NGDBFhw's parity is its own
+        checks, rest = b6_and_rest(path["launches"])
+        check(rest == {"awgn_philox": 2, "gauss_philox": 2}
+              and (checks >= 1) == (label == "systemc_peg"),
               f"{label}: launches {path['launches']}")
     print("  (a) one NGDBFhw step:")
     out["ngdbfhw_highrate"]["breakdown_ms"] = hw_breakdown(
@@ -2790,6 +2842,9 @@ def phase_streams_card_vs_cpu(device, lib_path, timer, lanes=64,
         draws = rounds * STREAM_GDBF_K
         want = ({"gauss_philox_lanes": draws} if cfg.add_noise else
                 {"uniform_philox_lanes": draws})
+        # B6: the syndrome of every lane-step (the stream's VN side is
+        # plain torch)
+        want["parity_check"] = draws
         check(launched == want, f"{name}: launches {launched} != {want}")
         counted[name] = launched
         print(f"  {name} T={t_max} x{cfg.max_phases} K={STREAM_GDBF_K}: "
@@ -4030,8 +4085,13 @@ def phase_replay(qc, device, timer):
         want = "uniform_philox" if (cfg.uniform_noise or
                                     cfg.quantize_probabilities) else \
             "gauss_philox"
-        check(traced == Counter({want: 2 * REPLAY_FRAMES * steps}),
-              f"{label}: trace launches {dict(traced)}")
+        # a trace: B6 every step and on its rows, B7 every parallel step
+        traces = 2 * REPLAY_FRAMES
+        want = Counter({want: traces * steps,
+                        "parity_check": traces * (steps + 1)})
+        if not cfg.quantize_probabilities:
+            want["gdbf_parallel_step"] = traces * steps
+        check(traced == want, f"{label}: trace launches {dict(traced)}")
         print(f"  {label} ({snr} dB, T={T_}): frames {failed} failed and "
               f"{good} satisfied of batch {REPLAY_BATCH_INDEX} "
               f"({int((~sat).sum())} failed of {BATCH}) replay at B=1 on the "
@@ -4338,7 +4398,8 @@ def phase_grid(qc, device, rate5):
           f"{st.wall_seconds:.4f} s: {rate1:.6g} decoded info bits/s "
           f"([5]'s simulate: {rate5:.6g}); launches {single}")
     check(single == {"minsum_cn_scan": 4 * T, "minsum_vn_update": 4 * T,
-                     "awgn_philox": 4}, f"single-slot launches {single}")
+                     "awgn_philox": 4, "parity_check": 4},
+          f"single-slot launches {single}")
     check_totals("minsum", st)
 
     cfg0 = preset("SMNGDBF", GRID_T, **GDBF_KW)
@@ -4371,7 +4432,9 @@ def phase_grid(qc, device, rate5):
           f"{frames * k / grid_s:.6g} decoded info bits/s; steps {steps}; "
           f"launches {grid}")
     check(rounds == 2 and grid == {"awgn_philox": 8,
-                                   "gauss_philox": sum(steps)},
+                                   "gauss_philox": sum(steps),
+                                   "parity_check": sum(steps),
+                                   "gdbf_parallel_step": sum(steps)},
           f"grid launches {grid}, steps {steps}")
     ref_s = 0.0
     for p, s in zip(points, stats):
@@ -5744,7 +5807,7 @@ def phase_stratified(device, lib_path, timer):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
-    check(launches == {"minsum_cn_scan": T},
+    check(launches == {"minsum_cn_scan": T, "parity_check": 1},
           f"stratified min-sum launches {launches}")
     slot = decode_minsum(code, y, T, storage_dtype=f16)
     check(torch.equal(res.hard, slot.hard), "stratified != slot-array at "
@@ -5958,6 +6021,231 @@ def phase_b5(device, timer):
     return dict(forms=out, max_abs_err=max_err)
 
 
+def b6_inputs(gen, n, batch, dtype, device):
+    """±1 decisions [N, B] with every eighth lane all +1 (a codeword)."""
+    d = torch.where(torch.rand(n, batch, generator=gen, device=device)
+                    < 0.9, 1, -1).to(dtype)
+    d[:, ::8] = 1
+    return d
+
+
+def b6_forms(device):
+    """(label, check table, N, batch, dtypes) of B6's callers at full
+    width: the flagship QC min-sum check, the slot-array and DVB-S2 checks,
+    the bit-flip syndrome on qc_1008_504's QCGraph, the stratified 802.3an
+    table, and the 1-lane instance (odd batch, misaligned view)."""
+    from ldpcsimulation_tpu_torch.codes import (
+        detect_stratified,
+        load_named_code,
+        load_named_qc,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        minsum_plan,
+        qc_plan,
+        stratified_plan,
+    )
+    from ldpcsimulation_tpu_torch.decoders.qc_ops import qc_graph
+
+    i8, i32 = torch.int8, torch.int32
+    qc = load_named_qc(CODE)
+    peg = load_named_code(PEG_CODE)
+    dvb = load_named_qc(DVBS2_CODE)
+    sc = detect_stratified(stratified_alist(**STRAT_GEOMETRY))
+    return [
+        (f"QC {CODE} check", qc_plan(qc, device).check_cols, qc.n, BATCH,
+         (i32, i8)),
+        (f"QCGraph {CODE} syndrome", qc_graph(qc, device).check_cols, qc.n,
+         BATCH, (i8, i32)),
+        (f"slot-array {PEG_CODE} check", minsum_plan(peg, device).check_cols,
+         peg.n, BATCH, (i32,)),
+        (f"QC {DVBS2_CODE} check", qc_plan(dvb, device).check_cols, dvb.n,
+         BATCH, (i32,)),
+        ("stratified 802.3an check", stratified_plan(sc, device).check_cols,
+         sc.kg * sc.w, BATCH, (i8,)),
+        (f"slot-array {PEG_CODE} check B={ODD_BATCH}",
+         minsum_plan(peg, device).check_cols, peg.n, ODD_BATCH, (i32,)),
+    ]
+
+
+def phase_b6(device, timer):
+    """Kernel B6 against its twin under ``torch.equal`` (satisfied flags and
+    the bipolar syndrome) on every caller's table at full width, with its
+    time, the twin's, the memory bound and the roofline share."""
+    from ldpcsimulation_tpu_torch.kernels.check import (
+        check_lane_width,
+        parity_check,
+        parity_check_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(44)
+    out, lanes_seen = {}, set()
+    for label, cols, n, batch, dtypes in b6_forms(device):
+        m = cols.shape[0]
+        edges = int((cols < n).sum())
+        for dtype in dtypes:
+            d = b6_inputs(gen, n, batch, dtype, device)
+            views = [d]
+            if "B=" in label:  # a view one element in: the 1-lane instance
+                buf = torch.empty(n * batch + 1, dtype=dtype, device=device)
+                buf[1:].copy_(d.view(-1))
+                views.append(buf[1:].view(n, batch))
+            for dv in views:
+                lanes_seen.add(check_lane_width(dv))
+                sat, syn = parity_check(cols, dv, syndrome=True)
+                want_sat, want_syn = parity_check_plain(cols, dv,
+                                                        syndrome=True)
+                check(torch.equal(sat, want_sat) and torch.equal(
+                    syn, want_syn) and torch.equal(parity_check(cols, dv),
+                                                   want_sat),
+                      f"B6 {label} {dtype} B={batch}: kernel != plain")
+                check(bool(sat[::8].all()) and not bool(sat.all()),
+                      f"B6 {label}: the codeword lanes")
+            size = d.element_size()
+            key = f"{label} {str(dtype).split('.')[-1]}"
+            for syndrome in (False, True):
+                ms = timer(lambda: parity_check(cols, d, syndrome=syndrome))
+                plain_ms = timer(lambda: parity_check_plain(
+                    cols, d, syndrome=syndrome), 2)
+                nbytes = (n * batch * size + batch + cols.numel() * 8
+                          + (m * batch * size if syndrome else 0))
+                mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                # one XOR per named edge-lane, a compare per check-lane
+                ops = edges * batch + m * batch
+                op_ms = ops / F32_OPS_PER_S * 1e3
+                bound = max(mem_ms, op_ms)
+                form = f"{key}{' + syndrome' if syndrome else ''}"
+                out[form] = dict(
+                    shape=[m, n, batch], ms=ms, plain_ms=plain_ms,
+                    bytes=nbytes, bound_ms=bound,
+                    bound_by="bytes" if mem_ms >= op_ms else "operations",
+                    share=bound / ms, lanes=check_lane_width(d))
+                print(f"  B6 {form} [{m} checks x {n} x {batch}]: {ms:.4f} "
+                      f"ms, plain {plain_ms:.4f} ms; memory bound "
+                      f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB), roofline "
+                      f"share {bound / ms:.1%}", flush=True)
+            del d, views, sat, syn, want_sat, want_syn
+            torch.cuda.empty_cache()
+    check(lanes_seen == {1, 4, 16}, f"B6 instances {lanes_seen}")
+    return dict(forms=out, max_abs_err=0.0)
+
+
+def b7_case(gen, g, n, batch, dtype, w_vn, pert, device):
+    """One step's inputs on ``g``'s tables: ±1 decisions and their
+    syndrome, saturated samples, adapted thresholds, smoothing sums, a
+    quarter of the lanes inactive, the perturbation when asked."""
+    from ldpcsimulation_tpu_torch.kernels.check import parity_check
+
+    d = b6_inputs(gen, n, batch, dtype, device)
+    syn = parity_check(g.check_cols, d, syndrome=True)[1]
+    y = (1.0 + 0.8 * torch.randn(n, batch, generator=gen, device=device)
+         ).clamp_(-GDBF_YMAX, GDBF_YMAX)
+    k = torch.randint(0, 6, (n, batch), generator=gen, device=device)
+    thetas = torch.full((n, batch), float(np.float32(GDBF_KW["theta"])),
+                        device=device)
+    for j in range(1, 6):  # adapted 0-5 times
+        thetas = torch.where(k >= j, thetas * float(np.float32(
+            GDBF_KW["lam"])), thetas)
+    dsum = torch.randint(-20, 21, (n, batch), generator=gen, device=device,
+                         dtype=torch.int32)
+    act = torch.rand(batch, generator=gen, device=device) < 0.75
+    p = (0.7 * torch.randn(n, batch, generator=gen, device=device)
+         if pert else None)
+    return d, y, syn, thetas, dsum, act, w_vn, p
+
+
+def phase_b7(device, timer):
+    """Kernel B7 against its twin bit for bit (d, the thresholds' bits and
+    the smoothing sums) at full width on qc_1008_504's QCGraph with int8
+    decisions, in every parallel flag combination (adaptation on and off,
+    in and out of the smoothing window, scalar and per-VN w, perturbation
+    given and absent), a quarter of the lanes inactive; then int32
+    decisions, the slot-array graph of peg_1008_504 and the 1-lane
+    instance (odd batch).  Each case's time, its twin's, the memory bound
+    and the roofline share."""
+    import itertools
+
+    from ldpcsimulation_tpu_torch.codes import load_named_code, load_named_qc
+    from ldpcsimulation_tpu_torch.decoders.qc_ops import qc_graph, slot_graph
+    from ldpcsimulation_tpu_torch.kernels.gdbf import (
+        gdbf_parallel_step,
+        gdbf_parallel_step_plain,
+        step_lane_width,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(45)
+    qc = load_named_qc(CODE)
+    peg = load_named_code(PEG_CODE, device)
+    graphs = {CODE: (qc_graph(qc, device), qc.n, qc.m,
+                     qc.to_code(device).vn_deg),
+              PEG_CODE: (slot_graph(peg, device), peg.n, peg.m, peg.vn_deg)}
+    lam = float(np.float32(GDBF_KW["lam"]))
+    alpha = float(np.float32(GDBF_KW["alpha"]))
+    cases = [(CODE, BATCH, torch.int8, *flags)
+             for flags in itertools.product((True, False), repeat=4)]
+    cases += [(CODE, BATCH, torch.int32, True, True, False, True),
+              (PEG_CODE, BATCH, torch.int8, True, True, False, True),
+              (PEG_CODE, ODD_BATCH, torch.int8, True, True, True, True)]
+    out, lanes_seen = {}, set()
+    for name, batch, dtype, adapt, smooth, per_vn, pert in cases:
+        g, n, m, deg = graphs[name]
+        w = (torch.tensor(np.float32(alpha * GDBF_YMAX), device=device)
+             / deg.float()) if per_vn else alpha
+        args = b7_case(gen, g, n, batch, dtype, w, pert, device)
+        d, y, syn, thetas, dsum, act, w, p = args
+        kw = dict(lam=lam if adapt else None, smooth=smooth)
+        state = [d.clone(), thetas.clone(), dsum.clone()]
+        gdbf_parallel_step(state[0], y, syn, g.vn_checks, state[1],
+                           state[2], act, w, p, **kw)
+        want = [d.clone(), thetas.clone(), dsum.clone()]
+        gdbf_parallel_step_plain(want[0], y, syn, g.vn_checks, want[1],
+                                 want[2], act, w, p, **kw)
+        lanes_seen.add(step_lane_width(d, y, syn, thetas, dsum, act, p))
+        label = (f"{name} {str(dtype).split('.')[-1]} B={batch} "
+                 f"adapt={int(adapt)} window={int(smooth)} "
+                 f"w={'per-VN' if per_vn else 'scalar'} pert={int(pert)}")
+        check(torch.equal(state[0], want[0])
+              and torch.equal(state[1].view(torch.int32),
+                              want[1].view(torch.int32))
+              and torch.equal(state[2], want[2]),
+              f"B7 {label}: kernel != plain")
+        flipped = float((state[0] != d).float().mean())
+        check(0.0 < flipped < 1.0 and not bool(
+            (state[0] != d)[:, ~act].any()), f"B7 {label}: flips {flipped}")
+        ms = timer(lambda: gdbf_parallel_step(
+            state[0], y, syn, g.vn_checks, state[1], state[2], act, w,
+            p, **kw))
+        plain_ms = timer(lambda: gdbf_parallel_step_plain(
+            want[0], y, syn, g.vn_checks, want[1], want[2], act, w, p,
+            **kw), 2)
+        size = d.element_size()
+        plane = n * batch
+        nbytes = (m * batch * size + 2 * plane * size + plane * 4
+                  + plane * 4 * (2 if adapt else 1)
+                  + (plane * 4 if pert else 0)
+                  + (2 * plane * 4 if smooth else 0) + batch
+                  + g.vn_checks.numel() * 8 + (n * 4 if per_vn else 0))
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the neighbour adds, the metric's 3 (4) f32 operations, the
+        # compare, the threshold multiply
+        ops = (int((g.vn_checks < m).sum()) * batch
+               + plane * (5 + int(pert) + int(adapt)))
+        op_ms = ops / F32_OPS_PER_S * 1e3
+        bound = max(mem_ms, op_ms)
+        out[label] = dict(
+            shape=[n, batch], ms=ms, plain_ms=plain_ms, bytes=nbytes,
+            bound_ms=bound,
+            bound_by="bytes" if mem_ms >= op_ms else "operations",
+            share=bound / ms)
+        print(f"  B7 {label}: equal to the twin (flipped {flipped:.3g}); "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; memory bound "
+              f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB), roofline share "
+              f"{bound / ms:.1%}", flush=True)
+        del args, d, y, syn, thetas, dsum, act, p, state, want
+    check(lanes_seen == {1, 4}, f"B7 instances {lanes_seen}")
+    torch.cuda.empty_cache()
+    return dict(forms=out, max_abs_err=0.0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6016,8 +6304,9 @@ def main() -> int:
     check(launches.get("minsum_cn_scan", 0) > 0, "B1 not launched")
     check(launches.get("minsum_vn_update", 0) > 0, "B5 not launched")
     check(launches.get("awgn_philox", 0) > 0, "B2 not launched")
+    check(launches.get("parity_check", 0) > 0, "B6 not launched")
     check(launches == {"minsum_cn_scan": 4 * T, "minsum_vn_update": 4 * T,
-                       "awgn_philox": 4},
+                       "awgn_philox": 4, "parity_check": 4},
           f"unexpected launch counts {launches}")
     check(paths == {("awgn_philox", "fast"): 4}, f"B2 instances {paths}")
     check_totals("minsum", stats)
@@ -6046,7 +6335,7 @@ def main() -> int:
     header(f"[8] B4 vs plain [{n} x {BATCH}]")
     b4_err, b4_times = phase_b4(n, device, BATCH, sigma, time_ms)
     header("[9] GDBF decode: card vs CPU plain path on injected draws")
-    phase_gdbf_equal(qc, device)
+    gdbf9 = phase_gdbf_equal(qc, device)
     header(f"[10] SMNGDBF path: simulate {CODE} {GDBF_SNR_DB} dB T={GDBF_T},"
           f" 4 x {BATCH} frames")
     g_stats, g_rate, g_launches, g_parts = phase_gdbf_main(
@@ -6083,7 +6372,7 @@ def main() -> int:
     header("[17] sweep CLI, --alist and the quantized min-sum routes")
     _, ms_launches = phase_minsum_sweep(device, 8192)
     header("[18] layered min-sum and DD-BMP: card vs CPU plain path")
-    layered_counted = phase_layered_ddbmp_card_vs_cpu(device)
+    layered_counted, layered_b6 = phase_layered_ddbmp_card_vs_cpu(device)
     header("[19] BP: card vs CPU plain path, by tolerance and agreement")
     bp_seen = phase_bp_card_vs_cpu(device)
     header("[20] B1 at a layer's shape vs plain")
@@ -6095,7 +6384,7 @@ def main() -> int:
     header("[23] NGDBFhw: card vs CPU plain path on the keyed ring")
     hw_counted = phase_hw_card_vs_cpu(device)
     header("[24] SystemC model: card vs CPU plain path on the keyed source")
-    sc_counted = phase_systemc_card_vs_cpu(device)
+    sc_counted, sc_b6 = phase_systemc_card_vs_cpu(device)
     header(f"[25] NGDBFhw and SystemC paths: simulate at B={BATCH}")
     hw_paths = phase_hw_paths(device, path, time_ms)
     header("[26] sweep CLI, the ngdbfhw route")
@@ -6145,6 +6434,11 @@ def main() -> int:
     header(f"[43] B5 vs plain: four tables, {len(B5_PAIRS)} dtype pairs, "
            f"B={BATCH}, {BATCH + 2}, {ODD_BATCH} and 1")
     b5 = phase_b5(device, time_ms)
+    header(f"[44] B6 and B7 vs plain at full width: the parity check on "
+           f"every caller's table, the parallel GDBF step in every flag "
+           f"combination")
+    b6 = phase_b6(device, time_ms)
+    b7 = phase_b7(device, time_ms)
 
     summary = {
         "card": card,
@@ -6199,6 +6493,8 @@ def main() -> int:
         "surface": surface41,
         "stratified": strat42,
         "b5": b5,
+        "b6": b6,
+        "b7": b7,
     }
     print(json.dumps(summary))
     print(card)
@@ -6441,6 +6737,67 @@ def main() -> int:
               if "[41]" not in k),
           f"B5 not launched on a flooding min-sum path: "
           f"{b5_row['launches_by_path']}")
+    # B6 and B7: no Pallas original (the XLA fusions of the JAX parity
+    # checks and of the JAX bit-flip step's VN side); their launches on
+    # each path of this run
+    b6_main = b6["forms"][f"QC {CODE} check int32"]
+    b6_row = {
+        "name": "parity_check", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/parity_check.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/minsum_qc.py:383",
+        "pallas_original": None,
+        "launches": launches["parity_check"],
+        "max_abs_err": b6["max_abs_err"], "ms": b6_main["ms"],
+        "plain_ms": b6_main["plain_ms"], "bound_ms": b6_main["bound_ms"],
+        "bound_by": b6_main["bound_by"], "share": b6_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            "minsum qc [5]": launches["parity_check"],
+            "gdbf card vs cpu [9]": sum(
+                v for k, v in gdbf9.items() if k.endswith("parity_check")),
+            "smngdbf [10]": g_launches["parity_check"],
+            "slot-array [16]": p_launches["parity_check"],
+            "dvbs2 [16]": d_launches["parity_check"],
+            "sweep [17]": ms_launches["parity_check"],
+            **{f"layered [18] {k}": v for k, v in layered_b6.items()},
+            "systemc card vs cpu [24]": sum(sc_b6.values()),
+            "smngdbf stream card vs cpu [27]": stream_counted["SMNGDBF"][
+                "parity_check"],
+            "replay traces [34]": sum(
+                v.get("parity_check", 0) for v in replay["traced"].values()),
+            "grid one slot [37]": grid37["single"]["launches"][
+                "parity_check"],
+            "smngdbf grid [37]": grid37["grid"]["launches"]["parity_check"],
+            "stratified min-sum B=32768 [42]": strat42["full_width"][
+                "launches"]["parity_check"]},
+        "forms": b6["forms"]}
+    b7_main = b7["forms"][
+        f"{CODE} int8 B={BATCH} adapt=1 window=1 w=scalar pert=1"]
+    b7_row = {
+        "name": "gdbf_parallel_step", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/gdbf_step.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/gdbf.py:414",
+        "pallas_original": None,
+        "launches": g_launches["gdbf_parallel_step"],
+        "max_abs_err": b7["max_abs_err"], "ms": b7_main["ms"],
+        "plain_ms": b7_main["plain_ms"], "bound_ms": b7_main["bound_ms"],
+        "bound_by": b7_main["bound_by"], "share": b7_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            "smngdbf [10]": g_launches["gdbf_parallel_step"],
+            "gdbf card vs cpu [9]": sum(
+                v for k, v in gdbf9.items()
+                if k.endswith("gdbf_parallel_step")),
+            "replay traces [34]": sum(
+                v.get("gdbf_parallel_step", 0)
+                for v in replay["traced"].values()),
+            "smngdbf grid [37]": grid37["grid"]["launches"][
+                "gdbf_parallel_step"]},
+        "forms": b7["forms"]}
+    for row in (b6_row, b7_row):
+        check(all(v >= 1 for v in row["launches_by_path"].values()),
+              f"{row['name']} not launched on a path: "
+              f"{row['launches_by_path']}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"ldpcsimulation_tpu_torch/csrc/{src}",
@@ -6460,7 +6817,7 @@ def main() -> int:
          **({"ring_shapes": rings["shapes"]}
             if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
-    ] + [b5_row]}))
+    ] + [b5_row, b6_row, b7_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

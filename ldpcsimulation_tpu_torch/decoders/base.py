@@ -16,13 +16,17 @@ import dataclasses
 
 import torch
 
+from ..kernels.check import parity_check
+from ..kernels.minsum import minsum_cn_scan, minsum_vn_update
+from .qc_ops import slot_graph, syndrome_bipolar
+
 __all__ = [
     "DecodeResult",
     "NoiseKey",
     "sgn_pos",
     "sgn_neg",
     "storage_cast",
-    "message_storage",
+    "minsum_iteration",
     "run_flooding",
     "run_flooding_soft",
     "gather_cn",
@@ -74,15 +78,25 @@ def storage_cast(x: torch.Tensor, sdt: torch.dtype) -> torch.Tensor:
     return x.to(sdt)
 
 
-def message_storage(v2c: torch.Tensor, y: torch.Tensor,
-                    storage_dtype=None) -> torch.dtype:
-    """A flooding step's storage dtype (``storage_dtype``, else the
-    channel's), which its messages must already have: the min-sum steps
-    store c2v in it and v2c' over c2v."""
+def minsum_iteration(v2c: torch.Tensor, y: torch.Tensor, cn_rows, vn_rows,
+                     variant="plain", alpha=1.0, delta=0.0,
+                     storage_dtype=None):
+    """One flooding min-sum iteration on kernels B1 and B5 through a plan's
+    tables: (v2c' in the storage dtype, total in y's dtype).
+
+    The storage dtype is ``storage_dtype``, else the channel's.  Messages
+    in it take B1's storage-typed store, and B5 writes v2c' over c2v.
+    Messages in another dtype (the JAX steps take them): B1 scans v2c in
+    its own dtype into f32, B5 runs on f32 storage, and v2c' is
+    :func:`storage_cast` to the storage dtype — the JAX steps'
+    ``storage_cast(total − c2v, sdt)``.
+    """
     sdt = storage_dtype if storage_dtype is not None else y.dtype
-    if v2c.dtype != sdt:
-        raise ValueError(f"v2c is {v2c.dtype}, the storage dtype {sdt}")
-    return sdt
+    store = sdt if v2c.dtype == sdt else torch.float32
+    c2v = minsum_cn_scan(v2c, cn_rows, variant, alpha, delta,
+                         out_dtype=store)
+    v2c, total = minsum_vn_update(c2v, y, vn_rows)
+    return (v2c if store == sdt else storage_cast(v2c, sdt)), total
 
 
 def sgn_pos(x: torch.Tensor) -> torch.Tensor:
@@ -111,29 +125,23 @@ def gather_vn(code, c2v_flat: torch.Tensor) -> torch.Tensor:
 
 def syndrome_from_hard(code, d: torch.Tensor) -> torch.Tensor:
     """Bipolar syndrome per check from hard decisions (the bit-flip
-    decoders' CN update).
+    decoders' CN update), through kernel B6 on the slot arrays' table.
 
-    d: [N, B] ±1.  Returns [M, B] in d's dtype, +1 satisfied and −1
-    unsatisfied; padding slots contribute +1.
+    d: [N, B] ±1 int8/int32.  Returns [M, B] in d's dtype, +1 satisfied and
+    −1 unsatisfied; padding slots contribute +1.
     """
-    m, dc = code.cn_vn.shape
-    vals = d[code.cn_vn.reshape(-1).long()].reshape(m, dc, -1)
-    vals = torch.where(code.cn_mask[:, :, None], vals, torch.ones_like(vals))
-    return torch.prod(vals, dim=1).to(d.dtype)
+    return syndrome_bipolar(slot_graph(code, d.device), d)
 
 
 def xor_satisfied(cols: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """d: [N, B] ±1 -> [B] bool, all parity checks satisfied: per check the
-    XOR of its negative decisions (the sign of the JAX package's product).
+    """d: [N, B] ±1 int8/int32 -> [B] bool, all parity checks satisfied:
+    per check the XOR of its negative decisions (the sign of the JAX
+    package's product), kernel B6.
 
     cols: [M, dc] int64 column of each check slot, N in an absent slot (a
-    sentinel row that is never negative).
+    sentinel column that is never negative).
     """
-    neg = torch.cat([d < 0, d.new_zeros((1, d.shape[1]), dtype=torch.bool)])
-    odd = neg[cols[:, 0]]
-    for t in range(1, cols.shape[1]):
-        odd = odd ^ neg[cols[:, t]]
-    return ~odd.any(dim=0)
+    return parity_check(cols, d.contiguous())
 
 
 def check_columns(code) -> torch.Tensor:
@@ -144,7 +152,7 @@ def check_columns(code) -> torch.Tensor:
 
 def check_satisfied(code, d: torch.Tensor) -> torch.Tensor:
     """d: [N, B] ±1 -> [B] bool, all parity checks satisfied."""
-    return xor_satisfied(check_columns(code).to(d.device), d)
+    return xor_satisfied(slot_graph(code, d.device).check_cols, d)
 
 
 def _decide(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

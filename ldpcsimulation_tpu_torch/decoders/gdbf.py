@@ -22,6 +22,14 @@ every rule.  In short:
     ``Φ((θ_i − E_i)/σ')`` snapped to the nearest of 8 hardware levels;
   * redecode phases: restarts from the channel decisions with fresh noise.
 
+Kernels.  On the QC and slot-array graphs every step's syndrome and its
+check are one launch of kernel B6 (:func:`..kernels.check.parity_check`);
+the parallel rule's VN side — neighbour sum, metric, flip, adaptation and
+smoothing sum — is one launch of kernel B7
+(:func:`..kernels.gdbf.gdbf_parallel_step`), in place on int8 decisions.
+The sequential, mode-switching and stochastic rules, and the dense route,
+keep the plain torch VN side.
+
 Decoder noise.  The JAX decoder folds one key per batch and step.  Here the
 noise of frame ``f`` at step ``t`` is keyed by (run seed, f, t) through
 :class:`.base.NoiseKey`, so a frame decodes the same in any batch: the
@@ -57,13 +65,15 @@ import torch
 from ..codes.code import Code
 from ..codes.qc import QCCode
 from ..kernels.channel import gauss_philox, noise_stream, uniform_philox
-from .base import NoiseKey, syndrome_from_hard
+from ..kernels.check import parity_check
+from ..kernels.gdbf import gdbf_parallel_step
+from .base import NoiseKey
 from .dense_ops import (
     DenseGraph,
     dense_syndrome_bipolar,
     dense_syndrome_sum_per_vn,
 )
-from .qc_ops import qc_syndrome_bipolar, qc_syndrome_sum_per_vn
+from .qc_ops import qc_graph, slot_graph, syndrome_sum_per_vn
 
 __all__ = [
     "GDBFConfig",
@@ -192,14 +202,6 @@ def _ndtr(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * y
 
 
-def _syndrome_sum_per_vn(code: Code, syn: torch.Tensor) -> torch.Tensor:
-    """[M, B] bipolar syndromes -> [N, B] per-variable neighbour sums."""
-    n, dv = code.vn_cn.shape
-    g = syn[code.vn_cn.reshape(-1).long()].reshape(n, dv, -1)
-    g = torch.where(code.vn_mask[:, :, None], g, torch.zeros_like(g))
-    return g.sum(dim=1)
-
-
 def flip_decisions(cfg: GDBFConfig, e, thetas, mu, noise_sigma, rnum):
     """(flip, flip_for_adapt) masks from the flip metric ``e`` [N, B].
 
@@ -280,6 +282,46 @@ def keyed_draws(cfg: GDBFConfig, sigma: float, key: NoiseKey, n: int,
     return pert, unif
 
 
+def _vn_side(cfg, graph, dense, d, y_t, syn, thetas, dsum, mu, act, w,
+             pert, lam, noise_sigma, rnum, it, in_window):
+    """The plain torch VN side of one step (the rules B7 does not take:
+    sequential, mode switching, stochastic; and the dense route).  Returns
+    (d, thetas, dsum, mu)."""
+    dtype = y_t.dtype
+    # mode switching: f1 before the flips (stale syndrome)
+    if cfg.mode_switching:
+        syn_sum = syn.sum(dim=0).to(dtype)
+        f1 = (d.to(dtype) * y_t).sum(dim=0) + syn_sum
+
+    # flip metric
+    if graph is not None:
+        syn_sum_vn = syndrome_sum_per_vn(graph, syn.to(dtype))
+    else:
+        syn_sum_vn = dense_syndrome_sum_per_vn(dense, syn.to(dtype))
+    e = d.to(dtype) * y_t + w * syn_sum_vn
+    if pert is not None:
+        e = e + pert
+
+    # flip decisions
+    flip, flip_for_adapt = flip_decisions(cfg, e, thetas, mu, noise_sigma,
+                                          rnum)
+    d = torch.where(act[None, :] & flip, -d, d)
+
+    if cfg.threshold_adaptation:
+        thetas = torch.where(act[None, :] & ~flip_for_adapt, thetas * lam,
+                             thetas)
+
+    # mode switch decision: f2 with the new d, stale syndrome
+    if cfg.mode_switching and it > cfg.t_switch:
+        f2 = (d.to(dtype) * y_t).sum(dim=0) + syn_sum
+        mu = torch.where(act & (f1 >= f2), 0, mu)
+
+    # output smoothing accumulation
+    if in_window:
+        dsum = torch.where(act[None, :], dsum + d, dsum)
+    return d, thetas, dsum, mu
+
+
 def decode_gdbf(
     code: Code,
     yq: torch.Tensor,
@@ -332,18 +374,29 @@ def decode_gdbf(
     ns = _f32(sigma * cfg.noise_scale)
     noise_sigma = torch.tensor(ns, dtype=dtype, device=device)
     if cfg.weight_syndromes and cfg.legacy_weight:
-        w = (torch.tensor(cfg.alpha * cfg.weight_ymax, dtype=dtype,
-                          device=device) / code.vn_deg.to(dtype))[:, None]
+        w_vn = torch.tensor(cfg.alpha * cfg.weight_ymax, dtype=dtype,
+                            device=device) / code.vn_deg.to(dtype)
+        w = w_vn[:, None]
     else:
-        w = _f32(cfg.alpha if cfg.weight_syndromes else 1.0)
+        w = w_vn = _f32(cfg.alpha if cfg.weight_syndromes else 1.0)
     theta0 = _f32(cfg.theta)
     lam = _f32(cfg.lam)
     mu0 = 0 if cfg.sequential else 1
+    # The graph operations: kernel B6's syndrome on the QC or slot-array
+    # table, else the dense products.  The parallel rule's VN side is
+    # kernel B7 on the same graph; the sequential, mode-switching and
+    # stochastic rules keep the plain torch VN side.
+    graph = (qc_graph(qc, device) if qc is not None
+             else None if dense is not None else slot_graph(code, device))
+    parallel = not (cfg.sequential or cfg.mode_switching
+                    or cfg.quantize_probabilities)
 
     # Channel decisions from the sign bit: quantizers with a zero level
-    # emit signed zeros, and a y > 0 test would misread −0.0's sign.
-    r = torch.where(torch.signbit(y_t), -1, 1).to(torch.int32)
-    d = r
+    # emit signed zeros, and a y > 0 test would misread −0.0's sign.  The
+    # decisions are int8 ±1 inside the decode; B7 flips d in place, so d
+    # never shares r's memory.
+    r = torch.where(torch.signbit(y_t), -1, 1).to(torch.int8)
+    d = r.clone()
     thetas = torch.full((n, b), theta0, dtype=dtype, device=device)
     dsum = torch.zeros((n, b), dtype=torch.int32, device=device)
     mu = torch.full((b,), mu0, dtype=torch.int32, device=device)
@@ -365,6 +418,7 @@ def decode_gdbf(
             break
         phase, it = divmod(step, T)
         act = ~done
+        in_window = cfg.output_smoothing and it > T - cfg.window_size
 
         # phase start: reset the per-phase state of active frames (step 0's
         # reset would give back the initial state)
@@ -379,35 +433,22 @@ def decode_gdbf(
                 smooth_used = smooth_used + act.to(torch.int32)
 
         # syndrome check at iteration start
-        if qc is not None:
-            syn = qc_syndrome_bipolar(qc, d)
-        elif dense is not None:
-            syn = dense_syndrome_bipolar(dense, d)
+        if graph is not None:
+            satisfied, syn = parity_check(graph.check_cols, d, syndrome=True)
         else:
-            syn = syndrome_from_hard(code, d)
-        satisfied = (syn > 0).all(dim=0)
+            syn = dense_syndrome_bipolar(dense, d)
+            satisfied = (syn > 0).all(dim=0)
         newly = act & satisfied
         iters = torch.where(newly, step, iters)
         phases = torch.where(newly, phase + 1, phases)
-        if cfg.output_smoothing and it > T - cfg.window_size:
+        if in_window:
             smooth_used = smooth_used + newly.to(torch.int32)
         done = done | satisfied
         sat_at_exit = sat_at_exit | newly
         act = ~done
 
-        # mode switching: f1 before the flips (stale syndrome)
-        if cfg.mode_switching:
-            syn_sum = syn.sum(dim=0).to(dtype)
-            f1 = (d.to(dtype) * y_t).sum(dim=0) + syn_sum
-
-        # flip metric
-        if qc is not None:
-            syn_sum_vn = qc_syndrome_sum_per_vn(qc, syn.to(dtype))
-        elif dense is not None:
-            syn_sum_vn = dense_syndrome_sum_per_vn(dense, syn.to(dtype))
-        else:
-            syn_sum_vn = _syndrome_sum_per_vn(code, syn).to(dtype)
-        e = d.to(dtype) * y_t + w * syn_sum_vn
+        # perturbation
+        pert = None
         if cfg.add_noise:
             if perturbations is not None:
                 pert = perturbations[step]
@@ -419,34 +460,26 @@ def decode_gdbf(
                     noise_prev = torch.where(act[None, :], sample, noise_prev)
                 else:
                     pert = sample
-            e = e + pert
 
-        # flip decisions
-        rnum = None
-        if cfg.quantize_probabilities:
-            rnum = (stoch_uniforms[step] if stoch_uniforms is not None
-                    else _keyed_uniforms(key, n, b, step, device))
-        flip, flip_for_adapt = flip_decisions(cfg, e, thetas, mu,
-                                              noise_sigma, rnum)
-        d = torch.where(act[None, :] & flip, -d, d)
-
-        if cfg.threshold_adaptation:
-            thetas = torch.where(act[None, :] & ~flip_for_adapt,
-                                 thetas * lam, thetas)
-
-        # mode switch decision: f2 with the new d, stale syndrome
-        if cfg.mode_switching and it > cfg.t_switch:
-            f2 = (d.to(dtype) * y_t).sum(dim=0) + syn_sum
-            mu = torch.where(act & (f1 >= f2), 0, mu)
-
-        # output smoothing accumulation
-        if cfg.output_smoothing and it > T - cfg.window_size:
-            dsum = torch.where(act[None, :], dsum + d, dsum)
+        if parallel and graph is not None:
+            # metric, flip, adaptation and smoothing sum: kernel B7
+            gdbf_parallel_step(
+                d, y_t, syn, graph.vn_checks, thetas, dsum, act, w_vn, pert,
+                lam if cfg.threshold_adaptation else None, in_window)
+        else:
+            rnum = None
+            if cfg.quantize_probabilities:
+                rnum = (stoch_uniforms[step] if stoch_uniforms is not None
+                        else _keyed_uniforms(key, n, b, step, device))
+            d, thetas, dsum, mu = _vn_side(
+                cfg, graph, dense, d, y_t, syn, thetas, dsum, mu, act, w,
+                pert, lam, noise_sigma, rnum, it, in_window)
         if trace:
             d_steps[step] = d
         step += 1
 
     satisfied = sat_at_exit
+    d = d.to(torch.int32)
     if cfg.output_smoothing:
         # the last phase of a never-satisfied frame ran all T iterations
         smooth_used = smooth_used + (~satisfied).to(torch.int32)

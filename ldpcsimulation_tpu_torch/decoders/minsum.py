@@ -36,13 +36,12 @@ from ..codes.code import Code
 from ..kernels.minsum import (
     VARIANTS,
     minsum_cn_scan,
-    minsum_vn_update,
     zero_term,
 )
 from .base import (
     DecodeResult,
     check_columns,
-    message_storage,
+    minsum_iteration,
     run_flooding_soft,
     sgn_pos,
     xor_satisfied,
@@ -159,20 +158,20 @@ def apply_offset(c2v_flat: torch.Tensor, delta: float) -> torch.Tensor:
 def minsum_step(code: Code, variant: str = "plain", alpha: float = 1.0,
                 delta: float = 0.0, storage_dtype=None):
     """The :func:`decode_minsum` iteration as a function of (messages,
-    channel term): ``step(v2c, y_t) -> (v2c', total)`` with ``v2c`` in the
-    storage dtype and ``y_t`` the ``[N, B]`` channel samples.  Kernel B1
+    channel term): ``step(v2c, y_t) -> (v2c', total)`` with ``y_t`` the
+    ``[N, B]`` channel samples and v2c' in the storage dtype.  Kernel B1
     stores c2v in the storage dtype; kernel B5 folds it in the channel's
     dtype (an f16 channel folds in f16, as the JAX step casts c2v to it)
-    and writes v2c' over it (``v2c`` itself is not written)."""
+    and writes v2c' over it (``v2c`` itself is not written).  Messages in
+    another dtype take :func:`.base.minsum_iteration`'s f32 route."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown min-sum variant {variant!r}")
 
     def step(v2c, y_t):
         plan = minsum_plan(code, v2c.device)
-        sdt = message_storage(v2c, y_t, storage_dtype)
-        c2v = minsum_cn_scan(v2c.contiguous(), plan.cn_rows, variant, alpha,
-                             delta, out_dtype=sdt)
-        return minsum_vn_update(c2v, y_t.contiguous(), plan.vn_rows)
+        return minsum_iteration(v2c.contiguous(), y_t.contiguous(),
+                                plan.cn_rows, plan.vn_rows, variant, alpha,
+                                delta, storage_dtype)
 
     return step
 

@@ -52,13 +52,11 @@ from ..codes.qc import QCCode
 from ..kernels.minsum import (
     NO_TERM,
     VARIANTS,
-    minsum_cn_scan,
-    minsum_vn_update,
     zero_term,
 )
 from .base import (
     DecodeResult,
-    message_storage,
+    minsum_iteration,
     run_flooding_soft,
     xor_satisfied,
 )
@@ -348,8 +346,9 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
                    delta: float = 0.0, storage_dtype=None):
     """One flooding iteration as a function of (messages, channel term):
     ``step(v2c, yb) -> (v2c', total)`` with ``v2c`` the ``[P*z, B]`` planes
-    in the storage dtype and ``yb``/``total`` the ``[N, B]`` channel
-    samples and posterior.
+    (v2c' in the storage dtype; messages in another dtype take
+    :func:`.base.minsum_iteration`'s f32 route) and ``yb``/``total`` the
+    ``[N, B]`` channel samples and posterior.
 
     The same operations as the JAX ``qc_minsum_step``: c2v from the CN
     update (kernel B1, stored in the storage dtype, which is exact; cast
@@ -362,10 +361,9 @@ def qc_minsum_step(qc: QCCode, variant: str = "plain", alpha: float = 1.0,
 
     def step(v2c, yb):
         plan = qc_plan(qc, v2c.device)
-        sdt = message_storage(v2c, yb, storage_dtype)
-        c2v = minsum_cn_scan(v2c, plan.cn_rows, variant, alpha, delta,
-                             out_dtype=sdt)
-        return minsum_vn_update(c2v, yb.contiguous(), plan.vn_rows)
+        return minsum_iteration(v2c, yb.contiguous(), plan.cn_rows,
+                                plan.vn_rows, variant, alpha, delta,
+                                storage_dtype)
 
     return step
 

@@ -4,9 +4,10 @@ Port of ``ldpcsimulation_tpu.decoders.qc_ops``.  The GDBF/NGDBF decoders
 touch the Tanner graph in two places: the bipolar syndrome per check and
 the per-variable sum of neighbouring syndromes.  The JAX package wrote both
 as static per-block rolls; here :func:`qc_graph` turns the block structure
-into two row tables once per (code, device), and each operation is one
-gather per slot.  The outputs are bit-identical to the rolls: products of
-±1 and sums of small integers, in any order.
+into two row tables once per (code, device).  The syndrome is kernel B6
+(:func:`..kernels.check.parity_check`) on the check table, the neighbour
+sum one gather per slot.  The outputs are bit-identical to the rolls:
+parities of ±1 and sums of small integers, in any order.
 
 Multi-edge blocks (``extra_edges``) are further slots.  A defect edge
 (``minus_edges`` entry ``(bi, bj, s, r)``) is an absent slot: the table
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..codes.qc import QCCode
+from ..kernels.check import parity_check
 
 __all__ = ["QCGraph", "qc_graph", "slot_graph", "syndrome_bipolar",
            "syndrome_sum_per_vn", "qc_syndrome_bipolar",
@@ -99,8 +101,9 @@ def _gather_rows(x, table, padded, fill, combine):
 
 
 def syndrome_bipolar(g: QCGraph, d: torch.Tensor) -> torch.Tensor:
-    """d: [N, B] ±1 -> bipolar syndrome [M, B] (+1 satisfied), d's dtype."""
-    return _gather_rows(d, g.check_cols, g.padded_checks, 1, torch.mul)
+    """d: [N, B] ±1 int8/int32 -> bipolar syndrome [M, B] (+1 satisfied),
+    d's dtype: kernel B6 on the check table."""
+    return parity_check(g.check_cols, d.contiguous(), syndrome=True)[1]
 
 
 def syndrome_sum_per_vn(g: QCGraph, syn: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,13 @@
   * B5 :func:`.minsum.minsum_vn_update` — flooding min-sum variable-node
     update: fold, total, extrinsic and saturating store in one pass, in
     place over c2v (no Pallas original: the JAX steps' XLA fusion);
+  * B6 :func:`.check.parity_check` — the parity check of every decoder's
+    early exit and the bit-flip decoders' bipolar syndrome, one integer
+    pass (no Pallas original: the JAX checks' XLA fusions);
+  * B7 :func:`.gdbf.gdbf_parallel_step` — the parallel GDBF step after the
+    CN update: neighbour sum, flip metric, flip, threshold adaptation and
+    smoothing sum in one pass, in place (no Pallas original: the JAX
+    step's XLA fusion);
   * B2 :func:`.channel.awgn_philox` — keyed Philox + Box–Muller AWGN of the
     all-(+1) word (replaces ``channel_pallas.awgn_all_zero_pallas``);
   * B3 :func:`.channel.uniform_philox` — keyed Philox uniforms (replaces
@@ -26,6 +33,8 @@ from .channel import (
     uniform_philox,
     uniform_philox_plain,
 )
+from .check import parity_check, parity_check_plain
+from .gdbf import gdbf_parallel_step, gdbf_parallel_step_plain
 from .minsum import (
     VARIANTS,
     minsum_cn_scan,
@@ -49,4 +58,8 @@ __all__ = [
     "minsum_cn_scan_plain",
     "minsum_vn_update",
     "minsum_vn_update_plain",
+    "parity_check",
+    "parity_check_plain",
+    "gdbf_parallel_step",
+    "gdbf_parallel_step_plain",
 ]

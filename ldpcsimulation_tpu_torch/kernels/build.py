@@ -31,8 +31,8 @@ __all__ = ["LAUNCHES", "PATHS", "BUILD_DIR", "build", "library", "check",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("awgn_philox.cu", "minsum_cn_scan.cu", "minsum_vn_update.cu",
-           "uniform_philox.cu")
+SOURCES = ("awgn_philox.cu", "gdbf_step.cu", "minsum_cn_scan.cu",
+           "minsum_vn_update.cu", "parity_check.cu", "uniform_philox.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -132,6 +132,19 @@ def library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int, _P,
         ]
         lib.ldpc_minsum_vn_update.restype = ctypes.c_int
+        lib.ldpc_parity_check.argtypes = [
+            _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, _P, ctypes.c_int,
+            _P,
+        ]
+        lib.ldpc_parity_check.restype = ctypes.c_int
+        lib.ldpc_gdbf_parallel_step.argtypes = [
+            _P, ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, _P, _P, _P, ctypes.c_float, _P, _P, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, _P,
+        ]
+        lib.ldpc_gdbf_parallel_step.restype = ctypes.c_int
         draw = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_uint32, ctypes.c_int]
         lib.ldpc_uniform_philox.argtypes = draw + [

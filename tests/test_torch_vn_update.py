@@ -393,8 +393,45 @@ def test_wrapper_runs_the_twin_in_place_and_checks_inputs():
         minsum_vn_update(c2v, y[:, :4].contiguous(), plan.vn_rows)
     with pytest.raises(ValueError, match="contiguous"):
         minsum_vn_update(c2v, y.t().contiguous().t(), plan.vn_rows)
-    with pytest.raises(ValueError, match="storage dtype"):
-        minsum_step(code, storage_dtype=torch.float16)(c2v.float(), y)
+
+
+@pytest.mark.parametrize("mdt,sdt", [(np.float32, np.float16),
+                                     (np.float16, np.float32)])
+@pytest.mark.parametrize("route", ["slot-array", "qc"])
+def test_steps_take_messages_outside_the_storage_dtype(route, mdt, sdt):
+    """Messages whose dtype is not the storage dtype (f32 messages with f16
+    storage, and the reverse): B1 scans them into f32, B5 runs on f32
+    storage and v2c' is cast, saturating, to the storage dtype; v2c' and
+    the total equal the JAX step's, run op by op, which scans v2c in its
+    own dtype and ends in ``storage_cast(total - c2v, sdt)``."""
+    rng = np.random.default_rng(21)
+    if route == "slot-array":
+        jcode, code = jlib.load_named_code("peg_96_48"), load_named_code(
+            "peg_96_48")
+        msgs = _tied_messages(rng, (code.n * code.dv_max, B), mdt)
+        y = _channel(rng, code.n, np.float32)
+        jstep = jminsum.minsum_step(jcode, storage_dtype=jnp.dtype(sdt))
+        step = minsum_step(code, storage_dtype=TORCH[sdt])
+        jmsgs, jy = jnp.asarray(msgs), jnp.asarray(y)
+    else:
+        jqc = _qc_codes()["qc_ira_z8"]
+        qc = QCCode.from_reference(jqc)
+        msgs = _tied_messages(
+            rng, (qc_plan(qc, CPU).num_planes * qc.z, B), mdt)
+        y = _channel(rng, qc.n, np.float32)
+        jstep = jmsqc.qc_minsum_step(jqc, storage_dtype=jnp.dtype(sdt))
+        step = qc_minsum_step(qc, storage_dtype=TORCH[sdt])
+        jmsgs = _jax_carry(jqc, msgs)
+        jy = jnp.asarray(y).reshape(qc.nb, qc.z, B)
+    with jax.disable_jit():
+        jv2c, jtot = jstep(jmsgs, jy)
+    want = (np.asarray(jv2c) if route == "slot-array"
+            else _carry_planes(jv2c)).reshape(msgs.shape)
+    assert want.dtype == sdt
+    v2c, tot = step(torch.from_numpy(msgs), torch.from_numpy(y))
+    assert v2c.dtype == TORCH[sdt]
+    _equal(v2c, want)
+    _equal(tot, np.asarray(jtot).reshape(tot.shape))
 
 
 @pytest.mark.parametrize("batch,offsets,want", [
