@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from .. import spans
 from ..kernels.check import parity_check
 from ..kernels.minsum import minsum_cn_scan, minsum_vn_update
 from .qc_ops import slot_graph, syndrome_bipolar
@@ -35,6 +36,7 @@ __all__ = [
     "check_columns",
     "check_satisfied",
     "xor_satisfied",
+    "all_done",
 ]
 
 
@@ -161,6 +163,13 @@ def _decide(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(total > 0, one, -one)
 
 
+def all_done(done: torch.Tensor) -> bool:
+    """The host's read of a decoder's all-done flag: whether every frame of
+    ``done`` [B] is done (a sync with the card)."""
+    with spans.span(spans.EXIT_CHECK):
+        return bool(done.all())
+
+
 def run_flooding(
     state0,
     step,
@@ -200,7 +209,7 @@ def run_flooding(
     done = satisfied_of(d)
     iters = torch.zeros((batch,), dtype=torch.int32, device=d.device)
     t = 0
-    while t < num_iterations and not bool(done.all()):
+    while t < num_iterations and not all_done(done):
         state = step(state)
         act = ~done
         d = torch.where(act, decide(state), d)
@@ -259,7 +268,7 @@ def run_flooding_soft(
     done = satisfied_of(d)
     iters = torch.zeros((batch,), dtype=torch.int32, device=device)
     t = 0
-    while t < num_iterations and not bool(done.all()):
+    while t < num_iterations and not all_done(done):
         msgs, total = step(msgs)
         act = ~done
         d = torch.where(act, _decide(total, torch.int8), d)

@@ -67,7 +67,7 @@ from ..codes.qc import QCCode
 from ..kernels.channel import gauss_philox, noise_stream, uniform_philox
 from ..kernels.check import parity_check
 from ..kernels.gdbf import gdbf_parallel_step
-from .base import NoiseKey
+from .base import NoiseKey, all_done
 from .dense_ops import (
     DenseGraph,
     dense_syndrome_bipolar,
@@ -414,7 +414,7 @@ def decode_gdbf(
     step = 0
     while step < total_steps:
         if (not trace and step % DONE_CHECK_EVERY == 0
-                and bool(done.all())):
+                and all_done(done)):
             break
         phase, it = divmod(step, T)
         act = ~done

@@ -36,6 +36,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..channel.awgn import awgn_all_zero, bpsk, n0_to_sigma, snr_to_n0
 from ..codes.code import Code
 from ..decoders.base import DecodeResult, NoiseKey
@@ -211,6 +212,8 @@ def simulate(
     the host (more with the bit-flip extras).  ``device`` defaults to the
     card; ``device="cpu"`` runs the kernels' plain twins.  With
     ``verbose``, an incremental report every ``report_every_batches``.
+    While a profiler runs, each batch and its phases are :mod:`..spans`
+    ranges.
     """
     if awgn_form not in AWGN_FORMS:
         raise ValueError(f"awgn_form {awgn_form!r} not in {AWGN_FORMS}")
@@ -237,81 +240,53 @@ def simulate(
     frame_offset = 0
     carry = decode_carry0
     while not stop.done(stats.errors, stats.word_errors, stats.total_words):
-        if batch_idx >= max_batches:
-            break
-        b = batch_size
-        if stop.max_frames is not None:
-            b = min(b, stop.max_frames - stats.total_words)
-            if b <= 0:
+        with spans.span(spans.BATCH):
+            if batch_idx >= max_batches:
                 break
-        y = awgn_all_zero(seed, frame_offset, b, code.n, sigma, device)
-        if codewords is not None:
-            idx = cycle_indices(frame_offset, b, num_words)
-            c = bpsk(codewords[torch.as_tensor(idx, device=device)])  # ±1
-            y = c * y if awgn_form == "multiplicative" else y + (c - 1.0)
-        else:
-            c = 1
-        inp = preprocess(y) if preprocess is not None else y
-        key = NoiseKey(seed, frame_offset)
-        if carry is None:
-            res = decode_fn(inp, key)
-        elif b == batch_size:
-            res, carry = decode_fn(inp, key, carry)
-        else:
-            res, tail = decode_fn(inp, key, carry[:b])
-            carry = torch.cat([tail, carry[b:]])
-        frame_errs = (res.hard != c).sum(dim=1)
-        uncoded = ((y > 0) != (c > 0)).sum(dim=1)
-        frame_errs, uncoded, iters, satisfied = (
-            t.cpu().numpy()
-            for t in (frame_errs, uncoded, res.iterations, res.satisfied)
-        )
-        extras = {
-            k: getattr(res, k).cpu().numpy()
-            for k in _EXTRA_FIELDS if hasattr(res, k)
-        }
-
-        stats.total_words += b
-        stats.total_bits += b * code.n
-        stats.errors += int(frame_errs.sum())
-        stats.uncoded_errors += int(uncoded.sum())
-        stats.word_errors += int((frame_errs > 0).sum())
-        stats.total_iterations += int(iters.sum())
-        stats.satisfied_words += int(satisfied.sum())
-        werr = frame_errs[frame_errs > 0]
-        if werr.size:
-            np.add.at(stats.error_weight_hist, werr - 1, 1)
-        if stats.iteration_hist is None:
-            stats.iteration_hist = np.zeros(int(iters.max()) + 1, np.int64)
-        elif int(iters.max()) >= stats.iteration_hist.size:
-            grown = np.zeros(int(iters.max()) + 1, np.int64)
-            grown[: stats.iteration_hist.size] = stats.iteration_hist
-            stats.iteration_hist = grown
-        np.add.at(stats.iteration_hist, iters, 1)
-
-        # bit-flip extras: totals + phase histogram (RNGDBF phase_hist)
-        if "smoothing_used" in extras:
-            stats.extra["smoothing_used"] = stats.extra.get(
-                "smoothing_used", 0
-            ) + int(extras["smoothing_used"].sum())
-        if "phases" in extras:
-            ph = extras["phases"]
-            hist = stats.extra.get("phase_hist")
-            width = max(int(ph.max()), len(hist) if hist is not None else 0)
-            grown = np.zeros(width, np.int64)
-            if hist is not None:
-                grown[: len(hist)] += hist
-            np.add.at(grown, ph - 1, 1)
-            stats.extra["phase_hist"] = grown
-        if "least_errors" in extras:
-            stats.extra["least_errors_sum"] = stats.extra.get(
-                "least_errors_sum", 0
-            ) + int(extras["least_errors"].sum())
-
-        batch_idx += 1
-        frame_offset += b
-        if verbose and batch_idx % report_every_batches == 0:
-            print(stats.incremental_report())
+            b = batch_size
+            if stop.max_frames is not None:
+                b = min(b, stop.max_frames - stats.total_words)
+                if b <= 0:
+                    break
+            with spans.span(spans.CHANNEL):
+                y = awgn_all_zero(seed, frame_offset, b, code.n, sigma,
+                                  device)
+                if codewords is not None:
+                    idx = cycle_indices(frame_offset, b, num_words)
+                    c = bpsk(codewords[torch.as_tensor(idx, device=device)])
+                    y = (c * y if awgn_form == "multiplicative"
+                         else y + (c - 1.0))
+                else:
+                    c = 1
+                inp = preprocess(y) if preprocess is not None else y
+            key = NoiseKey(seed, frame_offset)
+            with spans.span(spans.DECODE):
+                if carry is None:
+                    res = decode_fn(inp, key)
+                elif b == batch_size:
+                    res, carry = decode_fn(inp, key, carry)
+                else:
+                    res, tail = decode_fn(inp, key, carry[:b])
+                    carry = torch.cat([tail, carry[b:]])
+            with spans.span(spans.COUNT):
+                frame_errs = (res.hard != c).sum(dim=1)
+                uncoded = ((y > 0) != (c > 0)).sum(dim=1)
+            with spans.span(spans.TO_HOST):
+                frame_errs, uncoded, iters, satisfied = (
+                    t.cpu().numpy() for t in
+                    (frame_errs, uncoded, res.iterations, res.satisfied)
+                )
+                extras = {
+                    k: getattr(res, k).cpu().numpy()
+                    for k in _EXTRA_FIELDS if hasattr(res, k)
+                }
+            with spans.span(spans.TALLY):
+                _tally(stats, b, code.n, frame_errs, uncoded, iters,
+                       satisfied, extras)
+                batch_idx += 1
+                frame_offset += b
+                if verbose and batch_idx % report_every_batches == 0:
+                    print(stats.incremental_report())
 
     stats.wall_seconds = time.perf_counter() - t0
     if verbose:
@@ -322,3 +297,46 @@ def simulate(
             f"{stats.uncoded_errors}, uncBER={stats.uncoded_ber:.6g}"
         )
     return stats
+
+
+def _tally(stats: MCStats, b: int, n: int, frame_errs, uncoded, iters,
+           satisfied, extras: dict) -> None:
+    """Fold one batch's host vectors (per frame: bit errors, uncoded
+    errors, iterations, satisfied flag, and the bit-flip extras) into
+    ``stats``."""
+    stats.total_words += b
+    stats.total_bits += b * n
+    stats.errors += int(frame_errs.sum())
+    stats.uncoded_errors += int(uncoded.sum())
+    stats.word_errors += int((frame_errs > 0).sum())
+    stats.total_iterations += int(iters.sum())
+    stats.satisfied_words += int(satisfied.sum())
+    werr = frame_errs[frame_errs > 0]
+    if werr.size:
+        np.add.at(stats.error_weight_hist, werr - 1, 1)
+    if stats.iteration_hist is None:
+        stats.iteration_hist = np.zeros(int(iters.max()) + 1, np.int64)
+    elif int(iters.max()) >= stats.iteration_hist.size:
+        grown = np.zeros(int(iters.max()) + 1, np.int64)
+        grown[: stats.iteration_hist.size] = stats.iteration_hist
+        stats.iteration_hist = grown
+    np.add.at(stats.iteration_hist, iters, 1)
+
+    # bit-flip extras: totals + phase histogram (RNGDBF phase_hist)
+    if "smoothing_used" in extras:
+        stats.extra["smoothing_used"] = stats.extra.get(
+            "smoothing_used", 0
+        ) + int(extras["smoothing_used"].sum())
+    if "phases" in extras:
+        ph = extras["phases"]
+        hist = stats.extra.get("phase_hist")
+        width = max(int(ph.max()), len(hist) if hist is not None else 0)
+        grown = np.zeros(width, np.int64)
+        if hist is not None:
+            grown[: len(hist)] += hist
+        np.add.at(grown, ph - 1, 1)
+        stats.extra["phase_hist"] = grown
+    if "least_errors" in extras:
+        stats.extra["least_errors_sum"] = stats.extra.get(
+            "least_errors_sum", 0
+        ) + int(extras["least_errors"].sum())

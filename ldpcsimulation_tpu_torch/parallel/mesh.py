@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import spans
 from ..channel.awgn import awgn_all_zero, bpsk
 from ..codes.code import Code
 from ..decoders.base import NoiseKey
@@ -305,7 +306,9 @@ def make_grid_step(
     Returns step(seed, sigmas [S], params {name: [S]}, frame0s [S] = 0) ->
     BatchCounters, where S = the mesh "snr" axis size and snr slot si
     decodes frames frame0s[si] … frame0s[si] + B_global − 1 (B_global =
-    batch_per_device · the data axis size).
+    batch_per_device · the data axis size).  While a profiler runs, each
+    slot, its decode, the all-reduce and the host copy are :mod:`..spans`
+    ranges.
     """
     n_snr, n_data = mesh.n_snr, mesh.n_data
     n, T, bpd = code.n, max_iterations, batch_per_device
@@ -333,32 +336,35 @@ def make_grid_step(
     def run_slot(seed, f0, sigma, point, device):
         """One slot's decode and its counters as one [W] int64 vector on
         its device (no host read)."""
-        y = awgn_all_zero(seed, f0, bpd, n, sigma, device)
-        if cw:
-            fixture = cw[device]
-            idx = (f0 + torch.arange(bpd, device=device)) % fixture.shape[0]
-            c = bpsk(fixture[idx])
-            y = c * y if awgn_form == "multiplicative" else y + (c - 1.0)
-        else:
-            c = 1
-        inp = preprocess(y, point) if preprocess is not None else y
-        res = decode_fn(inp, sigma, NoiseKey(seed, f0), point)
-        frame_errs = (res.hard != c).sum(dim=1)
-        uncoded = ((y > 0) != (c > 0)).sum(dim=1)
-        its = res.iterations.to(torch.int64)
-        # out-of-range iteration counts vanish, as JAX's mode="drop"
-        in_range = ((its >= 0) & (its <= T)).to(torch.int64)
-        ihist = torch.zeros(T + 1, dtype=torch.int64, device=device)
-        ihist.index_add_(0, torch.where(in_range > 0, its, 0), in_range)
-        ewh = torch.zeros(n + 1, dtype=torch.int64, device=device)
-        ewh.index_add_(0, frame_errs, torch.ones_like(frame_errs))
-        parts = [frame_errs.sum(), uncoded.sum(), (frame_errs > 0).sum(),
-                 its.sum(), res.satisfied.sum()]
-        su = getattr(res, "smoothing_used", None)
-        if su is not None:
-            parts.append(su.sum())
-        scalars = torch.stack([p.to(torch.int64) for p in parts])
-        return torch.cat([scalars, ewh, ihist])
+        with spans.span(spans.GRID_SLOT):
+            y = awgn_all_zero(seed, f0, bpd, n, sigma, device)
+            if cw:
+                fixture = cw[device]
+                idx = ((f0 + torch.arange(bpd, device=device))
+                       % fixture.shape[0])
+                c = bpsk(fixture[idx])
+                y = c * y if awgn_form == "multiplicative" else y + (c - 1.0)
+            else:
+                c = 1
+            inp = preprocess(y, point) if preprocess is not None else y
+            with spans.span(spans.DECODE):
+                res = decode_fn(inp, sigma, NoiseKey(seed, f0), point)
+            frame_errs = (res.hard != c).sum(dim=1)
+            uncoded = ((y > 0) != (c > 0)).sum(dim=1)
+            its = res.iterations.to(torch.int64)
+            # out-of-range iteration counts vanish, as JAX's mode="drop"
+            in_range = ((its >= 0) & (its <= T)).to(torch.int64)
+            ihist = torch.zeros(T + 1, dtype=torch.int64, device=device)
+            ihist.index_add_(0, torch.where(in_range > 0, its, 0), in_range)
+            ewh = torch.zeros(n + 1, dtype=torch.int64, device=device)
+            ewh.index_add_(0, frame_errs, torch.ones_like(frame_errs))
+            parts = [frame_errs.sum(), uncoded.sum(), (frame_errs > 0).sum(),
+                     its.sum(), res.satisfied.sum()]
+            su = getattr(res, "smoothing_used", None)
+            if su is not None:
+                parts.append(su.sum())
+            scalars = torch.stack([p.to(torch.int64) for p in parts])
+            return torch.cat([scalars, ewh, ihist])
 
     def step(seed: int, sigmas: Sequence[float], params=None,
              frame0s: Optional[Sequence[int]] = None) -> BatchCounters:
@@ -370,11 +376,14 @@ def make_grid_step(
                           dev))
             for si, di, dev in local
         ]
-        total = torch.zeros((n_snr, rows[0][1].numel()), dtype=torch.int64,
-                            device=home)
-        for si, v in rows:
-            total[si] += v.to(home)
-        flat = all_reduce_sum(total).cpu().numpy()
+        with spans.span(spans.GRID_ALLREDUCE):
+            total = torch.zeros((n_snr, rows[0][1].numel()),
+                                dtype=torch.int64, device=home)
+            for si, v in rows:
+                total[si] += v.to(home)
+            total = all_reduce_sum(total)
+        with spans.span(spans.GRID_TO_HOST):
+            flat = total.cpu().numpy()
         keys = _SCALARS + (("smoothing_used",)
                            if flat.shape[1] > len(_SCALARS) + n + T + 2
                            else ())

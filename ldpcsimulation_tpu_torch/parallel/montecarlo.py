@@ -20,6 +20,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from .. import spans
 from ..channel.awgn import snr_to_sigma
 from ..codes.code import Code
 from ..harness.montecarlo import MCStats, StopRule, default_min_word_errors
@@ -96,7 +97,8 @@ def simulate_grid(
     points (a point may take several slots, each with its next B_global
     frames).  Points leave the rotation when the stop rule passes on their
     own totals.  Returns one MCStats per point (wall_seconds is the shared
-    grid time).
+    grid time).  While a profiler runs, each round (before its stop checks)
+    and its tally are :mod:`..spans` ranges.
     """
     rate = code.rate if rate is None else rate
     stop = stop or StopRule(min_word_errors=default_min_word_errors(code.n))
@@ -121,20 +123,22 @@ def simulate_grid(
     for round_idx in range(max_rounds):
         if not pending:
             break
-        # fill the S slots by cycling the unfinished points
-        slots = [pending[i % len(pending)] for i in range(n_slots)]
-        frame0s = []
-        for pi in slots:
-            frame0s.append(next_frame[pi])
-            next_frame[pi] += step.batch_global
-        out = step(
-            seed, [sigma_of[i] for i in slots],
-            {nm: [points[i][nm] for i in slots] for nm in param_names},
-            frame0s,
-        )
-        for slot, pi in enumerate(slots):
-            _accumulate(stats[pi], out, slot, step.batch_global,
-                        step.bits_global)
+        with spans.span(spans.GRID_ROUND):
+            # fill the S slots by cycling the unfinished points
+            slots = [pending[i % len(pending)] for i in range(n_slots)]
+            frame0s = []
+            for pi in slots:
+                frame0s.append(next_frame[pi])
+                next_frame[pi] += step.batch_global
+            out = step(
+                seed, [sigma_of[i] for i in slots],
+                {nm: [points[i][nm] for i in slots] for nm in param_names},
+                frame0s,
+            )
+            with spans.span(spans.GRID_TALLY):
+                for slot, pi in enumerate(slots):
+                    _accumulate(stats[pi], out, slot, step.batch_global,
+                                step.bits_global)
         pending = [
             i for i in pending
             if not stop.done(stats[i].errors, stats[i].word_errors,
