@@ -314,7 +314,18 @@ the exit code is non-zero):
      slot-array graph of peg_1008_504 and an odd batch; each form's time,
      its twin's, the memory bound and the roofline share.  B6 counts on
      every path that checks decisions and B7 on every parallel bit-flip
-     path are part of the launch checks above.
+     path are part of the launch checks above;
+ 45. the bit-flip decoder's chunk path (``kernels.gdbf.gdbf_chunk``: the
+     steps between two exit checks in one C call, with the ``[B]``
+     bookkeeping as one kernel) against its per-step loop on the card,
+     bit for bit on every result field and the step count: SMNGDBF at
+     [10]'s point (T=300) at B=32768 and 32771 (the 1-lane instances),
+     RSMNGDBF with three phases of T=41 (restarts inside chunks, the
+     per-VN weight) and the noiseless SATGDBF; B4, B6 and B7 launched
+     once a step on both paths, the bookkeeping kernel once a step on
+     the chunks, every step counted on its path; the T=300 decode's time
+     on each path, alternated.  [9], [10] and [37] count the bookkeeping
+     kernel, and [10] gates that every step took the chunks.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -796,12 +807,14 @@ def phase_gdbf_equal(qc, device, frames=256):
         build.LAUNCHES.clear()
         res = decode_gdbf(code_d, y, sigma, cfg, key=key, qc=qc)
         launched = dict(build.LAUNCHES)
-        # B6 every step; B7 every step of the parallel rule
+        # B6 every step; B7 and the bookkeeping kernel every step of the
+        # parallel rule (its keyed decode runs in chunks)
         want = {"gauss_philox": res.steps} if cfg.add_noise else {
             "uniform_philox": res.steps}
         want["parity_check"] = res.steps
         if not cfg.quantize_probabilities:
             want["gdbf_parallel_step"] = res.steps
+            want["gdbf_lanes"] = res.steps
         check(launched == want, f"{name}: launches {launched} != {want}")
         seen.update({f"{name} {k}": v for k, v in launched.items()})
         steps = cfg.max_phases * T
@@ -963,10 +976,13 @@ def phase_gdbf_main(qc, device, batch, timer):
     check(launches.get("gdbf_parallel_step", 0) > 0, "B7 not launched")
     check(launches == {"awgn_philox": 4, "gauss_philox": sum(steps),
                        "parity_check": sum(steps),
-                       "gdbf_parallel_step": sum(steps)},
+                       "gdbf_parallel_step": sum(steps),
+                       "gdbf_lanes": sum(steps)},
           f"SMNGDBF path launches {launches}, steps {steps}")
+    # every step issued by the chunk path (share 1.0)
     check(paths == {("awgn_philox", "fast"): 4,
-                    ("gauss_philox", "fast"): sum(steps)},
+                    ("gauss_philox", "fast"): sum(steps),
+                    ("gdbf_step", "chunk"): sum(steps)},
           f"SMNGDBF path instances {paths}")
     check_totals("smngdbf", stats)
     got = mc_moments(stats, qc.n)
@@ -4434,7 +4450,8 @@ def phase_grid(qc, device, rate5):
     check(rounds == 2 and grid == {"awgn_philox": 8,
                                    "gauss_philox": sum(steps),
                                    "parity_check": sum(steps),
-                                   "gdbf_parallel_step": sum(steps)},
+                                   "gdbf_parallel_step": sum(steps),
+                                   "gdbf_lanes": sum(steps)},
           f"grid launches {grid}, steps {steps}")
     ref_s = 0.0
     for p, s in zip(points, stats):
@@ -6246,6 +6263,103 @@ def phase_b7(device, timer):
     return dict(forms=out, max_abs_err=0.0)
 
 
+def phase_gdbf_chunks(qc, device):
+    """The bit-flip decoder's two step paths on the card: the chunk path
+    (``kernels.gdbf.gdbf_chunk``) against the per-step loop (forced by
+    replacing ``decoders.gdbf._takes_chunks``), bit for bit on every
+    result field and the step count, at [10]'s point (SMNGDBF, T=300) at
+    B=32768 and 32771 (the 1-lane instances of B6 and B7, B4's tail), with
+    RSMNGDBF's phase restarts (per-VN weight) and the noiseless SATGDBF;
+    each path's launches and step counts, then the T=300 decode's time on
+    each path, alternated."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        saturate,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.decoders import NoiseKey, preset
+    from ldpcsimulation_tpu_torch.decoders import gdbf as gd
+    from ldpcsimulation_tpu_torch.kernels import build
+
+    fields = ("hard", "iterations", "satisfied", "phases", "smoothing_used")
+    code = qc.to_code(device)
+    rate = (qc.n - qc.m) / qc.n
+    real = gd._takes_chunks
+
+    def decode(cfg, y, sigma, key, chunked):
+        gd._takes_chunks = real if chunked else (lambda *a: False)
+        try:
+            build.LAUNCHES.clear()
+            build.PATHS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = gd.decode_gdbf(code, y, sigma, cfg, key=key, qc=qc)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            gd._takes_chunks = real
+        return res, ms, dict(build.LAUNCHES), dict(build.PATHS)
+
+    out = {}
+    for name, snr, T, batch, extra in (
+        ("SMNGDBF", GDBF_SNR_DB, GDBF_T, BATCH, {}),
+        ("SMNGDBF", GDBF_SNR_DB, GDBF_T, ODD_BATCH, {}),
+        ("RSMNGDBF", 3.0, 41, BATCH, dict(max_phases=3)),
+        ("SATGDBF", 3.5, 100, ODD_BATCH, {}),
+    ):
+        cfg = preset(name, T, **GDBF_KW, **extra)
+        sigma = snr_to_sigma(snr, rate)
+        frame0 = 3 * batch
+        y = saturate(awgn_all_zero(SEED, frame0, batch, qc.n, sigma,
+                                   device), GDBF_YMAX)
+        key = NoiseKey(SEED, frame0)
+        c, _, c_l, c_p = decode(cfg, y, sigma, key, True)
+        lo, _, l_l, l_p = decode(cfg, y, sigma, key, False)
+        for f in fields:
+            check(torch.equal(getattr(c, f), getattr(lo, f)),
+                  f"{name} B={batch} {f}: chunks != per-step loop")
+        check(c.steps == lo.steps, f"{name} B={batch} steps {c.steps} != "
+              f"{lo.steps}")
+        steps = c.steps
+        noise = {"gauss_philox": steps} if cfg.add_noise else {}
+        want = {"parity_check": steps, "gdbf_parallel_step": steps, **noise}
+        check(l_l == want and c_l == {**want, "gdbf_lanes": steps},
+              f"{name} B={batch} launches: chunks {c_l}, loop {l_l}")
+        inst = "fast" if batch % 2 == 0 else "tail"
+        b4 = {("gauss_philox", inst): steps} if cfg.add_noise else {}
+        check(c_p == {**b4, ("gdbf_step", "chunk"): steps}
+              and l_p == {**b4, ("gdbf_step", "loop"): steps},
+              f"{name} B={batch} paths: chunks {c_p}, loop {l_p}")
+        label = f"{name} T={T} x{cfg.max_phases} B={batch}"
+        out[label] = dict(steps=steps, chunk_launches=c_l,
+                          loop_launches=l_l)
+        print(f"  {label}: chunks == per-step loop ({steps} steps, "
+              f"{int(c.satisfied.sum())} satisfied, max phases "
+              f"{int(c.phases.max())}); chunk launches {c_l}; chunk share "
+              f"{c_p[('gdbf_step', 'chunk')] / steps:.3f}", flush=True)
+        del y, c, lo
+
+    # the T=300 decode at [10]'s point, each path three times, alternated
+    cfg = preset("SMNGDBF", GDBF_T, **GDBF_KW)
+    sigma = snr_to_sigma(GDBF_SNR_DB, rate)
+    y = saturate(awgn_all_zero(SEED, 0, BATCH, qc.n, sigma, device),
+                 GDBF_YMAX)
+    key = NoiseKey(SEED, 0)
+    times = {"chunk": [], "loop": []}
+    decode(cfg, y, sigma, key, True)  # warm-up
+    for _ in range(3):
+        for path in ("loop", "chunk"):
+            res, ms, _, _ = decode(cfg, y, sigma, key, path == "chunk")
+            times[path].append(ms)
+    med = {k: sorted(v)[1] for k, v in times.items()}
+    print(f"  SMNGDBF T={GDBF_T} B={BATCH} decode ({res.steps} steps), ms: "
+          f"per-step loop {times['loop']}, chunks {times['chunk']}; medians "
+          f"{med['loop']:.2f} -> {med['chunk']:.2f} "
+          f"({med['loop'] / med['chunk']:.3f}x)")
+    out["decode_ms"] = times
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6439,6 +6553,9 @@ def main() -> int:
            f"combination")
     b6 = phase_b6(device, time_ms)
     b7 = phase_b7(device, time_ms)
+    header("[45] the bit-flip decoder's chunk path against its per-step "
+           "loop")
+    chunks45 = phase_gdbf_chunks(qc, device)
 
     summary = {
         "card": card,
@@ -6793,7 +6910,7 @@ def main() -> int:
                 for v in replay["traced"].values()),
             "smngdbf grid [37]": grid37["grid"]["launches"][
                 "gdbf_parallel_step"]},
-        "forms": b7["forms"]}
+        "forms": b7["forms"], "chunk_path": chunks45}
     for row in (b6_row, b7_row):
         check(all(v >= 1 for v in row["launches_by_path"].values()),
               f"{row['name']} not launched on a path: "

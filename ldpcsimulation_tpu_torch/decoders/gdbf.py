@@ -30,6 +30,20 @@ smoothing sum — is one launch of kernel B7
 The sequential, mode-switching and stochastic rules, and the dense route,
 keep the plain torch VN side.
 
+Two step paths.  The parallel rule on a QC or slot-array graph, with B4's
+keyed Gaussian noise or none, no injected sequences and no trace, runs
+in chunks: the steps between two exit checks (at most
+:data:`DONE_CHECK_EVERY`, and never across a phase start) are issued by
+one call of :func:`..kernels.gdbf.gdbf_chunk` — per step B6, the ``[B]``
+bookkeeping as one kernel, B4 and B7 — on one plan per decode (planes
+validated and lane widths chosen once; the syndrome, flag and
+perturbation buffers allocated once).  On the CPU the chunk is its plain
+twin: the per-step body run over the same steps.  Every other decode
+runs the per-step loop, whose Python sees each step (replay, injection,
+uniform noise, noise shaping, the other rules, the dense route).  The
+two give the same results bit for bit; ``build.PATHS["gdbf_step",
+"chunk" | "loop"]`` counts the steps each path took.
+
 Decoder noise.  The JAX decoder folds one key per batch and step.  Here the
 noise of frame ``f`` at step ``t`` is keyed by (run seed, f, t) through
 :class:`.base.NoiseKey`, so a frame decodes the same in any batch: the
@@ -64,9 +78,15 @@ import torch
 
 from ..codes.code import Code
 from ..codes.qc import QCCode
+from ..kernels import build
 from ..kernels.channel import gauss_philox, noise_stream, uniform_philox
 from ..kernels.check import parity_check
-from ..kernels.gdbf import gdbf_parallel_step
+from ..kernels.gdbf import (
+    gdbf_chunk,
+    gdbf_chunk_plan,
+    gdbf_lanes_plain,
+    gdbf_parallel_step,
+)
 from .base import NoiseKey, all_done
 from .dense_ops import (
     DenseGraph,
@@ -322,6 +342,22 @@ def _vn_side(cfg, graph, dense, d, y_t, syn, thetas, dsum, mu, act, w,
     return d, thetas, dsum, mu
 
 
+def _chunk_end(step: int, T: int, total_steps: int) -> int:
+    """The end of the chunk that starts at ``step``: the next exit check,
+    the next phase start or the budget, whichever comes first."""
+    return min(total_steps, step - step % DONE_CHECK_EVERY
+               + DONE_CHECK_EVERY, step - step % T + T)
+
+
+def _takes_chunks(cfg, graph, parallel, perturbations, trace) -> bool:
+    """Whether a decode runs its steps in chunks (:func:`..kernels.gdbf.
+    gdbf_chunk`): the parallel rule on a QC or slot-array graph, with B4's
+    keyed Gaussian noise or none, nothing injected and no trace."""
+    return (parallel and graph is not None and perturbations is None
+            and not trace and not cfg.uniform_noise
+            and not cfg.noise_shaping)
+
+
 def decode_gdbf(
     code: Code,
     yq: torch.Tensor,
@@ -403,6 +439,7 @@ def decode_gdbf(
     noise_prev = (torch.zeros((n, b), dtype=dtype, device=device)
                   if cfg.noise_shaping else None)
     done = torch.zeros((b,), dtype=torch.bool, device=device)
+    act = torch.ones((b,), dtype=torch.bool, device=device)  # ~done
     iters = torch.full((b,), total_steps, dtype=torch.int32, device=device)
     phases = torch.full((b,), cfg.max_phases, dtype=torch.int32,
                         device=device)
@@ -410,6 +447,17 @@ def decode_gdbf(
     sat_at_exit = torch.zeros((b,), dtype=torch.bool, device=device)
     d_steps = (torch.empty((total_steps, n, b), dtype=torch.int32,
                            device=device) if trace else None)
+    # smoothing-window steps of a phase: it >= window_start
+    window_start = (T - cfg.window_size + 1 if cfg.output_smoothing
+                    else T)
+    chunked = _takes_chunks(cfg, graph, parallel, perturbations, trace)
+    plan = None
+    if chunked and device.type == "cuda":
+        plan = gdbf_chunk_plan(
+            graph.check_cols, graph.vn_checks, d, y_t, thetas, dsum, done,
+            act, iters, phases, smooth_used, sat_at_exit, T, window_start,
+            total_steps, w_vn, lam if cfg.threshold_adaptation else None,
+            (key.seed, key.frame0, ns) if cfg.add_noise else None)
 
     step = 0
     while step < total_steps:
@@ -417,20 +465,26 @@ def decode_gdbf(
                 and all_done(done)):
             break
         phase, it = divmod(step, T)
-        act = ~done
-        in_window = cfg.output_smoothing and it > T - cfg.window_size
+        in_window = it >= window_start
 
         # phase start: reset the per-phase state of active frames (step 0's
         # reset would give back the initial state)
         if it == 0 and step > 0:
             take = act[None, :]
-            d = torch.where(take, r, d)
-            thetas = torch.where(take, theta0, thetas)
-            dsum = torch.where(take, 0, dsum)
-            mu = torch.where(act, mu0, mu)
+            torch.where(take, r, d, out=d)
+            thetas.masked_fill_(take, theta0)
+            dsum.masked_fill_(take, 0)
+            mu.masked_fill_(act, mu0)
             if cfg.output_smoothing:
                 # the phase that just ran all T iterations unsatisfied
-                smooth_used = smooth_used + act.to(torch.int32)
+                smooth_used += act
+
+        if plan is not None:
+            # the steps up to the next exit check or phase start: one call
+            stop = _chunk_end(step, T, total_steps)
+            gdbf_chunk(plan, step, stop - step)
+            step = stop
+            continue
 
         # syndrome check at iteration start
         if graph is not None:
@@ -438,14 +492,8 @@ def decode_gdbf(
         else:
             syn = dense_syndrome_bipolar(dense, d)
             satisfied = (syn > 0).all(dim=0)
-        newly = act & satisfied
-        iters = torch.where(newly, step, iters)
-        phases = torch.where(newly, phase + 1, phases)
-        if in_window:
-            smooth_used = smooth_used + newly.to(torch.int32)
-        done = done | satisfied
-        sat_at_exit = sat_at_exit | newly
-        act = ~done
+        gdbf_lanes_plain(satisfied, done, act, iters, phases, smooth_used,
+                         sat_at_exit, step, phase, in_window)
 
         # perturbation
         pert = None
@@ -477,6 +525,8 @@ def decode_gdbf(
         if trace:
             d_steps[step] = d
         step += 1
+    build.PATHS["gdbf_step", "chunk" if chunked else "loop"] += step
+    del plan  # its buffers
 
     satisfied = sat_at_exit
     d = d.to(torch.int32)

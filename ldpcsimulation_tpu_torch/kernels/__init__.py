@@ -12,6 +12,11 @@
     CN update: neighbour sum, flip metric, flip, threshold adaptation and
     smoothing sum in one pass, in place (no Pallas original: the JAX
     step's XLA fusion);
+  * :func:`.gdbf.gdbf_chunk` — the parallel GDBF steps between two exit
+    checks in one C call (``csrc/gdbf_chunk.cu``): per step B6, the
+    ``[B]`` bookkeeping as one kernel (``gdbf_lanes_kernel``, twin
+    :func:`.gdbf.gdbf_lanes_plain`), B4 and B7, on a plan validated once
+    per decode (:func:`.gdbf.gdbf_chunk_plan`);
   * B2 :func:`.channel.awgn_philox` — keyed Philox + Box–Muller AWGN of the
     all-(+1) word (replaces ``channel_pallas.awgn_all_zero_pallas``);
   * B3 :func:`.channel.uniform_philox` — keyed Philox uniforms (replaces
@@ -19,7 +24,8 @@
   * B4 :func:`.channel.gauss_philox` — keyed erfinv Gaussians on B3's
     uniforms (replaces ``channel_pallas.awgn_all_zero_hybrid``).
 
-``build.LAUNCHES`` counts the launches of each.
+``build.LAUNCHES`` counts the launches of each (the bookkeeping kernel as
+``gdbf_lanes``).
 """
 
 from .build import LAUNCHES
@@ -34,7 +40,13 @@ from .channel import (
     uniform_philox_plain,
 )
 from .check import parity_check, parity_check_plain
-from .gdbf import gdbf_parallel_step, gdbf_parallel_step_plain
+from .gdbf import (
+    gdbf_chunk,
+    gdbf_chunk_plan,
+    gdbf_lanes_plain,
+    gdbf_parallel_step,
+    gdbf_parallel_step_plain,
+)
 from .minsum import (
     VARIANTS,
     minsum_cn_scan,
@@ -62,4 +74,7 @@ __all__ = [
     "parity_check_plain",
     "gdbf_parallel_step",
     "gdbf_parallel_step_plain",
+    "gdbf_lanes_plain",
+    "gdbf_chunk_plan",
+    "gdbf_chunk",
 ]

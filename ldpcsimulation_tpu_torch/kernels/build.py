@@ -12,7 +12,9 @@ Every C entry returns the ``cudaGetLastError()`` of its launch (0 when
 clean); :func:`check` raises on anything else.  ``LAUNCHES`` counts each
 kernel's launches, so a run can show that its main path went through them;
 ``PATHS`` counts the Philox kernels' launches by ``(name, "fast" | "tail")``,
-the instance their C entry chose (wide stores, or the scalar tail).
+the instance their C entry chose (wide stores, or the scalar tail), and the
+bit-flip decoder's steps by ``("gdbf_step", "chunk" | "loop")``, the path
+that issued them (on every device: the CPU's chunks are plain twins).
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ __all__ = ["LAUNCHES", "PATHS", "BUILD_DIR", "build", "library", "check",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("awgn_philox.cu", "gdbf_step.cu", "minsum_cn_scan.cu",
-           "minsum_vn_update.cu", "parity_check.cu", "uniform_philox.cu")
+SOURCES = ("awgn_philox.cu", "gdbf_chunk.cu", "gdbf_step.cu",
+           "minsum_cn_scan.cu", "minsum_vn_update.cu", "parity_check.cu",
+           "uniform_philox.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -145,6 +148,15 @@ def library() -> ctypes.CDLL:
             ctypes.c_int, _P,
         ]
         lib.ldpc_gdbf_parallel_step.restype = ctypes.c_int
+        lib.ldpc_gdbf_chunk.argtypes = [
+            _P, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int64, _P, ctypes.c_int, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
+            ctypes.c_float, ctypes.c_float, _P, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _INT_P,
+        ]
+        lib.ldpc_gdbf_chunk.restype = ctypes.c_int
         draw = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_uint32, ctypes.c_int]
         lib.ldpc_uniform_philox.argtypes = draw + [

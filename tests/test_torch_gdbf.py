@@ -36,11 +36,14 @@ from ldpcsimulation_tpu_torch.codes import Code, QCCode
 from ldpcsimulation_tpu_torch.codes.code import _ARRAY_FIELDS, _META_FIELDS
 from ldpcsimulation_tpu_torch.decoders import gdbf as pg
 from ldpcsimulation_tpu_torch.decoders import qc_ops
+from ldpcsimulation_tpu_torch import kernels
 from ldpcsimulation_tpu_torch.decoders.base import (
     NoiseKey,
     syndrome_from_hard,
 )
+from ldpcsimulation_tpu_torch.decoders.dense_ops import DenseGraph
 from ldpcsimulation_tpu_torch.harness import montecarlo as mc
+from ldpcsimulation_tpu_torch.kernels import build
 from ldpcsimulation_tpu_torch.kernels.channel import uniform_philox_plain
 from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
@@ -356,3 +359,185 @@ def test_simulate_smngdbf_within_mc_bounds():
     assert 0.0 < pst.fer < 1.0
     assert pst.extra["smoothing_used"] > 0
     np.testing.assert_array_equal(pst.extra["phase_hist"], [1024])
+
+
+# The two step paths of decode_gdbf: the chunk path (the parallel rule on
+# a QC or slot-array graph with keyed Gaussian noise or none; on the CPU its
+# chunks are its plain twin, the per-step body run over the same steps)
+# against the per-step loop, forced by replacing the path's predicate.
+PARALLEL = ["GDBF", "SMGDBF", "ATGDBF", "SATGDBF", "MNGDBF", "SMNGDBF",
+            "RSMNGDBF"]
+
+
+def _paths():
+    return {k[1]: v for k, v in build.PATHS.items() if k[0] == "gdbf_step"}
+
+
+def _both_paths(monkeypatch, pc, y, sigma, cfg, key, **kw):
+    """(chunked result, per-step loop result), each with the step paths it
+    counted."""
+    build.PATHS.clear()
+    chunked = pg.decode_gdbf(pc, y, sigma, cfg, key=key, **kw)
+    chunk_paths = _paths()
+    with monkeypatch.context() as m:
+        m.setattr(pg, "_takes_chunks", lambda *a: False)
+        build.PATHS.clear()
+        loop = pg.decode_gdbf(pc, y, sigma, cfg, key=key, **kw)
+        loop_paths = _paths()
+    return (chunked, chunk_paths), (loop, loop_paths)
+
+
+@pytest.mark.parametrize("graph", ["qc", "generic"])
+@pytest.mark.parametrize("T", [10, 7])
+@pytest.mark.parametrize("name", PARALLEL)
+def test_chunked_steps_equal_per_step_loop(graphs, monkeypatch, name, T,
+                                           graph):
+    """Every parallel preset on the QC and the slot-array graph, T a
+    multiple of no chunk (10) or smaller than two (7): redecode phase
+    starts inside chunks, frames that check out mid-chunk; decisions,
+    counters and steps equal, each path counted."""
+    _, _, pc, pqc = graphs[graph]
+    rng = np.random.default_rng(PARALLEL.index(name) + 20)
+    sigma = snr_to_sigma(2.5, 0.5)
+    y = torch.from_numpy(_channel(rng, 24, pc.n, sigma))
+    extra = dict(max_phases=3) if name == "RSMNGDBF" else {}
+    cfg = pg.preset(name, T, -0.9, noise_scale=0.9, lam=0.98, alpha=1.5,
+                    window_size=4, **extra)
+    (c, cp), (lo, lp) = _both_paths(monkeypatch, pc, y, sigma, cfg,
+                                    NoiseKey(5, 1000), qc=pqc)
+    for f in FIELDS:
+        assert torch.equal(getattr(c, f), getattr(lo, f)), f
+    assert c.steps == lo.steps
+    assert cp == {"chunk": c.steps} and lp == {"loop": lo.steps}
+    # frames checked out at steps inside a chunk
+    its = c.iterations[c.satisfied]
+    assert (its % pg.DONE_CHECK_EVERY != 0).any()
+    if name == "RSMNGDBF":
+        assert c.phases.max() > 1
+
+
+@pytest.mark.parametrize("T,phases,want", [
+    (7, 3, [(0, 4), (4, 3), (7, 1), (8, 4), (12, 2), (14, 2), (16, 4),
+            (20, 1)]),
+    (10, 1, [(0, 4), (4, 4), (8, 2)]),
+    (300, 1, [(s, 4) for s in range(0, 300, 4)]),
+])
+def test_chunks_end_at_exit_checks_and_phase_starts(T, phases, want):
+    """A chunk runs up to the next multiple of DONE_CHECK_EVERY, the next
+    phase start or the budget, whichever comes first."""
+    got, step = [], 0
+    while step < T * phases:
+        stop = pg._chunk_end(step, T, T * phases)
+        got.append((step, stop - step))
+        step = stop
+    assert got == want
+
+
+@pytest.mark.parametrize("in_window", [False, True])
+def test_lanes_twin_equals_inline_ops(in_window):
+    """The bookkeeping's plain twin against the decoder's former inline
+    ops, on random done and satisfied flags."""
+    gen = torch.Generator().manual_seed(int(in_window))
+    b, step, phase = 257, 13, 2
+    done = torch.rand(b, generator=gen) < 0.4
+    sat = torch.rand(b, generator=gen) < 0.5
+    iters = torch.randint(0, 50, (b,), generator=gen, dtype=torch.int32)
+    phases = torch.randint(1, 4, (b,), generator=gen, dtype=torch.int32)
+    used = torch.randint(0, 3, (b,), generator=gen, dtype=torch.int32)
+    at_exit = torch.rand(b, generator=gen) < 0.3
+
+    act = ~done
+    newly = act & sat
+    want_iters = torch.where(newly, step, iters)
+    want_phases = torch.where(newly, phase + 1, phases)
+    want_used = used + newly.to(torch.int32) if in_window else used
+    want_done = done | sat
+    want_exit = at_exit | newly
+
+    got = [t.clone() for t in (sat, done, act, iters, phases, used,
+                               at_exit)]
+    kernels.gdbf_lanes_plain(*got, step, phase, in_window)
+    g_sat, g_done, g_act, g_iters, g_phases, g_used, g_exit = got
+    assert torch.equal(g_iters, want_iters)
+    assert torch.equal(g_phases, want_phases)
+    assert torch.equal(g_used, want_used)
+    assert torch.equal(g_done, want_done)
+    assert torch.equal(g_exit, want_exit)
+    assert torch.equal(g_act, ~want_done)
+    assert g_sat.all()  # ready for the next check
+    assert [t.dtype for t in got] == [t.dtype for t in (
+        sat, done, act, iters, phases, used, at_exit)]
+
+
+def test_step_path_counters(graphs):
+    """Which decodes take the chunks: the keyed parallel rule and the
+    noiseless one; injection, trace, uniform noise, noise shaping, the
+    stochastic rule and the dense route keep the per-step loop.  On the
+    CPU no kernel is launched."""
+    _, _, pc, pqc = graphs["qc"]
+    y = torch.from_numpy(_channel(np.random.default_rng(2), 8, pc.n,
+                                  SIGMA_2DB))
+    key = NoiseKey(4, 0)
+    smn = pg.preset("SMNGDBF", 6, -0.9)
+    pert, _ = pg.keyed_draws(smn, SIGMA_2DB, key, pc.n, 8, 6, "cpu")
+    cases = [
+        ("chunk", smn, {}),
+        ("chunk", pg.preset("ATGDBF", 6, -0.9), {}),
+        ("loop", smn, dict(perturbations=pert)),
+        ("loop", smn, dict(trace=True)),
+        ("loop", pg.preset("MNGDBF", 6, -0.9, uniform_noise=True), {}),
+        ("loop", pg.preset("MNGDBF", 6, -0.9, noise_shaping=True), {}),
+        ("loop", pg.preset("StochasticNGDBF", 6, -0.9), {}),
+        ("loop", pg.preset("MGDBF", 6, -0.9), {}),
+    ]
+    for path, cfg, kw in cases:
+        build.PATHS.clear()
+        build.LAUNCHES.clear()
+        res = pg.decode_gdbf(pc, y, SIGMA_2DB, cfg, key=key, qc=pqc, **kw)
+        if kw.get("trace"):
+            res = res[0]
+        assert _paths() == {path: res.steps} and res.steps > 0, (path, cfg)
+        assert not build.LAUNCHES
+    build.PATHS.clear()
+    res = pg.decode_gdbf(pc, y, SIGMA_2DB, smn, key=key,
+                         dense=DenseGraph.from_code(pc, "cpu"))
+    assert _paths() == {"loop": res.steps}
+
+
+def test_chunk_plan_guards(graphs):
+    _, _, pc, pqc = graphs["qc"]
+    g = qc_ops.qc_graph(pqc, "cpu")
+    n, b = pc.n, 4
+    d = torch.ones((n, b), dtype=torch.int8)
+    y = torch.ones((n, b))
+    planes = dict(thetas=torch.zeros((n, b)),
+                  dsum=torch.zeros((n, b), dtype=torch.int32),
+                  done=torch.zeros(b, dtype=torch.bool),
+                  act=torch.ones(b, dtype=torch.bool),
+                  iters=torch.zeros(b, dtype=torch.int32),
+                  phases=torch.zeros(b, dtype=torch.int32),
+                  smooth_used=torch.zeros(b, dtype=torch.int32),
+                  sat_at_exit=torch.zeros(b, dtype=torch.bool))
+
+    def plan(**over):
+        kw = {**planes, **over}
+        return kernels.gdbf_chunk_plan(
+            g.check_cols, g.vn_checks, d, y, kw["thetas"], kw["dsum"],
+            kw["done"], kw["act"], kw["iters"], kw["phases"],
+            kw["smooth_used"], kw["sat_at_exit"], 5, 3, 10, 1.0,
+            noise=kw.get("noise"))
+
+    p = plan(noise=(0, 0, 0.5))
+    assert p.syn.shape == (pc.m, b) and p.syn.dtype == torch.int8
+    assert p.sat.all() and p.pert.shape == (n, b)
+    assert plan().pert is None
+    with pytest.raises(ValueError, match="iters"):
+        plan(iters=torch.zeros(b, dtype=torch.int64))
+    with pytest.raises(ValueError, match="done"):
+        plan(done=torch.zeros(b + 1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="act"):
+        plan(act=torch.ones(b, dtype=torch.int32))
+    with pytest.raises(ValueError, match="thetas"):
+        plan(thetas=torch.zeros((n, b), dtype=torch.float64))
+    with pytest.raises(ValueError, match="outside"):
+        plan(noise=(1 << 64, 0, 0.5))
