@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..codes.code import Code
 from .base import (
     DecodeResult,
@@ -105,25 +106,27 @@ def bp_cn_update(code: Code, v2c_flat: torch.Tensor) -> torch.Tensor:
 
     v2c_flat: [N*dv_max, B] (VN-slot layout) -> c2v [M*dc_max, B] in CN-slot
     layout, zeros in the padding slots.  Arithmetic runs in (at least)
-    float32 whatever the storage type.
+    float32 whatever the storage type.  While a profiler runs, the update
+    is the span ``ldpc.decode.bp_check``.
     """
-    msgs = gather_cn(code, v2c_flat)  # [M, dc_max, B]
-    cdt = torch.promote_types(msgs.dtype, torch.float32)
-    m, dc_max, b = msgs.shape
-    mask = code.cn_mask[:, :, None]
+    with spans.span(spans.BP_CHECK):
+        msgs = gather_cn(code, v2c_flat)  # [M, dc_max, B]
+        cdt = torch.promote_types(msgs.dtype, torch.float32)
+        m, dc_max, b = msgs.shape
+        mask = code.cn_mask[:, :, None]
 
-    msgs_c = msgs.to(cdt)
-    u = torch.exp(-msgs_c.abs())
-    sign = sgn_pos(msgs_c)
-    # neutral elements in the padding slots: u = 0, sign +1
-    u = torch.where(mask, u, torch.zeros_like(u))
-    sign = torch.where(mask, sign, torch.ones_like(sign))
+        msgs_c = msgs.to(cdt)
+        u = torch.exp(-msgs_c.abs())
+        sign = sgn_pos(msgs_c)
+        # neutral elements in the padding slots: u = 0, sign +1
+        u = torch.where(mask, u, torch.zeros_like(u))
+        sign = torch.where(mask, sign, torch.ones_like(sign))
 
-    mags = pair_excl_logmags([u[:, j] for j in range(dc_max)])
-    sprods = excl_sign_products([sign[:, j] for j in range(dc_max)])
-    c2v = torch.stack([sp * mg for sp, mg in zip(sprods, mags)], dim=1)
-    c2v = torch.where(mask, c2v, torch.zeros_like(c2v))
-    return c2v.reshape(m * dc_max, b)
+        mags = pair_excl_logmags([u[:, j] for j in range(dc_max)])
+        sprods = excl_sign_products([sign[:, j] for j in range(dc_max)])
+        c2v = torch.stack([sp * mg for sp, mg in zip(sprods, mags)], dim=1)
+        c2v = torch.where(mask, c2v, torch.zeros_like(c2v))
+        return c2v.reshape(m * dc_max, b)
 
 
 def bp_step(code: Code, max_llr: float = MAXLLR, storage_dtype=None):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..codes.qc import QCCode
 from .base import DecodeResult, run_flooding_soft, sgn_pos, storage_cast
 from .bp import MAXLLR, excl_sign_products, pair_excl_logmags
@@ -31,25 +32,27 @@ __all__ = ["qc_cn_bp", "qc_bp_step", "decode_bp_qc"]
 def qc_cn_bp(qc: QCCode, v2c: torch.Tensor) -> torch.Tensor:
     """Sum-product check update on the ``[P*z, B]`` planes: c2v ``[P*z, B]``
     in the same rows, zeros in the rows of absent edges.  Arithmetic runs in
-    (at least) float32 whatever the storage type."""
-    plan = qc_plan(qc, v2c.device)
-    cdt = torch.promote_types(v2c.dtype, torch.float32)
-    views = []
-    for rows, gone, _ in plan.slots:
-        msg = v2c[rows].to(cdt)
-        if gone is not None:
-            msg = torch.where(gone, float("inf"), msg)
-        views.append(msg)
-    mags = pair_excl_logmags([torch.exp(-v.abs()) for v in views])
-    sprods = excl_sign_products([sgn_pos(v) for v in views])
-    c2v = torch.empty((v2c.shape[0] + 1, v2c.shape[1]), dtype=cdt,
-                      device=v2c.device)
-    for (_, _, rows_w), sp, mg in zip(plan.slots, sprods, mags):
-        c2v[rows_w] = sp * mg
-    c2v = c2v[:-1]
-    if plan.absent_rows is not None:
-        c2v.index_fill_(0, plan.absent_rows, 0.0)
-    return c2v
+    (at least) float32 whatever the storage type.  While a profiler runs,
+    the update is the span ``ldpc.decode.bp_check``."""
+    with spans.span(spans.BP_CHECK):
+        plan = qc_plan(qc, v2c.device)
+        cdt = torch.promote_types(v2c.dtype, torch.float32)
+        views = []
+        for rows, gone, _ in plan.slots:
+            msg = v2c[rows].to(cdt)
+            if gone is not None:
+                msg = torch.where(gone, float("inf"), msg)
+            views.append(msg)
+        mags = pair_excl_logmags([torch.exp(-v.abs()) for v in views])
+        sprods = excl_sign_products([sgn_pos(v) for v in views])
+        c2v = torch.empty((v2c.shape[0] + 1, v2c.shape[1]), dtype=cdt,
+                          device=v2c.device)
+        for (_, _, rows_w), sp, mg in zip(plan.slots, sprods, mags):
+            c2v[rows_w] = sp * mg
+        c2v = c2v[:-1]
+        if plan.absent_rows is not None:
+            c2v.index_fill_(0, plan.absent_rows, 0.0)
+        return c2v
 
 
 def qc_bp_step(qc: QCCode, max_llr: float = MAXLLR, storage_dtype=None):

@@ -35,6 +35,8 @@ TO_HOST = "ldpc.to_host"
 TALLY = "ldpc.tally"
 #: a decoder's host read of its all-done flag
 EXIT_CHECK = "ldpc.decode.exit_check"
+#: one sum-product check-node update (every check, every lane)
+BP_CHECK = "ldpc.decode.bp_check"
 #: one round of ``parallel.montecarlo.simulate_grid``, before its stop checks
 GRID_ROUND = "ldpc.grid.round"
 #: one slot of a grid step: its channel, decode and counters
@@ -47,7 +49,8 @@ GRID_TO_HOST = "ldpc.grid.to_host"
 GRID_TALLY = "ldpc.grid.tally"
 
 SPANS = (BATCH, CHANNEL, DECODE, COUNT, TO_HOST, TALLY, EXIT_CHECK,
-         GRID_ROUND, GRID_SLOT, GRID_ALLREDUCE, GRID_TO_HOST, GRID_TALLY)
+         GRID_ROUND, GRID_SLOT, GRID_ALLREDUCE, GRID_TO_HOST, GRID_TALLY,
+         BP_CHECK)
 
 _NULL = contextlib.nullcontext()
 

@@ -1,0 +1,115 @@
+"""The sum-product check update's span, ``ldpc.decode.bp_check``.
+
+Under a CPU ``torch.profiler``: ``decode_bp_qc`` and ``decode_bp`` with
+early termination open the span once per executed update round, each
+inside the batch's ``ldpc.decode``; with no profiler the span is the
+shared null context and ``record_function`` is never reached; the
+statistics of a BP ``simulate`` do not depend on a profiler; the name is
+in ``SPANS``, under ``ldpc.decode.``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ldpcsimulation_tpu_torch import spans
+from ldpcsimulation_tpu_torch.channel.awgn import (
+    llr_from_channel,
+    snr_to_n0,
+)
+from ldpcsimulation_tpu_torch.codes import load_named_code
+from ldpcsimulation_tpu_torch.codes.qc import qc_peg
+from ldpcsimulation_tpu_torch.decoders import decode_bp, decode_bp_qc
+from ldpcsimulation_tpu_torch.harness import StopRule, simulate
+from tests.test_torch_spans import inside, traced
+from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
+
+CODE = load_named_code("peg_96_48")
+QC = qc_peg(12, 6, 3, z=8, seed=1)
+SNR = 3.5  # batches stop after different numbers of rounds; some frames fail
+T = 6
+
+
+def _decoder(kind):
+    """``(decode(llr, key), code)`` of the QC or the slot-array BP decoder
+    with early termination and f16 messages."""
+    if kind == "qc":
+        return (lambda llr, key: decode_bp_qc(
+            QC, llr, T, early_termination=True,
+            storage_dtype=torch.float16)), QC.to_code("cpu")
+    return (lambda llr, key: decode_bp(
+        CODE, llr, T, early_termination=True,
+        storage_dtype=torch.float16)), CODE
+
+
+def _simulate(kind, rounds=None):
+    """A BP ``simulate`` of three batches of 16 frames; ``rounds``, given,
+    gets each batch's executed update rounds (its largest count)."""
+    dec, code = _decoder(kind)
+    n0 = snr_to_n0(SNR, code.rate)
+
+    def decode(llr, key):
+        res = dec(llr, key)
+        if rounds is not None:
+            rounds.append(int(res.iterations.max()))
+        return res
+
+    return simulate(code, decode, SNR, stop=StopRule.fixed_frames(48),
+                    batch_size=16, seed=13, device="cpu",
+                    preprocess=lambda y: llr_from_channel(y, n0))
+
+
+@pytest.mark.parametrize("kind", ["qc", "slots"])
+def test_one_check_span_per_round_inside_the_decode(kind):
+    rounds = []
+    stats, got, _ = traced(lambda: _simulate(kind, rounds))
+    decodes = [s for s in got if s[0] == spans.DECODE]
+    checks = [s for s in got if s[0] == spans.BP_CHECK]
+    assert len(decodes) == len(rounds) == 3
+    assert len(set(rounds)) > 1 and min(rounds) < T  # the exit cuts rounds
+    assert [sum(s[0] == spans.BP_CHECK for s in inside(d, got))
+            for d in decodes] == rounds
+    assert len(checks) == sum(rounds)
+    # a check update holds no other span: the exit checks lie between them
+    for c in checks:
+        assert inside(c, got) == []
+    assert stats.total_words == 48
+
+
+@pytest.mark.parametrize("kind", ["qc", "slots"])
+def test_no_profiler_no_record_function(monkeypatch, kind):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function reached with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert spans.span(spans.BP_CHECK) is spans._NULL
+    assert _simulate(kind).total_words == 48
+
+
+@pytest.mark.parametrize("kind", ["qc", "slots"])
+def test_stats_do_not_depend_on_the_profiler(kind):
+    plain = _simulate(kind)
+    with_prof, got, _ = traced(lambda: _simulate(kind))
+    assert any(s[0] == spans.BP_CHECK for s in got)
+    for f in dataclasses.fields(plain):
+        if f.name == "wall_seconds":
+            continue
+        a, b = getattr(plain, f.name), getattr(with_prof, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        elif isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a == b, f.name
+    assert 0 < plain.word_errors < plain.total_words
+
+
+def test_the_name_is_listed_under_the_decoder():
+    assert spans.BP_CHECK in spans.SPANS
+    assert spans.BP_CHECK.startswith(spans.DECODE + ".")
+    assert len(set(spans.SPANS)) == len(spans.SPANS)
