@@ -325,7 +325,18 @@ the exit code is non-zero):
      once a step on both paths, the bookkeeping kernel once a step on
      the chunks, every step counted on its path; the T=300 decode's time
      on each path, alternated.  [9], [10] and [37] count the bookkeeping
-     kernel, and [10] gates that every step took the chunks.
+     kernel, and [10] gates that every step took the chunks;
+ 46. kernel B8 (the sum-product check update) against its twin bit for bit
+     (int32 views: signed zeros too) through ``qc_cn_bp`` on qc_1008_504
+     (B=32768, f16 and f32), wifi_1944_972, the generalized dvbs2_1_2_qc
+     plan (pairs, an absent edge; B=2048), a qc_peg base of dc_max 10 and
+     two-row bases of dc_max 24 and 48 (the 16-, 32- and 64-slot caps), an
+     odd batch (B=32771, the 1-lane instances) and a view two f16 elements
+     into its buffer (the 2-lane instance); each form's time per launch
+     behind a long sleep kernel, its twin's, the memory and issue bounds;
+     then a T=20 early-terminating ``decode_bp_qc`` (f16, B=32768) with B8
+     launched once a round and the twin never, its results equal to the
+     same decode with the twin in the kernel's place.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -2211,16 +2222,23 @@ def phase_new_sweep(device, batch):
 
     common = ["--batch", str(batch), "--max-frames", str(batch), "--device",
               str(device)]
+    # per route, the launches besides B2 and B6 as a function of B6's
+    # (the flooding BP decoder checks once before its first round and
+    # after each: B8 once a round)
+    mb = load_named_qc(WIFI_CODE).mb
     runs = (
         (["bp", "--code", CODE, "--snr", "2.0", "-T", "20",
-          "--early-termination", "--msg-dtype", "f16"], 6, "20", CODE, {}),
+          "--early-termination", "--msg-dtype", "f16"], 6, "20", CODE,
+         lambda checks: {"bp_cn_pair": checks - 1}),
         (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
-          "-T", "10", "--early-termination"], 6, "10", WIFI_CODE, {}),
+          "-T", "10", "--early-termination"], 6, "10", WIFI_CODE,
+         lambda checks: {}),
         (["minsum", "--code", WIFI_CODE, "--schedule", "layered", "--snr",
           "2.0", "-T", "10", "--msg-dtype", "f16"], 6, "10", WIFI_CODE,
-         {"minsum_cn_scan": load_named_qc(WIFI_CODE).mb * 10}),
+         lambda checks: {"minsum_cn_scan": mb * 10}),
         (["ddbmp", "--code", REG4_CODE, "--snr", "3.9", "-T", "100",
-          "--ymax", "1.6", "--nq", "8"], 7, "100", REG4_CODE, {}),
+          "--ymax", "1.6", "--nq", "8"], 7, "100", REG4_CODE,
+         lambda checks: {}),
     )
     rows = []
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
@@ -2239,7 +2257,7 @@ def phase_new_sweep(device, batch):
                   and 0.0 <= float(cols[2]) <= float(t_col),
                   f"{args[0]} row {cols}")
             checks, rest = b6_and_rest(launches)
-            check(checks >= 1 and rest == {"awgn_philox": 1, **b1},
+            check(checks >= 1 and rest == {"awgn_philox": 1, **b1(checks)},
                   f"{' '.join(args[:5])}: launches {launches}")
             rows.append(row[0])
             print(f"  {' '.join(args[:5])}: {row[0]}; launches {launches}")
@@ -6360,6 +6378,234 @@ def phase_gdbf_chunks(qc, device):
     return out
 
 
+B8_DVBS2_BATCH = 2048  # B8's DVB-S2 form: its twin's f32 planes per slot
+
+
+def b8_wide_qc(nb: int, z: int, seed: int):
+    """A QC code of two base rows with every block present (random
+    shifts): each check of degree ``nb``, past B8's first slot caps."""
+    from ldpcsimulation_tpu_torch.codes import build_qc_code
+
+    rng = np.random.default_rng(seed)
+    return build_qc_code(rng.integers(0, z, (2, nb)), z)
+
+
+def b8_forms():
+    """(name, QC code, batch, storage dtypes, v2c's element offset into
+    its buffer) of B8's forms: the main path's, the other QC plans (pairs
+    and an absent edge in dvbs2_1_2_qc), the 16-, 32- and 64-slot caps, an
+    odd batch (the 1-lane instances) and a view two f16 elements in (the
+    2-lane instance)."""
+    from ldpcsimulation_tpu_torch.codes import load_named_qc, qc_peg
+
+    f16, f32 = torch.float16, torch.float32
+    qc1 = load_named_qc(CODE)
+    return (
+        (CODE, qc1, BATCH, (f16, f32), 0),
+        (WIFI_CODE, load_named_qc(WIFI_CODE), BATCH, (f16,), 0),
+        (f"generalized {DVBS2_CODE}", load_named_qc(DVBS2_CODE),
+         B8_DVBS2_BATCH, (f16,), 0),
+        ("qc_peg(20, 6, 3, z=16), dc_max 10", qc_peg(20, 6, 3, z=16, seed=1),
+         BATCH, (f16, f32), 0),
+        ("2 x 24 base, z=32, dc_max 24", b8_wide_qc(24, 32, 24), BATCH,
+         (f16,), 0),
+        ("2 x 48 base, z=32, dc_max 48", b8_wide_qc(48, 32, 48), BATCH,
+         (f16, f32), 0),
+        (f"odd batch {CODE}", qc1, ODD_BATCH, (f16, f32), 0),
+        (f"{CODE} view two elements in", qc1, BATCH, (f16,), 2),
+    )
+
+
+def b8_messages(gen, rows, batch, dtype, offset, device):
+    """v2c planes as the decoder stores them (clamped to +-20, 1 % +0.0
+    and 1 % -0.0: a zero input makes its check's other outputs zero, with
+    the sign of the others' product), ``offset`` elements into their
+    buffer."""
+    v = torch.clamp(1.0 + 6.0 * torch.randn(rows, batch, generator=gen,
+                                            device=device), -20.0, 20.0)
+    u = torch.rand(rows, batch, generator=gen, device=device)
+    v = torch.where(u < 0.01, 0.0, torch.where(u > 0.99, -0.0, v))
+    buf = torch.empty(rows * batch + offset, dtype=dtype, device=device)
+    out = buf[offset:].view(rows, batch)
+    out.copy_(v)
+    return out
+
+
+def b8_instance(dtype, cap: int, lanes: int) -> str:
+    """The mangled-name key of B8's instance."""
+    t = "6__half" if dtype == torch.float16 else "f"
+    return f"bp_cn_pair_kernelI{t}Li{cap}ELi{lanes}EE"
+
+
+def b8_sass_path(kernel, degree: int, cap: int):
+    """SASS on one thread's path through a B8 instance for a check of
+    ``degree`` named slots (``Kernel.path_through``): the row-table loads
+    (two past 32 slots), the first ``degree`` of the cap's unrolled message
+    loads and the last ``degree`` of its unrolled stores (the backward
+    loop emits slot cap-1 first).  None where nvcc lays the kernel out
+    otherwise: the count is a diagnostic, not a check."""
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    loads = [i for i, x in enumerate(kernel.instrs)
+             if x.base in sass_count.LOADS]
+    stores = [i for i, x in enumerate(kernel.instrs)
+              if x.base in sass_count.STORES]
+    table = 2 if cap > 32 else 1
+    if len(loads) != table + cap or len(stores) != cap:
+        return None
+    try:
+        return kernel.path_through(loads[:table + degree]
+                                   + stores[cap - degree:])
+    except ValueError:
+        return None
+
+
+def b8_issue(kernels, cn_rows, batch, dtype, cap, lanes, top, ms):
+    """Issue bound of one B8 launch of ``ms`` from its SASS, summed over
+    the checks' degrees (:func:`b8_sass_path`): the fields ``issue_ms``,
+    ``issue_share`` and ``sass_per_edge_lane`` (None where not measured)
+    and a line of text."""
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    fields = dict(issue_ms=None, issue_share=None, sass_per_edge_lane=None)
+    key = b8_instance(dtype, cap, lanes)
+    if sum(key in name for name in kernels) != 1:
+        return fields, "issue not measured (no instance)"
+    k = sass_count.find(kernels, key)
+    degs, counts = torch.unique((cn_rows >= 0).sum(dim=1).cpu(),
+                                return_counts=True)
+    paths = [b8_sass_path(k, int(d), cap) for d in degs]
+    if None in paths:
+        return fields, "issue not measured (SASS layout)"
+    total = sum(int(c) * p for p, c in zip(paths, counts))
+    issue = sass_count.issue_ms(cn_rows.shape[0] * -(-batch // lanes),
+                                total / cn_rows.shape[0], top, SMS)
+    fields.update(issue_ms=issue, issue_share=issue / ms,
+                  sass_per_edge_lane=total / (int((cn_rows >= 0).sum())
+                                              * lanes))
+    return fields, (f"issue {issue:.4f} ms "
+                    f"({fields['sass_per_edge_lane']:.1f} SASS per "
+                    f"edge-lane)")
+
+
+def phase_b8(device, lib_path, timer):
+    """Kernel B8 (the sum-product check update) against its twin on the
+    card, bit for bit (int32 views: signed zeros too), in every form of
+    :func:`b8_forms`, through ``qc_cn_bp`` (the rows of absent edges zeroed
+    after it), with each form's time per launch (behind a long sleep
+    kernel), the twin's, the memory bound and the issue bound; then a T=20
+    early-terminating ``decode_bp_qc`` (f16) whose B8 launches equal its
+    rounds, which never calls the twin, and whose results equal the same
+    decode with the twin in the kernel's place."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import bp_qc, qc_cn_bp, qc_plan
+    from ldpcsimulation_tpu_torch.kernels import bp as kbp
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.tools import sass_count
+
+    _, top = sm_clocks()
+    kernels = sass_count.parse(sass_count.disassemble(lib_path))
+    gen = torch.Generator(device=device).manual_seed(46)
+    forms = {}
+    for name, qc, batch, dtypes, offset in b8_forms():
+        plan = qc_plan(qc, device)
+        rows = plan.cn_rows
+        edges = int((rows >= 0).sum())
+        for dtype in dtypes:
+            v2c = b8_messages(gen, plan.num_planes * qc.z, batch, dtype,
+                              offset, device)
+            want = kbp.bp_cn_pair_plain(v2c, rows)
+            if plan.absent_rows is not None:
+                want.index_fill_(0, plan.absent_rows, 0.0)
+            build.LAUNCHES.clear()
+            got = qc_cn_bp(qc, v2c)
+            check(dict(build.LAUNCHES) == {"bp_cn_pair": 1},
+                  f"B8 {name}: launches {dict(build.LAUNCHES)}")
+            differ = int((got.view(torch.int32)
+                          != want.view(torch.int32)).sum())
+            check(same_bits(got, want), f"B8 {name} {dtype}: kernel != "
+                  f"plain ({differ} of {got.numel()} differ)")
+            zeros = want == 0
+            neg_zeros = int((zeros & torch.signbit(want)).sum())
+            cap, lanes = kbp.bp_instance(rows.shape[1], batch, dtype,
+                                         v2c.data_ptr(), got.data_ptr())
+            del got, want
+            ms = time_small_ms(lambda: kbp.bp_cn_pair(v2c, rows), 20)
+            plain_ms = timer(lambda: kbp.bp_cn_pair_plain(v2c, rows), 2)
+            nbytes = (edges * batch * (v2c.element_size() + 4)
+                      + rows.numel() * 4)
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            diag, diag_text = b8_issue(kernels, rows, batch, dtype, cap,
+                                       lanes, top, ms)
+            label = f"{name} B={batch} {str(dtype).split('.')[-1]}"
+            forms[label] = dict(
+                shape=[v2c.shape[0], batch], checks=rows.shape[0],
+                dc_max=rows.shape[1], cap=cap, lanes=lanes, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, bound_ms=mem_ms,
+                bound_by="bytes", share=mem_ms / ms,
+                zero_outputs=int(zeros.sum()), negative_zeros=neg_zeros,
+                **diag)
+            print(f"  B8 {label} [{v2c.shape[0]} x {batch}], {rows.shape[0]}"
+                  f" checks, dc_max {rows.shape[1]} (cap {cap}, {lanes} "
+                  f"lanes): equal bit for bit ({int(zeros.sum())} zero "
+                  f"outputs, {neg_zeros} of them -0.0); {ms:.4f} ms per "
+                  f"launch, plain {plain_ms:.4f} ms; memory bound "
+                  f"{mem_ms:.4f} ms ({nbytes / 1e6:.1f} MB), roofline "
+                  f"share {mem_ms / ms:.1%}; {diag_text}", flush=True)
+            del v2c
+        torch.cuda.empty_cache()
+
+    # a decode: B8 once a round, never the twin, equal to the twin's decode
+    qc = load_named_qc(CODE)
+    llr = llr_from_channel(awgn_all_zero(
+        SEED, 0, BATCH, qc.n, snr_to_sigma(2.0, 0.5), device),
+        snr_to_n0(2.0, 0.5))
+    twin_calls = []
+    real_plain, real_pair = kbp.bp_cn_pair_plain, bp_qc.bp_cn_pair
+
+    def counted_plain(*args):
+        twin_calls.append(1)
+        return real_plain(*args)
+
+    def decode():
+        return bp_qc.decode_bp_qc(qc, llr, 20, early_termination=True,
+                                  storage_dtype=torch.float16)
+
+    kbp.bp_cn_pair_plain = counted_plain
+    try:
+        build.LAUNCHES.clear()
+        res = decode()
+        torch.cuda.synchronize()
+        launched = dict(build.LAUNCHES)
+    finally:
+        kbp.bp_cn_pair_plain = real_plain
+    rounds = int(res.iterations.max())
+    check(launched == {"bp_cn_pair": rounds, "parity_check": rounds + 1}
+          and not twin_calls,
+          f"decode_bp_qc: launches {launched} for {rounds} rounds, "
+          f"{len(twin_calls)} twin calls")
+    bp_qc.bp_cn_pair = real_plain
+    try:
+        ref = decode()
+    finally:
+        bp_qc.bp_cn_pair = real_pair
+    for f in ("hard", "iterations", "satisfied"):
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"decode_bp_qc {f}: B8 != twin")
+    print(f"  decode_bp_qc {CODE} 2.0 dB T=20 ET f16, B={BATCH}: {rounds} "
+          f"rounds, launches {launched}, the twin never called; decisions, "
+          f"iterations and flags equal to the decode on the twin "
+          f"({int(res.satisfied.sum())} of {BATCH} satisfied)")
+    return dict(forms=forms, decode=dict(rounds=rounds, launches=launched),
+                max_abs_err=0.0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6556,6 +6802,10 @@ def main() -> int:
     header("[45] the bit-flip decoder's chunk path against its per-step "
            "loop")
     chunks45 = phase_gdbf_chunks(qc, device)
+    torch.cuda.empty_cache()
+    header("[46] B8 vs plain: the sum-product check update in every form, "
+           "and a T=20 decode")
+    b8 = phase_b8(device, path, time_ms)
 
     summary = {
         "card": card,
@@ -6911,7 +7161,24 @@ def main() -> int:
             "smngdbf grid [37]": grid37["grid"]["launches"][
                 "gdbf_parallel_step"]},
         "forms": b7["forms"], "chunk_path": chunks45}
-    for row in (b6_row, b7_row):
+    # B8: no Pallas original (the XLA fusion of the JAX QC decoder's check
+    # update); its launches on each BP QC path of this run
+    b8_main = b8["forms"][f"{CODE} B={BATCH} float16"]
+    b8_row = {
+        "name": "bp_cn_pair", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/bp_cn_pair.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/bp_qc.py:34",
+        "pallas_original": None,
+        "launches": new_paths["bp_qc"]["launches"]["bp_cn_pair"],
+        "max_abs_err": b8["max_abs_err"], "ms": b8_main["ms"],
+        "plain_ms": b8_main["plain_ms"], "bound_ms": b8_main["bound_ms"],
+        "bound_by": b8_main["bound_by"], "share": b8_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            "bp_qc [21]": new_paths["bp_qc"]["launches"]["bp_cn_pair"],
+            "decode_bp_qc [46]": b8["decode"]["launches"]["bp_cn_pair"]},
+        "forms": b8["forms"]}
+    for row in (b6_row, b7_row, b8_row):
         check(all(v >= 1 for v in row["launches_by_path"].values()),
               f"{row['name']} not launched on a path: "
               f"{row['launches_by_path']}")
@@ -6934,7 +7201,7 @@ def main() -> int:
          **({"ring_shapes": rings["shapes"]}
             if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
-    ] + [b5_row, b6_row, b7_row]}))
+    ] + [b5_row, b6_row, b7_row, b8_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,12 +3,12 @@
 Port of ``ldpcsimulation_tpu.decoders.bp_qc``: the arithmetic of :mod:`.bp`
 (hyperbolic-pair check update with exact prefix/suffix exclusion, ±MAXLLR
 clamp on the outgoing messages) on the flat ``[P * z, B]`` message planes of
-:mod:`.minsum_qc`, routed by ``QCPlan.cn_rows`` with one row gather per
-slot.  ``cn_rows`` is in the generic slot order (a pair's entries exchanged
-row by row), the order the JAX decoder folds in: the f32 fold is not
-associative, so the order is part of the result.  An absent slot reads +inf,
-whose ``u = e^-inf`` is exactly 0 and whose sign is +1 — the fold's neutral
-element, which leaves ``s + d·0 == s`` untouched.
+:mod:`.minsum_qc`, the check update routed by ``QCPlan.cn_rows`` inside
+kernel B8 (one row gather per slot in its plain twin).  ``cn_rows`` is in
+the generic slot order (a pair's entries exchanged row by row), the order
+the JAX decoder folds in: the f32 fold is not associative, so the order is
+part of the result.  An absent slot is u = 0 with sign +1 — the fold's
+neutral element, which leaves ``s + d·0 == s`` untouched.
 """
 
 from __future__ import annotations
@@ -17,8 +17,9 @@ import torch
 
 from .. import spans
 from ..codes.qc import QCCode
-from .base import DecodeResult, run_flooding_soft, sgn_pos, storage_cast
-from .bp import MAXLLR, excl_sign_products, pair_excl_logmags
+from ..kernels.bp import bp_cn_pair
+from .base import DecodeResult, run_flooding_soft, storage_cast
+from .bp import MAXLLR
 from .minsum_qc import (
     qc_check_satisfied,
     qc_fold,
@@ -30,26 +31,14 @@ __all__ = ["qc_cn_bp", "qc_bp_step", "decode_bp_qc"]
 
 
 def qc_cn_bp(qc: QCCode, v2c: torch.Tensor) -> torch.Tensor:
-    """Sum-product check update on the ``[P*z, B]`` planes: c2v ``[P*z, B]``
-    in the same rows, zeros in the rows of absent edges.  Arithmetic runs in
-    (at least) float32 whatever the storage type.  While a profiler runs,
-    the update is the span ``ldpc.decode.bp_check``."""
+    """Sum-product check update on the ``[P*z, B]`` planes (f16 or f32):
+    c2v ``[P*z, B]`` f32 in the same rows, zeros in the rows of absent
+    edges.  Kernel B8 (:func:`..kernels.bp.bp_cn_pair`) on CUDA tensors,
+    its plain twin on CPU tensors.  While a profiler runs, the update is
+    the span ``ldpc.decode.bp_check``."""
     with spans.span(spans.BP_CHECK):
         plan = qc_plan(qc, v2c.device)
-        cdt = torch.promote_types(v2c.dtype, torch.float32)
-        views = []
-        for rows, gone, _ in plan.slots:
-            msg = v2c[rows].to(cdt)
-            if gone is not None:
-                msg = torch.where(gone, float("inf"), msg)
-            views.append(msg)
-        mags = pair_excl_logmags([torch.exp(-v.abs()) for v in views])
-        sprods = excl_sign_products([sgn_pos(v) for v in views])
-        c2v = torch.empty((v2c.shape[0] + 1, v2c.shape[1]), dtype=cdt,
-                          device=v2c.device)
-        for (_, _, rows_w), sp, mg in zip(plan.slots, sprods, mags):
-            c2v[rows_w] = sp * mg
-        c2v = c2v[:-1]
+        c2v = bp_cn_pair(v2c, plan.cn_rows)
         if plan.absent_rows is not None:
             c2v.index_fill_(0, plan.absent_rows, 0.0)
         return c2v

@@ -5,6 +5,9 @@
   * B5 :func:`.minsum.minsum_vn_update` — flooding min-sum variable-node
     update: fold, total, extrinsic and saturating store in one pass, in
     place over c2v (no Pallas original: the JAX steps' XLA fusion);
+  * B8 :func:`.bp.bp_cn_pair` — sum-product check-node update, routing
+    inside, the (s, d) pair folds in registers (no Pallas original: the
+    JAX QC decoder's XLA fusion);
   * B6 :func:`.check.parity_check` — the parity check of every decoder's
     early exit and the bit-flip decoders' bipolar syndrome, one integer
     pass (no Pallas original: the JAX checks' XLA fusions);
@@ -28,6 +31,7 @@
 ``gdbf_lanes``).
 """
 
+from .bp import bp_cn_pair, bp_cn_pair_plain
 from .build import LAUNCHES
 from .channel import (
     awgn_philox,
@@ -57,6 +61,8 @@ from .minsum import (
 
 __all__ = [
     "LAUNCHES",
+    "bp_cn_pair",
+    "bp_cn_pair_plain",
     "awgn_philox",
     "awgn_philox_plain",
     "philox4x32_10",

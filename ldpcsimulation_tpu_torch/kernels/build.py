@@ -33,9 +33,9 @@ __all__ = ["LAUNCHES", "PATHS", "BUILD_DIR", "build", "library", "check",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("awgn_philox.cu", "gdbf_chunk.cu", "gdbf_step.cu",
-           "minsum_cn_scan.cu", "minsum_vn_update.cu", "parity_check.cu",
-           "uniform_philox.cu")
+SOURCES = ("awgn_philox.cu", "bp_cn_pair.cu", "gdbf_chunk.cu",
+           "gdbf_step.cu", "minsum_cn_scan.cu", "minsum_vn_update.cu",
+           "parity_check.cu", "uniform_philox.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -130,6 +130,11 @@ def library() -> ctypes.CDLL:
             ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P,
         ]
         lib.ldpc_minsum_cn_scan.restype = ctypes.c_int
+        lib.ldpc_bp_cn_pair.argtypes = [
+            _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+        ]
+        lib.ldpc_bp_cn_pair.restype = ctypes.c_int
         lib.ldpc_minsum_vn_update.argtypes = [
             _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
             ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int, _P,
