@@ -107,7 +107,14 @@ the exit code is non-zero):
      each of ``bp_cn_update``, ``qc_cn_bp`` and ``qc_bp_layered_step`` within
      ``BP_RTOL``/``BP_ATOL``, and T=20 decodes of 256 frames (slot-array, QC
      with f16 storage and early termination, layered) agreeing in at least
-     ``BP_FRAME_AGREEMENT`` of the frames;
+     ``BP_FRAME_AGREEMENT`` of the frames; then the slot-array, stratified
+     and layered routes on kernel B8 against their plain bodies from before
+     it (``tests/frozen_bp.py``) on the card, bit for bit: ``bp_cn_update``
+     on peg_1008_504 and wifi_1944_972 (f16, f32; peg_1008_504 f16 also
+     at B=32768, the batch of [21]'s decode_bp), ``stratified_bp_step`` on
+     [42]'s 802.3an geometry (f16, f32), ``qc_bp_layered_step`` on
+     wifi_1944_972 and dvbs2_1_2_qc (pairs, an absent edge), B8 launched
+     once an update (Mb times a layered step);
  20. kernel B1 at a layer's shape (one base row of qc_1008_504,
      wifi_1944_972 and dvbs2_1_2_qc; f32, tied samples, all three variants)
      against its twin bit for bit, with its time per launch (behind a long
@@ -289,7 +296,8 @@ the exit code is non-zero):
      256 frames; both stratified streams at 64 lanes, every frame equal to
      the batch decode; the sweep's stratified routes (minsum,
      offsetminsum, normalizedminsum, bp, ddbmp, minsum and bp --stream),
-     one row each; B1's refusal of more than 64 column groups; min-sum
+     one row each, every bp row on B8 (on the slot arrays past 64
+     groups); B1's and B8's refusal of more than 64 column groups; min-sum
      T=10 f16 at B=32768, 4.25 dB (counts from 0: B1 launched T times),
      decisions equal to ``decode_minsum``'s, ms per iteration in turns
      with it, peak memory; B1 at the stratified table's instance against
@@ -1874,10 +1882,90 @@ def phase_layered_ddbmp_card_vs_cpu(device):
     return counted, checks_seen
 
 
+def bp_routes_vs_bodies(device, frames=256):
+    """The slot-array, stratified and layered BP routes on kernel B8 against
+    their plain bodies from before B8 (``tests/frozen_bp.py``) on the card,
+    bit for bit (int32 views: signed zeros too; the stratified step's f16
+    messages as int16), each with the launches it should make: B8 once a
+    check update, the layered step once a layer."""
+    from ldpcsimulation_tpu_torch.codes import (
+        detect_stratified,
+        load_named_code,
+        load_named_qc,
+    )
+    from ldpcsimulation_tpu_torch.decoders import (
+        bp_cn_update,
+        qc_bp_layered_step,
+        qc_plan,
+        stratified_bp_step,
+    )
+    from ldpcsimulation_tpu_torch.decoders.minsum_stratified import (
+        stratified_zero_pad,
+    )
+    from ldpcsimulation_tpu_torch.kernels import build
+    from tests import frozen_bp
+
+    gen = torch.Generator(device=device).manual_seed(47)
+
+    def msgs(rows, b, dtype=torch.float32, scale=1.0):
+        v = torch.clamp(1.0 + 6.0 * torch.randn(rows, b, generator=gen,
+                                                device=device), -20, 20)
+        u = torch.rand(rows, b, generator=gen, device=device)
+        v = torch.where(u < 0.02, 0.0, v)
+        v = torch.where(u > 0.98, -0.0, v)
+        return (scale * v).to(dtype)
+
+    def held(label, launches, got, want):
+        launched = dict(build.LAUNCHES)
+        check(launched == launches, f"{label}: launches {launched}")
+        for g, w in zip(got, want):
+            check(same_bits(g, w), f"{label}: B8 route != plain body ("
+                  f"{int((g != w).sum())} of {g.numel()} differ)")
+        print(f"  {label}: equal bit for bit to the plain body over "
+              f"{len(got)} tensors; launches {launched}")
+
+    f16 = torch.float16
+    # the slot array at the main path's batch too ([21]'s decode_bp)
+    for name, dtype, b in ((PEG_CODE, f16, frames),
+                           (PEG_CODE, torch.float32, frames),
+                           (PEG_CODE, f16, BATCH),
+                           (WIFI_CODE, f16, frames),
+                           (WIFI_CODE, torch.float32, frames)):
+        code = load_named_code(name, device)
+        v2c = msgs(code.n * code.dv_max, b, dtype)
+        build.LAUNCHES.clear()
+        got = bp_cn_update(code, v2c)
+        held(f"bp_cn_update {name} B={b} {str(dtype).split('.')[-1]}",
+             {"bp_cn_pair": 1}, [got], [frozen_bp.bp_cn_update(code, v2c)])
+        del got, v2c
+    sc = detect_stratified(stratified_alist(**STRAT_GEOMETRY))
+    for dtype in (f16, torch.float32):
+        v2c = stratified_zero_pad(sc, msgs(sc.mb * sc.kg * sc.w, frames,
+                                           dtype))
+        v2c = v2c.view(sc.mb, sc.kg, sc.w, frames)
+        yg = msgs(sc.kg * sc.w, frames, scale=8.0).view(sc.kg, sc.w, frames)
+        build.LAUNCHES.clear()
+        got = stratified_bp_step(sc, storage_dtype=dtype)(v2c, yg)
+        held(f"stratified_bp_step {sc.kg} groups "
+             f"{str(dtype).split('.')[-1]}", {"bp_cn_pair": 1}, list(got),
+             list(frozen_bp.stratified_bp_step(sc, v2c, yg, dtype)))
+    for name, b in ((WIFI_CODE, frames), (DVBS2_CODE, 64)):
+        qc = load_named_qc(name)
+        plan = qc_plan(qc, device)
+        q = msgs(qc.n, b, scale=1.5)  # posteriors past the ±20 clip
+        L = tuple(msgs(lp.dc * qc.z, b) for lp in plan.layers)
+        build.LAUNCHES.clear()
+        (q2, L2), _ = qc_bp_layered_step(qc)((q, L))
+        want_q, want_L = frozen_bp.qc_bp_layered_step(qc, q, L)
+        held(f"qc_bp_layered_step {name} B={b}", {"bp_cn_pair": qc.mb},
+             [q2, *L2], [want_q, *want_L])
+
+
 def phase_bp_card_vs_cpu(device, frames=256):
     """BP on the card against the CPU plain path: one check update of each
-    form within BP_RTOL/BP_ATOL, T=20 decodes by frame agreement.  Returns
-    the agreement rates seen."""
+    form within BP_RTOL/BP_ATOL, T=20 decodes by frame agreement; then the
+    routes on B8 against their plain bodies (:func:`bp_routes_vs_bodies`).
+    Returns the agreement rates seen."""
     from ldpcsimulation_tpu_torch.channel import (
         awgn_all_zero,
         llr_from_channel,
@@ -1962,6 +2050,7 @@ def phase_bp_card_vs_cpu(device, frames=256):
               f"{float(res.satisfied.float().mean()):.3g}")
         check(min(same, its) >= BP_FRAME_AGREEMENT,
               f"{fn}: card and CPU agree on {same}, {its} of the frames")
+    bp_routes_vs_bodies(device, frames)
     return seen
 
 
@@ -2223,8 +2312,8 @@ def phase_new_sweep(device, batch):
     common = ["--batch", str(batch), "--max-frames", str(batch), "--device",
               str(device)]
     # per route, the launches besides B2 and B6 as a function of B6's
-    # (the flooding BP decoder checks once before its first round and
-    # after each: B8 once a round)
+    # (the BP decoders check once before their first round and after each:
+    # B8 once a round, the layered decoder once a layer)
     mb = load_named_qc(WIFI_CODE).mb
     runs = (
         (["bp", "--code", CODE, "--snr", "2.0", "-T", "20",
@@ -2232,7 +2321,7 @@ def phase_new_sweep(device, batch):
          lambda checks: {"bp_cn_pair": checks - 1}),
         (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
           "-T", "10", "--early-termination"], 6, "10", WIFI_CODE,
-         lambda checks: {}),
+         lambda checks: {"bp_cn_pair": mb * (checks - 1)}),
         (["minsum", "--code", WIFI_CODE, "--schedule", "layered", "--snr",
           "2.0", "-T", "10", "--msg-dtype", "f16"], 6, "10", WIFI_CODE,
          lambda checks: {"minsum_cn_scan": mb * 10}),
@@ -3158,9 +3247,9 @@ def phase_stream_sweep(device, batch):
         (["minsum", "--code", CODE, "--snr", "2.0", "-T", "10",
           "--msg-dtype", "f16", *et], 6, "10", "minsum_cn_scan"),
         (["bp", "--code", CODE, "--snr", "2.0", "-T", "20", "--msg-dtype",
-          "f16", *et], 6, "20", None),
+          "f16", *et], 6, "20", "bp_cn_pair"),
         (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
-          "-T", "10", *et], 6, "10", None),
+          "-T", "10", *et], 6, "10", "bp_cn_pair"),
         (["ddbmp", "--code", CODE, "--snr", "3.9", "-T", "100", "--ymax",
           "1.6"], 7, "100", None),
         (["gdbf", "--preset", "SMNGDBF", "--uniform-noise", "--code", CODE,
@@ -5706,10 +5795,11 @@ def stratified_bp_ddbmp_full(sc, code, device, rate, timer):
 
 def stratified_sweeps(alist, wide, device, batch=8192):
     """The sweep on a stratifiable --alist file: one row each.  ``bp``
-    takes the stratified decoder (the detection line on stderr); min-sum
-    and DD-BMP keep the slot arrays (no line; B1 launched by min-sum),
-    also on ``wide``, whose structure has more column groups than B1
-    takes."""
+    takes the stratified decoder (the detection line on stderr) on 60
+    groups and the slot arrays on ``wide``'s 66, which are more column
+    groups than B8 takes (a line that says so), B8 launched on both;
+    min-sum and DD-BMP keep the slot arrays (no line; B1 launched by
+    min-sum), also on ``wide``."""
     from ldpcsimulation_tpu_torch.codes import save_alist
     from ldpcsimulation_tpu_torch.kernels import build
     from ldpcsimulation_tpu_torch.tools.sweep import main as sweep_main
@@ -5733,7 +5823,7 @@ def stratified_sweeps(alist, wide, device, batch=8192):
                 (["bp", "--stream", "--early-termination"], path,
                  "6x64 strata, 60 column groups"),
                 (["minsum"], wide_path, None),
-                (["bp"], wide_path, "3x16 strata, 66 column groups")):
+                (["bp"], wide_path, None)):
             log_path = f"{tmp}/s.log"
             err = io.StringIO()
             build.LAUNCHES.clear()
@@ -5755,6 +5845,12 @@ def stratified_sweeps(alist, wide, device, batch=8192):
             if "minsum" in args[0]:
                 check(launched.get("minsum_cn_scan", 0) > 0,
                       f"sweep {key}: B1 not launched")
+            if args[0] == "bp":
+                check(launched.get("bp_cn_pair", 0) > 0,
+                      f"sweep {key}: B8 not launched ({launched})")
+                check(("(3x16 strata, 66 column groups) wider than kernel "
+                       "B8's 64 slots" in said) == (on == wide_path),
+                      f"sweep {key}: {said!r}")
             out[key] = dict(row=row[0], launches=launched)
             print(f"  sweep {key}: {'stratified' if groups else 'slot-array'}"
                   f" route; {row[0]}; launches {launched}")
@@ -5777,6 +5873,7 @@ def phase_stratified(device, lib_path, timer):
         stratify,
     )
     from ldpcsimulation_tpu_torch.decoders import (
+        decode_bp_stratified,
         decode_minsum,
         decode_minsum_stratified,
         minsum_plan,
@@ -5829,7 +5926,14 @@ def phase_stratified(device, lib_path, timer):
         check(False, f"B1 took kg={wide.kg}")
     except ValueError as e:
         check("dc_max <= 64" in str(e), f"B1 refusal: {e}")
-    print(f"  kg={wide.kg} column groups: B1 refuses them by name")
+    try:
+        decode_bp_stratified(wide, torch.ones((8, small.n), device=device),
+                             1)
+        check(False, f"B8 took kg={wide.kg}")
+    except ValueError as e:
+        check("bp_cn_pair" in str(e) and "dc_max <= 64" in str(e),
+              f"B8 refusal: {e}")
+    print(f"  kg={wide.kg} column groups: B1 and B8 refuse them by name")
 
     # full width: the main path's run (counts from 0), then the timings
     f16 = torch.float16
@@ -6504,6 +6608,7 @@ def phase_b8(device, lib_path, timer):
         snr_to_sigma,
     )
     from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import bp as dbp
     from ldpcsimulation_tpu_torch.decoders import bp_qc, qc_cn_bp, qc_plan
     from ldpcsimulation_tpu_torch.kernels import bp as kbp
     from ldpcsimulation_tpu_torch.kernels import build
@@ -6567,7 +6672,7 @@ def phase_b8(device, lib_path, timer):
         SEED, 0, BATCH, qc.n, snr_to_sigma(2.0, 0.5), device),
         snr_to_n0(2.0, 0.5))
     twin_calls = []
-    real_plain, real_pair = kbp.bp_cn_pair_plain, bp_qc.bp_cn_pair
+    real_plain, real_pair = kbp.bp_cn_pair_plain, dbp.bp_cn_pair
 
     def counted_plain(*args):
         twin_calls.append(1)
@@ -6590,11 +6695,11 @@ def phase_b8(device, lib_path, timer):
           and not twin_calls,
           f"decode_bp_qc: launches {launched} for {rounds} rounds, "
           f"{len(twin_calls)} twin calls")
-    bp_qc.bp_cn_pair = real_plain
+    dbp.bp_cn_pair = real_plain
     try:
         ref = decode()
     finally:
-        bp_qc.bp_cn_pair = real_pair
+        dbp.bp_cn_pair = real_pair
     for f in ("hard", "iterations", "satisfied"):
         check(torch.equal(getattr(res, f), getattr(ref, f)),
               f"decode_bp_qc {f}: B8 != twin")
@@ -7162,7 +7267,7 @@ def main() -> int:
                 "gdbf_parallel_step"]},
         "forms": b7["forms"], "chunk_path": chunks45}
     # B8: no Pallas original (the XLA fusion of the JAX QC decoder's check
-    # update); its launches on each BP QC path of this run
+    # update); its launches on the QC and slot-array BP paths of this run
     b8_main = b8["forms"][f"{CODE} B={BATCH} float16"]
     b8_row = {
         "name": "bp_cn_pair", "route": "cuda",
@@ -7176,6 +7281,8 @@ def main() -> int:
         "library_ms": None,
         "launches_by_path": {
             "bp_qc [21]": new_paths["bp_qc"]["launches"]["bp_cn_pair"],
+            "bp_peg [21]": new_paths["bp_peg"]["launches"].get(
+                "bp_cn_pair", 0),
             "decode_bp_qc [46]": b8["decode"]["launches"]["bp_cn_pair"]},
         "forms": b8["forms"]}
     for row in (b6_row, b7_row, b8_row):

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from .. import spans
+from ..kernels.bp import sgn_pos
 from ..kernels.check import parity_check
 from ..kernels.minsum import minsum_cn_scan, minsum_vn_update
 from .qc_ops import slot_graph, syndrome_bipolar
@@ -99,11 +100,6 @@ def minsum_iteration(v2c: torch.Tensor, y: torch.Tensor, cn_rows, vn_rows,
                          out_dtype=store)
     v2c, total = minsum_vn_update(c2v, y, vn_rows)
     return (v2c if store == sdt else storage_cast(v2c, sdt)), total
-
-
-def sgn_pos(x: torch.Tensor) -> torch.Tensor:
-    """sgn(0) = +1 convention (BP/min-sum/DDBMP); -0.0 counts as +1."""
-    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
 def sgn_neg(x: torch.Tensor) -> torch.Tensor:

@@ -24,23 +24,27 @@ that runs op by op.  Compiled by XLA for the CPU, the JAX fold is contracted
 into fused multiply-adds and differs by ulps; the ``exp`` and ``log``
 themselves differ from XLA's by ulps too, so the whole decoder agrees with
 the JAX one by tolerance, not by bits.
+
+Every BP decoder's check update is :func:`_bp_check`: kernel B8 on the
+decoder's routing table, here B1's ``MinSumPlan.cn_rows``, so c2v lands in
+VN-slot layout and the variable update needs no gather.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .. import spans
 from ..codes.code import Code
-from .base import (
-    DecodeResult,
-    gather_cn,
-    gather_vn,
-    run_flooding_soft,
-    sgn_pos,
-    storage_cast,
-    xor_satisfied,
+from ..kernels.bp import (  # noqa: F401  (the fold's names, re-exported)
+    bp_cn_pair,
+    excl_sign_products,
+    pair_excl_logmags,
+    pair_excl_sums,
 )
+from .base import DecodeResult, run_flooding_soft, storage_cast, xor_satisfied
 from .minsum import minsum_plan, vn_update
 
 __all__ = ["MAXLLR", "pair_excl_logmags", "excl_sign_products",
@@ -49,100 +53,47 @@ __all__ = ["MAXLLR", "pair_excl_logmags", "excl_sign_products",
 MAXLLR = 20.0  # decodeBP.cpp:58
 
 
-def pair_excl_sums(us):
-    """Per output t the (numerator, denominator) of the exclusive product's
-    ``(1+P_t)/(1-P_t)``: multiplies and adds only, in a fixed order.  The
-    (s, d) pairs fold from the neutral (1, 0): ``pre[t]`` over u_0..u_{t-1}
-    left to right, ``suf[t]`` over u_{k-1}..u_{t+1} right to left."""
-    k = len(us)
-    one = torch.ones_like(us[0])
-    zero = torch.zeros_like(us[0])
-    pre = [(one, zero)]
-    for t in range(k - 1):
-        s, d = pre[-1]
-        u = us[t]
-        pre.append((s + d * u, d + s * u))
-    suf = [(one, zero)]
-    for t in range(k - 1, 0, -1):
-        s, d = suf[-1]
-        u = us[t]
-        suf.append((s + d * u, d + s * u))
-    suf.reverse()
-    return [
-        (sp * ss + dp * ds, sp * ds + dp * ss)
-        for (sp, dp), (ss, ds) in zip(pre, suf)
-    ]
-
-
-def pair_excl_logmags(us):
-    """Exclusive tanh-product magnitudes from ``u = e^-|m|``.
-
-    us: list of per-edge u tensors of one shape.  Returns the list of
-    ``|out|_t = log((1+P_t)/(1-P_t))`` with ``P_t = Π_{k≠t} tanh(|m_k|/2)``.
-    The neutral element is (1, 0): an absent edge must present u = 0 (a
-    message of +inf), which leaves the fold untouched bit for bit
-    (``s + d·0 == s``).
+def _bp_check(v2c: torch.Tensor, cn_rows: torch.Tensor,
+              unwritten: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sum-product check update of every BP decoder: c2v ``[R, B]`` f32
+    in the rows of ``v2c [R, B]`` (f16 or f32) that ``cn_rows`` names
+    (:func:`..kernels.bp.bp_cn_pair`: kernel B8 on CUDA tensors, which
+    refuses a table wider than 64 slots, its plain twin on CPU tensors),
+    exact zeros in the int64 rows ``unwritten`` that no check names.
+    While a profiler runs, the update is the span ``ldpc.decode.bp_check``.
     """
-    return [torch.log(num / den) for num, den in pair_excl_sums(us)]
-
-
-def excl_sign_products(signs):
-    """Per output t the product of the other slots' ±1 signs (exclusive
-    prefix times exclusive suffix)."""
-    k = len(signs)
-    ones = torch.ones_like(signs[0])
-    pre = [ones]
-    for t in range(k - 1):
-        pre.append(pre[-1] * signs[t])
-    suf = [ones]
-    for t in range(k - 1, 0, -1):
-        suf.append(suf[-1] * signs[t])
-    suf.reverse()
-    return [p * s for p, s in zip(pre, suf)]
+    with spans.span(spans.BP_CHECK):
+        c2v = bp_cn_pair(v2c, cn_rows)
+        if unwritten is not None:
+            c2v.index_fill_(0, unwritten, 0.0)
+        return c2v
 
 
 def bp_cn_update(code: Code, v2c_flat: torch.Tensor) -> torch.Tensor:
-    """Sum-product check update with exact extrinsic exclusion.
+    """Sum-product check update with exact extrinsic exclusion (kernel B8
+    on ``MinSumPlan.cn_rows``).
 
-    v2c_flat: [N*dv_max, B] (VN-slot layout) -> c2v [M*dc_max, B] in CN-slot
-    layout, zeros in the padding slots.  Arithmetic runs in (at least)
-    float32 whatever the storage type.  While a profiler runs, the update
-    is the span ``ldpc.decode.bp_check``.
+    v2c_flat: [N*dv_max, B] variable→check messages (VN-slot layout, f16 or
+    f32).  Returns c2v [N*dv_max, B] f32 in VN-slot layout — unlike the JAX
+    function, whose output is in CN-slot layout — with exact zeros in the
+    padding slots.  While a profiler runs, the update is the span
+    ``ldpc.decode.bp_check``.
     """
-    with spans.span(spans.BP_CHECK):
-        msgs = gather_cn(code, v2c_flat)  # [M, dc_max, B]
-        cdt = torch.promote_types(msgs.dtype, torch.float32)
-        m, dc_max, b = msgs.shape
-        mask = code.cn_mask[:, :, None]
-
-        msgs_c = msgs.to(cdt)
-        u = torch.exp(-msgs_c.abs())
-        sign = sgn_pos(msgs_c)
-        # neutral elements in the padding slots: u = 0, sign +1
-        u = torch.where(mask, u, torch.zeros_like(u))
-        sign = torch.where(mask, sign, torch.ones_like(sign))
-
-        mags = pair_excl_logmags([u[:, j] for j in range(dc_max)])
-        sprods = excl_sign_products([sign[:, j] for j in range(dc_max)])
-        c2v = torch.stack([sp * mg for sp, mg in zip(sprods, mags)], dim=1)
-        c2v = torch.where(mask, c2v, torch.zeros_like(c2v))
-        return c2v.reshape(m * dc_max, b)
+    plan = minsum_plan(code, v2c_flat.device)
+    return _bp_check(v2c_flat.contiguous(), plan.cn_rows, plan.vn_pad)
 
 
 def bp_step(code: Code, max_llr: float = MAXLLR, storage_dtype=None):
     """The :func:`decode_bp` iteration as a function of (messages, channel
     term): ``step(v2c, llr_t) -> (v2c', total)`` with ``llr_t`` the clamped
-    ``[N, B]`` LLRs.  ``code`` must have its tables on the messages'
-    device."""
-    vn_mask = code.vn_mask[:, :, None]
+    ``[N, B]`` LLRs.  The code's tables are taken to the messages' device
+    (once, cached)."""
 
     def step(v2c, llr_t):
+        plan = minsum_plan(code, v2c.device)
         sdt = storage_dtype if storage_dtype is not None else llr_t.dtype
-        c2v = bp_cn_update(code, v2c)
-        msgs = gather_vn(code, c2v)  # [N, dv_max, B]
-        msgs = torch.where(vn_mask, msgs, torch.zeros_like(msgs))
-        v2c, total, _ = vn_update(code, llr_t, msgs.reshape(-1, msgs.shape[-1]),
-                                  clamp=max_llr)
+        c2v = _bp_check(v2c.contiguous(), plan.cn_rows, plan.vn_pad)
+        v2c, total, _ = vn_update(plan.code, llr_t, c2v, clamp=max_llr)
         return storage_cast(v2c, sdt), total
 
     return step
@@ -173,7 +124,7 @@ def decode_bp(
     plan = minsum_plan(code, llr_t.device)
     sdt = storage_dtype if storage_dtype is not None else llr_t.dtype
     v2c0 = llr_t.repeat_interleave(code.dv_max, dim=0).to(sdt)
-    step_y = bp_step(plan.code, max_llr, storage_dtype)
+    step_y = bp_step(code, max_llr, storage_dtype)
     d, iters, done = run_flooding_soft(
         llr_t, v2c0, lambda v2c: step_y(v2c, llr_t),
         lambda d: xor_satisfied(plan.check_cols, d),

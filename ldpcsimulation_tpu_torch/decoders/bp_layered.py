@@ -11,13 +11,13 @@ posterior is rebuilt from the UNclamped extrinsic.  Clamping the rebuilt
 posterior bleeds belief on every layer visit and was measured by the JAX
 package to collapse about 1 % of frames at 2.5 dB.
 
-The fold walks a layer's circulants in their physical order (the JAX
-decoder's; the f32 fold is not associative, so the order is part of the
-result), which is the order of :class:`.minsum_qc.LayerPlan`'s local rows.
-An absent edge reads +inf AFTER the clip, so that ``u = e^-inf`` is exactly
-0 and the sign +1 (the fold's neutral element); it stores a zero and leaves
-its column's posterior untouched.  The state stays in the input type: there
-is no storage type here.
+The check update is :func:`.bp._bp_check` once per layer on
+``LayerPlan.scan_rows``, whose slots walk the layer's circulants in their
+physical order (the JAX decoder's; the f32 fold is not associative, so the
+order is part of the result).  An absent edge is a −1 slot, read as +inf
+after the clip (``u = e^-inf`` is exactly 0, the sign +1: the fold's
+neutral element); it stores a zero and leaves its column's posterior
+untouched.  The state stays in the input type: there is no storage type.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from __future__ import annotations
 import torch
 
 from ..codes.qc import QCCode
-from .base import DecodeResult, run_flooding, sgn_pos
-from .bp import MAXLLR, excl_sign_products, pair_excl_logmags
+from .base import DecodeResult, run_flooding
+from .bp import MAXLLR, _bp_check
 from .minsum_layered import layered_l0, layered_scatter
 from .minsum_qc import (
     assert_layered_compatible,
@@ -44,7 +44,6 @@ def qc_bp_layered_step(qc: QCCode, max_llr: float = MAXLLR):
     messages and ``total`` the new posterior.  One call is one pass over all
     Mb layers; the state given is left unchanged."""
     assert_layered_compatible(qc)
-    z = qc.z
 
     def step(qL):
         q, L = qL
@@ -55,16 +54,7 @@ def qc_bp_layered_step(qc: QCCode, max_llr: float = MAXLLR):
             qv = q[lp.cols]
             qext = qv - l_old
             qin = torch.clamp(qext, -max_llr, max_llr)
-            if lp.absent is not None:  # after the clip: the true neutral
-                qin.index_fill_(0, lp.absent, float("inf"))
-            qin = qin.view(lp.dc, z, -1)
-            u = torch.exp(-qin.abs())
-            sign = sgn_pos(qin)
-            mags = pair_excl_logmags([u[t] for t in range(lp.dc)])
-            sprods = excl_sign_products([sign[t] for t in range(lp.dc)])
-            out = torch.cat([sp * mg for sp, mg in zip(sprods, mags)])
-            if lp.absent is not None:
-                out.index_fill_(0, lp.absent, 0.0)
+            out = _bp_check(qin, lp.scan_rows, lp.absent).to(q.dtype)
             layered_scatter(q, lp, qv, qext, out)
             L_new.append(out)
         return (q, tuple(L_new)), q

@@ -15,11 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from .. import spans
 from ..codes.qc import QCCode
-from ..kernels.bp import bp_cn_pair
 from .base import DecodeResult, run_flooding_soft, storage_cast
-from .bp import MAXLLR
+from .bp import MAXLLR, _bp_check
 from .minsum_qc import (
     qc_check_satisfied,
     qc_fold,
@@ -33,15 +31,9 @@ __all__ = ["qc_cn_bp", "qc_bp_step", "decode_bp_qc"]
 def qc_cn_bp(qc: QCCode, v2c: torch.Tensor) -> torch.Tensor:
     """Sum-product check update on the ``[P*z, B]`` planes (f16 or f32):
     c2v ``[P*z, B]`` f32 in the same rows, zeros in the rows of absent
-    edges.  Kernel B8 (:func:`..kernels.bp.bp_cn_pair`) on CUDA tensors,
-    its plain twin on CPU tensors.  While a profiler runs, the update is
-    the span ``ldpc.decode.bp_check``."""
-    with spans.span(spans.BP_CHECK):
-        plan = qc_plan(qc, v2c.device)
-        c2v = bp_cn_pair(v2c, plan.cn_rows)
-        if plan.absent_rows is not None:
-            c2v.index_fill_(0, plan.absent_rows, 0.0)
-        return c2v
+    edges (:func:`.bp._bp_check` on ``QCPlan.cn_rows``)."""
+    plan = qc_plan(qc, v2c.device)
+    return _bp_check(v2c, plan.cn_rows, plan.absent_rows)
 
 
 def qc_bp_step(qc: QCCode, max_llr: float = MAXLLR, storage_dtype=None):

@@ -4,8 +4,9 @@ QC structure (:mod:`..codes.stratified`).
 Port of ``ldpcsimulation_tpu.decoders.bp_stratified``: the hyperbolic-pair
 check update of :mod:`.bp` with exact extrinsic exclusion, the ±MAXLLR
 clamp on the stored messages and on the input (``decodeBP.cpp:353-409``).
-The messages move between the VN and CN slot grids by row gathers, where
-the JAX package runs a one-hot einsum on the TPU's MXU.
+The check update is :func:`.bp._bp_check` on ``StratifiedPlan.cn_rows``:
+it reads and writes the VN-slot rows, where the JAX package moves the
+messages between the slot grids by one-hot einsums on the TPU's MXU.
 
 The pair fold runs over the ``kg`` column groups in group order, not in the
 row's alist order, as the JAX decoder's does: the same arithmetic
@@ -20,47 +21,33 @@ from __future__ import annotations
 import torch
 
 from ..codes.stratified import StratifiedCode
-from .base import DecodeResult, run_flooding_soft, sgn_pos, storage_cast
-from .bp import MAXLLR, excl_sign_products, pair_excl_logmags
+from .base import DecodeResult, run_flooding_soft, storage_cast
+from .bp import MAXLLR, _bp_check
 from .minsum_stratified import (
     stratified_check_satisfied,
     stratified_grid,
     stratified_hard,
     stratified_init,
     stratified_plan,
-    stratified_to_cn,
-    stratified_to_vn,
     stratified_zero_pad,
 )
 
 __all__ = ["decode_bp_stratified", "stratified_bp_step"]
 
 
-def _cn_bp(sc: StratifiedCode, v2c_cn: torch.Tensor) -> torch.Tensor:
-    """Hyperbolic-pair check update over [mb, h, kg, B] CN slots, in f32 at
-    least; absent slots present the fold neutrals (u = 0, sign +1) and
-    emit exact zeros."""
-    cdt = torch.promote_types(v2c_cn.dtype, torch.float32)
-    x = v2c_cn.to(cdt)
-    valid = stratified_plan(sc, x.device).sc.cn_valid[..., None]
-    u = torch.where(valid, torch.exp(-x.abs()), torch.zeros_like(x))
-    sign = torch.where(valid, sgn_pos(x), torch.ones_like(x))
-    mags = pair_excl_logmags([u[:, :, g] for g in range(sc.kg)])
-    sprods = excl_sign_products([sign[:, :, g] for g in range(sc.kg)])
-    out = torch.stack([sp * mg for sp, mg in zip(sprods, mags)], dim=2)
-    return torch.where(valid, out, torch.zeros_like(out))
-
-
 def stratified_bp_step(sc: StratifiedCode, max_llr: float = MAXLLR,
                        storage_dtype=None):
     """The :func:`decode_bp_stratified` iteration as a function of
     (messages, channel grid): ``step(v2c, yg) -> (v2c', total)``; the total
-    and the c2v messages are f32 (at least), the stored messages clamped to
+    and the c2v messages are f32, the stored messages clamped to
     ±max_llr."""
 
     def step(v2c, yg):
+        p = stratified_plan(sc, v2c.device)
+        b = v2c.shape[-1]
         sdt = storage_dtype if storage_dtype is not None else yg.dtype
-        c2v = stratified_to_vn(sc, _cn_bp(sc, stratified_to_cn(sc, v2c)))
+        c2v = _bp_check(v2c.reshape(-1, b).contiguous(), p.cn_rows,
+                        p.vn_absent).view(sc.mb, sc.kg, sc.w, b)
         # messages (strata) left-fold first, channel term last
         acc = c2v[0]
         for s in range(1, sc.mb):
@@ -85,7 +72,8 @@ def decode_bp_stratified(
 
     Same flags as :func:`.bp.decode_bp` (input clamp, optional f16 message
     storage with f32 arithmetic).  The structure's tables are taken to
-    llr's device (once, cached).
+    llr's device (once, cached).  On the card, B8 takes ``kg`` ≤ 64 column
+    groups and raises beyond.
     """
     llr_t = torch.clamp(llr.t(), -max_llr, max_llr).contiguous()  # [N, B]
     n, b = llr_t.shape

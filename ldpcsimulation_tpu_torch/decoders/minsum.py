@@ -58,11 +58,11 @@ class MinSumPlan:
 
     code:       the code with its tables on the plan's device.
     cn_rows:    [M, dc_max] int32 — ``cn_from_vn`` with −1 in padding
-                slots; B1's routing table.
+                slots; B1's and B8's routing table.
     check_cols: [M, dc_max] int64 — ``cn_vn`` with the sentinel column N
                 in padding slots; the syndrome check's table.
-    vn_pad:     [N * dv_max, 1] bool — True in VN padding slots (None for a
-                code without any).
+    vn_pad:     int64 rows of the VN padding slots, which no check names
+                (None for a code without any).
     vn_rows:    [N, dv_max] int32 — kernel B5's table: slot ``v * dv_max +
                 s`` at column v, position s; padding slots as +0.0 terms.
     """
@@ -80,14 +80,14 @@ def minsum_plan(code: Code, device) -> MinSumPlan:
     code = code.to(device)
     cn_rows = torch.where(code.cn_mask, code.cn_from_vn,
                           torch.full_like(code.cn_from_vn, -1))
-    pad = ~code.vn_mask.reshape(-1, 1)
+    pad = (~code.vn_mask.reshape(-1)).nonzero()[:, 0]
     slots = torch.arange(code.n * code.dv_max, device=code.vn_mask.device)
     vn_rows = torch.where(code.vn_mask.reshape(-1), slots, zero_term(slots))
     return MinSumPlan(
         code=code,
         cn_rows=cn_rows.to(torch.int32).contiguous(),
         check_cols=check_columns(code),
-        vn_pad=pad if bool(pad.any()) else None,
+        vn_pad=pad if pad.numel() else None,
         vn_rows=vn_rows.view(code.n, code.dv_max).to(torch.int32),
     )
 
@@ -106,7 +106,7 @@ def minsum_cn_update(code: Code, v2c_flat: torch.Tensor,
     c2v = minsum_cn_scan(v2c_flat.contiguous(), plan.cn_rows, variant,
                          alpha, delta)
     if plan.vn_pad is not None:  # slots B1 does not write
-        c2v = torch.where(plan.vn_pad, 0.0, c2v)
+        c2v.index_fill_(0, plan.vn_pad, 0.0)
     return c2v
 
 

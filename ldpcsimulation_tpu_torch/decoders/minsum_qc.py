@@ -85,8 +85,8 @@ class LayerPlan:
     check (bi, r) in circulant t.
 
     cols:        [dc*z] int64 — the column of each local row.
-    scan_rows:   [z, dc] int32 — kernel B1's routing table over the local
-                 rows, −1 where the edge is absent.
+    scan_rows:   [z, dc] int32 — kernels B1's and B8's routing table over
+                 the local rows, −1 where the edge is absent.
     absent:      int64 local rows of absent edges (None if there are none).
     single_rows: int64 local rows of the circulants that are alone on their
                  block pair (None when every circulant is: all rows).

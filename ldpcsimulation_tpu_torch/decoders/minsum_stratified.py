@@ -28,7 +28,8 @@ With contiguous strata the fold order is the alist's ascending-row order,
 so the totals equal the slot-array decoder's too.
 
 The index gathers below (:func:`stratified_to_cn`, :func:`stratified_to_vn`)
-serve the syndrome check, DD-BMP and BP.  A gather cannot turn ``0·inf``
+serve DD-BMP; BP's check update takes :attr:`StratifiedPlan.cn_rows` as B1
+does (kernel B8, :mod:`.bp_stratified`).  A gather cannot turn ``0·inf``
 into NaN as the JAX matmul interleaver can; messages are finite by
 construction anyway (the saturating f16 store, BP's clamp).
 """
@@ -65,7 +66,8 @@ class StratifiedPlan:
     """Tables of one stratified structure on one device.
 
     sc:         the structure with its tables on the plan's device.
-    cn_rows:    [mb·h, kg] int32 — ``cn_from_vn``: B1's routing table.
+    cn_rows:    [mb·h, kg] int32 — ``cn_from_vn``: B1's and B8's routing
+                table.
     check_cols: [mb·h, kg] int64 — the grid position ``g·w + j`` of each CN
                 slot's column, the sentinel ``kg·w`` in an absent slot; the
                 syndrome check's table.

@@ -14,8 +14,10 @@ edges.
 
 The function is the hyperbolic-pair evaluation of ``decoders/bp.py``: per
 check and lane ``u = e^-|m|`` for each slot, the exclusive (s, d) pairs by
-a prefix and a suffix fold, ``|out| = log(num / den)``, and the product of
-the other slots' signs.  :func:`bp_cn_pair` launches the kernel for CUDA
+a prefix and a suffix fold (:func:`pair_excl_sums`), ``|out| = log(num /
+den)`` (:func:`pair_excl_logmags`), and the product of the other slots'
+signs (:func:`excl_sign_products`, with ``sgn(0) = +1``:
+:func:`sgn_pos`).  :func:`bp_cn_pair` launches the kernel for CUDA
 tensors and runs :func:`bp_cn_pair_plain` for CPU tensors; on the card the
 two agree bit for bit (``chip_smoke.py``), since the kernel takes the
 twin's operations in the twin's order with the same correctly rounded
@@ -32,11 +34,70 @@ from . import build
 from .minsum import _check as _check_planes
 from .minsum import lane_width
 
-__all__ = ["CAP_LANES", "bp_instance", "bp_cn_pair", "bp_cn_pair_plain"]
+__all__ = ["CAP_LANES", "bp_instance", "bp_cn_pair", "bp_cn_pair_plain",
+           "sgn_pos", "pair_excl_sums", "pair_excl_logmags",
+           "excl_sign_products"]
 
 #: slot cap of each kernel instance -> the most lanes a thread takes under
 #: it (its registers hold u, pre_s and pre_d: 3 × cap × lanes floats)
 CAP_LANES = {8: 4, 16: 2, 32: 1, 64: 1}
+
+
+def sgn_pos(x: torch.Tensor) -> torch.Tensor:
+    """sgn(0) = +1 convention (BP/min-sum/DDBMP); -0.0 counts as +1."""
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+def pair_excl_sums(us):
+    """Per output t the (numerator, denominator) of the exclusive product's
+    ``(1+P_t)/(1-P_t)``: multiplies and adds only, in a fixed order.  The
+    (s, d) pairs fold from the neutral (1, 0): ``pre[t]`` over u_0..u_{t-1}
+    left to right, ``suf[t]`` over u_{k-1}..u_{t+1} right to left."""
+    k = len(us)
+    one = torch.ones_like(us[0])
+    zero = torch.zeros_like(us[0])
+    pre = [(one, zero)]
+    for t in range(k - 1):
+        s, d = pre[-1]
+        u = us[t]
+        pre.append((s + d * u, d + s * u))
+    suf = [(one, zero)]
+    for t in range(k - 1, 0, -1):
+        s, d = suf[-1]
+        u = us[t]
+        suf.append((s + d * u, d + s * u))
+    suf.reverse()
+    return [
+        (sp * ss + dp * ds, sp * ds + dp * ss)
+        for (sp, dp), (ss, ds) in zip(pre, suf)
+    ]
+
+
+def pair_excl_logmags(us):
+    """Exclusive tanh-product magnitudes from ``u = e^-|m|``.
+
+    us: list of per-edge u tensors of one shape.  Returns the list of
+    ``|out|_t = log((1+P_t)/(1-P_t))`` with ``P_t = Π_{k≠t} tanh(|m_k|/2)``.
+    The neutral element is (1, 0): an absent edge must present u = 0 (a
+    message of +inf), which leaves the fold untouched bit for bit
+    (``s + d·0 == s``).
+    """
+    return [torch.log(num / den) for num, den in pair_excl_sums(us)]
+
+
+def excl_sign_products(signs):
+    """Per output t the product of the other slots' ±1 signs (exclusive
+    prefix times exclusive suffix)."""
+    k = len(signs)
+    ones = torch.ones_like(signs[0])
+    pre = [ones]
+    for t in range(k - 1):
+        pre.append(pre[-1] * signs[t])
+    suf = [ones]
+    for t in range(k - 1, 0, -1):
+        suf.append(suf[-1] * signs[t])
+    suf.reverse()
+    return [p * s for p, s in zip(pre, suf)]
 
 
 def bp_instance(dc_max: int, batch: int, dtype: torch.dtype, v2c_ptr: int,
@@ -65,9 +126,6 @@ def bp_cn_pair_plain(v2c, cn_rows):
     """Plain PyTorch twin of the kernel: one plane per slot, an absent
     slot read as +inf (u = e^-inf = 0 and sign +1, the folds' neutral
     element), each output written to its slot's row."""
-    from ..decoders.base import sgn_pos
-    from ..decoders.bp import excl_sign_products, pair_excl_logmags
-
     _check(v2c, cn_rows)
     r, b = v2c.shape
     cdt = torch.promote_types(v2c.dtype, torch.float32)

@@ -35,7 +35,8 @@ TO_HOST = "ldpc.to_host"
 TALLY = "ldpc.tally"
 #: a decoder's host read of its all-done flag
 EXIT_CHECK = "ldpc.decode.exit_check"
-#: one sum-product check-node update (every check, every lane)
+#: one sum-product check-node update (every check, every lane; one layer's
+#: checks in layered BP)
 BP_CHECK = "ldpc.decode.bp_check"
 #: one round of ``parallel.montecarlo.simulate_grid``, before its stop checks
 GRID_ROUND = "ldpc.grid.round"

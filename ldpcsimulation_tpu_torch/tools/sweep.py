@@ -148,6 +148,7 @@ from ..harness.montecarlo_nb import simulate_nb
 from ..harness.stream import simulate_stream_nb
 from ..harness.stream_gdbf import simulate_stream_gdbf
 from ..harness.stream_ngdbfhw import simulate_stream_ngdbfhw
+from ..kernels.bp import CAP_LANES
 from ..parallel.mesh import init_distributed, make_mesh, spawn_ranks, world
 from ..parallel.montecarlo import simulate_grid
 from ..parallel.montecarlo_nb import simulate_nb_distributed
@@ -486,9 +487,11 @@ def _load_code(args, device):
     its registered QC structure; a binary alist whose H is QC in natural
     order (rows and columns unpermuted) takes the detected one; any other
     binary alist takes, for flooding BP, the stratified structure where
-    ``detect_stratified`` finds one, as the JAX CLI routes BP.  Min-sum and
-    DD-BMP never look for one (the slot arrays give their rows bit for bit,
-    faster), nor does a decoder under --schedule layered."""
+    ``detect_stratified`` finds one with at most 64 column groups (kernel
+    B8's widest table), as the JAX CLI routes BP; past 64 groups BP stays
+    on the slot arrays, whose rows B8 takes.  Min-sum and DD-BMP never look
+    for one (the slot arrays give their rows bit for bit, faster), nor does
+    a decoder under --schedule layered."""
     if args.code:
         try:
             qc = load_named_qc(args.code)
@@ -515,7 +518,15 @@ def _load_code(args, device):
     strat = None
     if args.decoder == "bp" and args.schedule != "layered":
         strat = detect_stratified(alist)
-        if strat is not None:
+        if strat is not None and strat.kg > max(CAP_LANES):
+            print(
+                f"sweep: stratified structure ({strat.mb}x{strat.h} strata, "
+                f"{strat.kg} column groups) wider than kernel B8's "
+                f"{max(CAP_LANES)} slots — using the slot-array BP decoder",
+                file=sys.stderr,
+            )
+            strat = None
+        elif strat is not None:
             print(
                 f"sweep: detected stratified structure ({strat.mb}x"
                 f"{strat.h} strata, {strat.kg} column groups) — using "

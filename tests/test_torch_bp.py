@@ -30,6 +30,7 @@ from ldpcsimulation_tpu_torch.decoders import (
     bp_cn_update,
     decode_bp,
     decode_bp_qc,
+    gather_cn,
     gather_vn,
     pair_excl_logmags,
     qc_bp_step,
@@ -196,9 +197,11 @@ def test_pair_magnitudes_equal_the_phi_form():
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
 def test_bp_cn_update_meets_jax(dtype):
-    """peg_96_48 (dc 6–7, so padding slots too), messages within ±20 with
-    exact zeros, B=64: every c2v within CN_RTOL/CN_ATOL of the JAX update's,
-    f32 out whatever the storage type, exact zeros in the padding slots."""
+    """peg_96_48 (dc 6–7, so CN padding slots too), messages within ±20
+    with exact zeros, B=64: ``bp_cn_update`` lands in VN-slot layout
+    (exact zeros in any VN padding slot); read back in CN-slot order every
+    c2v is within CN_RTOL/CN_ATOL of the JAX update's, f32 out whatever
+    the storage type."""
     jcode = jlib.load_named_code("peg_96_48")
     code = load_named_code("peg_96_48")
     rng = np.random.default_rng(41)
@@ -206,14 +209,21 @@ def test_bp_cn_update_meets_jax(dtype):
                   -20, 20).astype(dtype)
     v2c[rng.random(v2c.shape) < 0.02] = 0.0
     want = np.asarray(jbp.bp_cn_update(jcode, jnp.asarray(v2c)))
-    got = bp_cn_update(code, torch.from_numpy(v2c))
-    assert got.dtype == torch.float32 and want.dtype == np.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=CN_RTOL, atol=CN_ATOL)
-    pad = ~np.asarray(jcode.cn_mask).reshape(-1)
-    assert pad.any() and (got.numpy()[pad] == 0).all()
-    assert np.isfinite(got.numpy()).all()
+    c2v = bp_cn_update(code, torch.from_numpy(v2c))
+    assert c2v.dtype == torch.float32 and want.dtype == np.float32
+    assert c2v.shape == v2c.shape
+    vn_pad = ~code.vn_mask.reshape(-1).numpy()
+    assert (c2v.numpy()[vn_pad] == 0).all()
+    assert np.isfinite(c2v.numpy()).all()
+    got = gather_cn(code, c2v).numpy()
+    want = want.reshape(code.m, code.dc_max, -1)
+    mask = np.asarray(jcode.cn_mask)
+    assert (~mask).any() and (want[~mask] == 0).all()
+    np.testing.assert_allclose(got[mask], want[mask], rtol=CN_RTOL,
+                               atol=CN_ATOL)
     # signs are exact
-    np.testing.assert_array_equal(np.signbit(got.numpy()), np.signbit(want))
+    np.testing.assert_array_equal(np.signbit(got[mask]),
+                                  np.signbit(want[mask]))
 
 
 def test_vn_update_with_clamp_equals_jax():

@@ -1,51 +1,44 @@
 """Kernel B8, the sum-product check update (``csrc/bp_cn_pair.cu``), on the
 CPU: the CUDA kernel runs only on the card (``chip_smoke.py`` holds it to
-its twin there, bit for bit), so here ``qc_cn_bp`` on its plain twin is
-pinned bit for bit to the body it had before the kernel, the kernel's
-per-check arithmetic (named slots only, the suffix fold run backwards, the
-sign from a parity) written out in torch against the twin bit for bit, and
-the wrapper's checks and its choice of instance."""
+its twin there, bit for bit), so here every BP decoder's route to it (QC,
+slot array, stratified, layered) on its plain twin is pinned bit for bit
+to the body it had before the kernel (``tests/frozen_bp.py``), the
+kernel's per-check arithmetic (named slots only, the suffix fold run
+backwards, the sign from a parity) written out in torch against the twin
+bit for bit, the decoders' choice between the kernel and the twin, and the
+wrapper's checks and its choice of instance."""
 
 import numpy as np
 import pytest
 import torch
 
-from ldpcsimulation_tpu_torch.codes import load_named_qc, qc_peg
-from ldpcsimulation_tpu_torch.decoders import qc_cn_bp, qc_plan
-from ldpcsimulation_tpu_torch.decoders.base import sgn_pos
-from ldpcsimulation_tpu_torch.decoders.bp import (
-    excl_sign_products,
-    pair_excl_logmags,
+from ldpcsimulation_tpu_torch.codes import (
+    code_to_alist,
+    load_named_code,
+    load_named_qc,
+    qc_peg,
+    stratify,
+)
+from ldpcsimulation_tpu_torch.codes.qc import build_qc_code_edges
+from ldpcsimulation_tpu_torch.decoders import (
+    bp_cn_update,
+    qc_bp_layered_step,
+    qc_cn_bp,
+    qc_plan,
+    stratified_bp_step,
+    stratified_plan,
+)
+from ldpcsimulation_tpu_torch.decoders import bp as dbp
+from ldpcsimulation_tpu_torch.decoders.minsum_stratified import (
+    stratified_zero_pad,
 )
 from ldpcsimulation_tpu_torch.kernels import bp as kbp
 from ldpcsimulation_tpu_torch.kernels import build
+from tests import frozen_bp
 from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 F16, F32 = torch.float16, torch.float32
 B = 64  # a multiple of the CPU's vector width: exp and log take no tail
-
-
-def _frozen_qc_cn_bp(qc, v2c):
-    """``decoders/bp_qc.py::qc_cn_bp`` as it was before kernel B8: one row
-    gather per slot of ``QCPlan.slots``, the pair folds on whole planes."""
-    plan = qc_plan(qc, v2c.device)
-    cdt = torch.promote_types(v2c.dtype, torch.float32)
-    views = []
-    for rows, gone, _ in plan.slots:
-        msg = v2c[rows].to(cdt)
-        if gone is not None:
-            msg = torch.where(gone, float("inf"), msg)
-        views.append(msg)
-    mags = pair_excl_logmags([torch.exp(-v.abs()) for v in views])
-    sprods = excl_sign_products([sgn_pos(v) for v in views])
-    c2v = torch.empty((v2c.shape[0] + 1, v2c.shape[1]), dtype=cdt,
-                      device=v2c.device)
-    for (_, _, rows_w), sp, mg in zip(plan.slots, sprods, mags):
-        c2v[rows_w] = sp * mg
-    c2v = c2v[:-1]
-    if plan.absent_rows is not None:
-        c2v.index_fill_(0, plan.absent_rows, 0.0)
-    return c2v
 
 
 def _messages(rng, rows, dtype, batch=B):
@@ -69,6 +62,17 @@ CODES = {
     "dvbs2_1_2_qc": lambda: load_named_qc("dvbs2_1_2_qc"),
     # dc_max 10: past the first slot cap (the 16-slot instance)
     "qc_peg_dc10": lambda: qc_peg(20, 6, 3, z=16, seed=1),
+    # dc 6–7: CN padding slots
+    "peg_96_48": lambda: load_named_code("peg_96_48"),
+    # irregular on both sides: VN padding slots too
+    "wifi_648_324": lambda: load_named_code("wifi_648_324"),
+    # its greedy strata: 6 × 10 rows, 10 groups, absent slots
+    "peg_96_48_stratified": lambda: stratify(
+        code_to_alist(load_named_code("peg_96_48"))),
+    # a two-circulant pair in layer 0, an absent edge in layer 1
+    "pair_absent_z5": lambda: build_qc_code_edges(
+        [(0, 0, 1), (0, 0, 3), (0, 1, 0), (0, 2, 2), (1, 0, 2), (1, 1, 2),
+         (1, 2, 4)], 5, 2, 3, minus_edges=((1, 2, 4, 1),)),
 }
 
 
@@ -77,27 +81,103 @@ def codes():
     return {name: make() for name, make in CODES.items()}
 
 
-@pytest.mark.parametrize("name", list(CODES))
+def _route_and_body(form, code, dtype, rng):
+    """(the route's outputs, its frozen body's) on the same inputs, f16 or
+    f32 messages (the layered step's stored messages; its posterior is
+    f32, the type it computes in)."""
+    if form == "qc":
+        plan = qc_plan(code, "cpu")
+        b = 4 if plan.num_planes * code.z > 10**5 else B  # dvbs2_1_2_qc
+        v2c = _messages(rng, plan.num_planes * code.z, dtype, b)
+        return [qc_cn_bp(code, v2c)], [frozen_bp.qc_cn_bp(code, v2c)]
+    if form == "slots":
+        v2c = _messages(rng, code.n * code.dv_max, dtype)
+        return [bp_cn_update(code, v2c)], [frozen_bp.bp_cn_update(code, v2c)]
+    if form == "stratified":
+        plan = stratified_plan(code, "cpu")
+        v2c = stratified_zero_pad(code, _messages(
+            rng, code.mb * code.kg * code.w, dtype).view(
+                code.mb, code.kg, code.w, B))
+        yg = 8.0 * _messages(rng, code.kg * code.w, F32).view(
+            code.kg, code.w, B)
+        if plan.col_pad is not None:
+            yg = torch.where(plan.col_pad, 0.0, yg)
+        got = stratified_bp_step(code, storage_dtype=dtype)(v2c, yg)
+        return list(got), list(frozen_bp.stratified_bp_step(code, v2c, yg,
+                                                            dtype))
+    plan = qc_plan(code, "cpu")
+    q = 1.5 * _messages(rng, code.n, F32)  # posteriors past the ±20 clip
+    L = tuple(_messages(rng, lp.dc * code.z, dtype) for lp in plan.layers)
+    (q2, L2), _ = qc_bp_layered_step(code)((q, L))
+    want_q, want_L = frozen_bp.qc_bp_layered_step(code, q, L)
+    return [q2, *L2], [want_q, *want_L]
+
+
+@pytest.mark.parametrize("form,name", [
+    *[pytest.param("qc", n, id=n) for n in
+      ("qc_1008_504", "dvbs2_1_2_qc", "qc_peg_dc10")],
+    pytest.param("slots", "peg_96_48", id="slots-peg_96_48"),
+    pytest.param("slots", "wifi_648_324", id="slots-wifi_648_324"),
+    pytest.param("stratified", "peg_96_48_stratified",
+                 id="stratified-peg_96_48"),
+    pytest.param("layered", "pair_absent_z5", id="layered-pair_absent_z5"),
+])
 @pytest.mark.parametrize("dtype", [F16, F32])
-def test_qc_cn_bp_equals_the_pre_change_body(codes, name, dtype):
-    """On CPU tensors ``qc_cn_bp`` (B8's twin) gives the old body's c2v bit
-    for bit (int32 views: signed zeros too), f32 from either storage type,
-    zeros in the rows of absent edges."""
-    qc = codes[name]
-    plan = qc_plan(qc, "cpu")
-    b = 4 if name == "dvbs2_1_2_qc" else B
-    v2c = _messages(np.random.default_rng(21), plan.num_planes * qc.z,
-                    dtype, b)
+def test_qc_cn_bp_equals_the_pre_change_body(codes, form, name, dtype):
+    """On CPU tensors each BP decoder's route to B8 (its twin here) gives
+    the body it had before the kernel bit for bit (int32 views: signed
+    zeros too), f32 from either storage type, zeros in the rows no check
+    names: ``qc_cn_bp``, the slot array's ``bp_cn_update`` (now in VN-slot
+    layout, the old body's c2v gathered back), the stratified step and the
+    layered step."""
+    code = codes[name]
     build.LAUNCHES.clear()
-    got = qc_cn_bp(qc, v2c)
-    want = _frozen_qc_cn_bp(qc, v2c)
-    assert _same_bits(got, want)
+    got, want = _route_and_body(form, code, dtype,
+                                np.random.default_rng(21))
     assert not build.LAUNCHES  # the twin counts no launch
-    if plan.absent_rows is not None:
+    assert len(got) == len(want)
+    for g, w in zip(got, want):  # f16: the stratified step's stored messages
+        bits = torch.int16 if g.dtype == F16 else torch.int32
+        assert g.dtype == w.dtype and torch.equal(g.view(bits), w.view(bits))
+    if form not in ("qc", "slots"):
+        return
+    c2v = got[0]
+    assert _same_bits(c2v, want[0])
+    if form == "qc" and qc_plan(code, "cpu").absent_rows is not None:
         assert name == "dvbs2_1_2_qc"
-        assert (got[plan.absent_rows].view(torch.int32) == 0).all()
-    zeros = want == 0
-    assert zeros.any() and (zeros & torch.signbit(want)).any()
+        rows = qc_plan(code, "cpu").absent_rows
+        assert (c2v[rows].view(torch.int32) == 0).all()
+    if form == "slots" and not bool(code.vn_mask.all()):
+        assert name == "wifi_648_324"
+        assert (c2v[~code.vn_mask.reshape(-1)].view(torch.int32) == 0).all()
+    zeros = c2v == 0
+    assert zeros.any() and (zeros & torch.signbit(c2v)).any()
+
+
+@pytest.mark.parametrize("width", [64, 65])
+def test_the_decoders_take_b8_up_to_its_widest_table(monkeypatch, width):
+    """Every BP decoder's check update (``decoders/bp.py::_bp_check``)
+    hands its table whole to ``bp_cn_pair``, whatever its width: B8 on the
+    card takes up to 64 slots and refuses a wider table by name
+    (``bp_instance``), never the twin silently; the CPU runs the twin."""
+    calls = []
+
+    def pair(v2c, cn_rows):
+        calls.append(cn_rows.shape[1])
+        return kbp.bp_cn_pair_plain(v2c, cn_rows)
+
+    monkeypatch.setattr(dbp, "bp_cn_pair", pair)
+    rng = np.random.default_rng(65)
+    table = torch.from_numpy(
+        rng.permutation(3 * width).astype(np.int32)).view(3, width)
+    gone = int(table[1, 5])
+    table[1, 5] = -1  # its row is named by no check
+    v2c = _messages(rng, 3 * width, F16)
+    got = dbp._bp_check(v2c, table, torch.tensor([gone]))
+    want = kbp.bp_cn_pair_plain(v2c, table)
+    want[gone] = 0.0
+    assert _same_bits(got, want)
+    assert calls == [width]
 
 
 # ---------------------------------------------------- the kernel's arithmetic

@@ -1,8 +1,10 @@
 """The sum-product check update's span, ``ldpc.decode.bp_check``.
 
-Under a CPU ``torch.profiler``: ``decode_bp_qc`` and ``decode_bp`` with
-early termination open the span once per executed update round, each
-inside the batch's ``ldpc.decode``; with no profiler the span is the
+Under a CPU ``torch.profiler``: ``decode_bp_qc``, ``decode_bp``,
+``decode_bp_stratified`` and ``decode_bp_layered_qc`` with early
+termination open the span once per executed update round (the layered
+decoder once per layer: Mb a round), each inside the batch's
+``ldpc.decode``; with no profiler the span is the
 shared null context and ``record_function`` is never reached; the
 statistics of a BP ``simulate`` do not depend on a profiler; the name is
 in ``SPANS``, under ``ldpc.decode.``.
@@ -19,35 +21,54 @@ from ldpcsimulation_tpu_torch.channel.awgn import (
     llr_from_channel,
     snr_to_n0,
 )
-from ldpcsimulation_tpu_torch.codes import load_named_code
+from ldpcsimulation_tpu_torch.codes import (
+    code_to_alist,
+    load_named_code,
+    stratify,
+)
 from ldpcsimulation_tpu_torch.codes.qc import qc_peg
-from ldpcsimulation_tpu_torch.decoders import decode_bp, decode_bp_qc
+from ldpcsimulation_tpu_torch.decoders import (
+    decode_bp,
+    decode_bp_layered_qc,
+    decode_bp_qc,
+    decode_bp_stratified,
+)
 from ldpcsimulation_tpu_torch.harness import StopRule, simulate
 from tests.test_torch_spans import inside, traced
 from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 CODE = load_named_code("peg_96_48")
+STRAT = stratify(code_to_alist(CODE))
 QC = qc_peg(12, 6, 3, z=8, seed=1)
+KINDS = ["qc", "slots", "stratified", "layered"]
 SNR = 3.5  # batches stop after different numbers of rounds; some frames fail
 T = 6
 
 
 def _decoder(kind):
-    """``(decode(llr, key), code)`` of the QC or the slot-array BP decoder
-    with early termination and f16 messages."""
+    """``(decode(llr, key), code, check updates a round)`` of a BP decoder
+    with early termination and f16 messages (the layered one has no
+    storage type)."""
+    f16 = dict(early_termination=True, storage_dtype=torch.float16)
     if kind == "qc":
-        return (lambda llr, key: decode_bp_qc(
-            QC, llr, T, early_termination=True,
-            storage_dtype=torch.float16)), QC.to_code("cpu")
-    return (lambda llr, key: decode_bp(
-        CODE, llr, T, early_termination=True,
-        storage_dtype=torch.float16)), CODE
+        dec = lambda llr, key: decode_bp_qc(QC, llr, T, **f16)  # noqa: E731
+        return dec, QC.to_code("cpu"), 1
+    if kind == "slots":
+        dec = lambda llr, key: decode_bp(CODE, llr, T, **f16)  # noqa: E731
+        return dec, CODE, 1
+    if kind == "stratified":
+        dec = lambda llr, key: decode_bp_stratified(  # noqa: E731
+            STRAT, llr, T, **f16)
+        return dec, CODE, 1
+    dec = lambda llr, key: decode_bp_layered_qc(  # noqa: E731
+        QC, llr, T, early_termination=True)
+    return dec, QC.to_code("cpu"), QC.mb
 
 
 def _simulate(kind, rounds=None):
     """A BP ``simulate`` of three batches of 16 frames; ``rounds``, given,
     gets each batch's executed update rounds (its largest count)."""
-    dec, code = _decoder(kind)
+    dec, code, _ = _decoder(kind)
     n0 = snr_to_n0(SNR, code.rate)
 
     def decode(llr, key):
@@ -61,24 +82,25 @@ def _simulate(kind, rounds=None):
                     preprocess=lambda y: llr_from_channel(y, n0))
 
 
-@pytest.mark.parametrize("kind", ["qc", "slots"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_one_check_span_per_round_inside_the_decode(kind):
     rounds = []
+    per_round = _decoder(kind)[2]
     stats, got, _ = traced(lambda: _simulate(kind, rounds))
     decodes = [s for s in got if s[0] == spans.DECODE]
     checks = [s for s in got if s[0] == spans.BP_CHECK]
     assert len(decodes) == len(rounds) == 3
     assert len(set(rounds)) > 1 and min(rounds) < T  # the exit cuts rounds
     assert [sum(s[0] == spans.BP_CHECK for s in inside(d, got))
-            for d in decodes] == rounds
-    assert len(checks) == sum(rounds)
+            for d in decodes] == [per_round * r for r in rounds]
+    assert len(checks) == per_round * sum(rounds)
     # a check update holds no other span: the exit checks lie between them
     for c in checks:
         assert inside(c, got) == []
     assert stats.total_words == 48
 
 
-@pytest.mark.parametrize("kind", ["qc", "slots"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_no_profiler_no_record_function(monkeypatch, kind):
     def refuse(*args, **kwargs):
         raise AssertionError("record_function reached with no profiler")
@@ -89,7 +111,7 @@ def test_no_profiler_no_record_function(monkeypatch, kind):
     assert _simulate(kind).total_words == 48
 
 
-@pytest.mark.parametrize("kind", ["qc", "slots"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_stats_do_not_depend_on_the_profiler(kind):
     plain = _simulate(kind)
     with_prof, got, _ = traced(lambda: _simulate(kind))

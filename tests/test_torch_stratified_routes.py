@@ -258,10 +258,11 @@ def test_sweep_takes_the_stratified_route(dec, alist_path, tmp_path,
 def test_sweep_minsum_keeps_the_slot_arrays_past_b1s_groups(tmp_path,
                                                             monkeypatch,
                                                             capsys):
-    """An alist that stratifies into more column groups (66) than kernel
-    B1 takes (64) while its rows hold at most 50 edges: ``minsum`` decodes
-    on the slot arrays, which B1 takes, with the rows of the stratified
-    decoder; ``bp`` still takes the stratified decoder (no cap)."""
+    """An alist that stratifies into more column groups (66) than kernels
+    B1 and B8 take (64) while its rows hold at most 50 edges: ``minsum``
+    decodes on the slot arrays, which B1 takes, with the rows of the
+    stratified decoder; ``bp`` says why and decodes on the slot arrays too,
+    whose rows B8 takes."""
     a = synthetic_stratified(800, h=16, mb=3, p_edge=1.0, seed=1)
     sc = detect_stratified(a)
     assert max(len(r) for r in a.mlist) == 50
@@ -270,13 +271,14 @@ def test_sweep_minsum_keeps_the_slot_arrays_past_b1s_groups(tmp_path,
     path = str(tmp_path / "wide.alist")
     save_alist(a, path)
     spy = _Spy(monkeypatch)
-    for dec, want in (("minsum", "decode_minsum"),
-                      ("bp", "decode_bp_stratified")):
+    for dec, want in (("minsum", "decode_minsum"), ("bp", "decode_bp")):
         spy.calls = dict.fromkeys(spy.NAMES, 0)
         assert sweep.main(_args(dec, path, tmp_path / f"{dec}.log",
                                 ["--device", "cpu"])) == 0
         err = capsys.readouterr().err
-        assert ("66 column groups" in err) == (dec == "bp")
+        assert "detected stratified structure" not in err
+        assert ("(3x16 strata, 66 column groups) wider than kernel B8's 64 "
+                "slots" in err) == (dec == "bp")
         assert spy.used() == {want}
     _as_stratified(monkeypatch, sc)
     assert sweep.main(_args("minsum", path, tmp_path / "s.log",
