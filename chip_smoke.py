@@ -344,7 +344,18 @@ the exit code is non-zero):
      behind a long sleep kernel, its twin's, the memory and issue bounds;
      then a T=20 early-terminating ``decode_bp_qc`` (f16, B=32768) with B8
      launched once a round and the twin never, its results equal to the
-     same decode with the twin in the kernel's place.
+     same decode with the twin in the kernel's place;
+ 47. kernel B9 (the sum-product VN update) against its twin bit for bit
+     (int views: signed zeros, NaN, the ±20 clip) through ``bp_vn_update``
+     on qc_1008_504 (B=32768, f16 and f32 storage, f32 and f16 channel),
+     wifi_1944_972 (dv_max 11, past the terms held in registers), the
+     generalized dvbs2_1_2_qc plan (B=2048), an odd batch (B=32771, the
+     1-lane instances) and c2v a view two f32 elements into its buffer
+     (the 2-lane instance); each form's time per launch behind a long
+     sleep kernel, its twin's and the memory bound; then a T=20
+     early-terminating ``decode_bp_qc`` (f16, B=32768) with B9 launched
+     once a round and the twin never, its results equal to the same
+     decode with the twin in the kernel's place.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -2318,7 +2329,8 @@ def phase_new_sweep(device, batch):
     runs = (
         (["bp", "--code", CODE, "--snr", "2.0", "-T", "20",
           "--early-termination", "--msg-dtype", "f16"], 6, "20", CODE,
-         lambda checks: {"bp_cn_pair": checks - 1}),
+         lambda checks: {"bp_cn_pair": checks - 1,
+                         "bp_vn_update": checks - 1}),
         (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
           "-T", "10", "--early-termination"], 6, "10", WIFI_CODE,
          lambda checks: {"bp_cn_pair": mb * (checks - 1)}),
@@ -6691,8 +6703,8 @@ def phase_b8(device, lib_path, timer):
     finally:
         kbp.bp_cn_pair_plain = real_plain
     rounds = int(res.iterations.max())
-    check(launched == {"bp_cn_pair": rounds, "parity_check": rounds + 1}
-          and not twin_calls,
+    check(launched == {"bp_cn_pair": rounds, "bp_vn_update": rounds,
+                       "parity_check": rounds + 1} and not twin_calls,
           f"decode_bp_qc: launches {launched} for {rounds} rounds, "
           f"{len(twin_calls)} twin calls")
     dbp.bp_cn_pair = real_plain
@@ -6703,6 +6715,175 @@ def phase_b8(device, lib_path, timer):
     for f in ("hard", "iterations", "satisfied"):
         check(torch.equal(getattr(res, f), getattr(ref, f)),
               f"decode_bp_qc {f}: B8 != twin")
+    print(f"  decode_bp_qc {CODE} 2.0 dB T=20 ET f16, B={BATCH}: {rounds} "
+          f"rounds, launches {launched}, the twin never called; decisions, "
+          f"iterations and flags equal to the decode on the twin "
+          f"({int(res.satisfied.sum())} of {BATCH} satisfied)")
+    return dict(forms=forms, decode=dict(rounds=rounds, launches=launched),
+                max_abs_err=0.0)
+
+
+def b9_forms():
+    """(name, QC code, batch, [(storage, channel) dtypes], c2v's element
+    offset into its buffer) of B9's forms: the main path's in the four
+    dtype pairs, wifi_1944_972 (dv_max 11, past the 8 terms held in
+    registers), the DVB-S2 plan (pairs, absent edges, degrees 2, 3 and 8),
+    an odd batch (the 1-lane instances) and c2v a view two f32 elements in
+    (the 2-lane instance)."""
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+
+    f16, f32 = torch.float16, torch.float32
+    pairs = ((f16, f32), (f32, f32), (f16, f16), (f32, f16))
+    qc1 = load_named_qc(CODE)
+    return (
+        (CODE, qc1, BATCH, pairs, 0),
+        (WIFI_CODE, load_named_qc(WIFI_CODE), BATCH, pairs[:1] + pairs[2:3],
+         0),
+        (f"generalized {DVBS2_CODE}", load_named_qc(DVBS2_CODE),
+         B8_DVBS2_BATCH, pairs[:1], 0),
+        (f"odd batch {CODE}", qc1, ODD_BATCH, pairs, 0),
+        (f"{CODE} c2v two elements in", qc1, BATCH, pairs[:1], 2),
+    )
+
+
+def b9_inputs(gen, plan, batch, cdt, offset, device):
+    """(c2v [R, B] f32 ``offset`` elements into its buffer, y [N, B] in
+    ``cdt``) as B8 and the decoder leave them: c2v spread past the ±20
+    clip once summed, 1 % +0.0, 1 % -0.0 and 0.01 % NaN, +0.0 in the rows
+    of absent edges; y clamped LLRs with 1 % -0.0 and, in the first 64
+    lanes, every column's terms and sample -0.0 (a -0.0 posterior)."""
+    rows, n = plan.num_planes * plan.z, plan.vn_rows.shape[0]
+    v = 12.0 * torch.randn(rows, batch, generator=gen, device=device)
+    u = torch.rand(rows, batch, generator=gen, device=device)
+    v = torch.where(u < 0.01, 0.0, torch.where(u > 0.99, -0.0, v))
+    v = torch.where(u < 1e-4, float("nan"), v)
+    v[:, :64] = -0.0
+    if plan.absent_rows is not None:
+        v.index_fill_(0, plan.absent_rows, 0.0)
+    buf = torch.empty(rows * batch + offset, device=device)
+    c2v = buf[offset:].view(rows, batch)
+    c2v.copy_(v)
+    del v, u
+    y = torch.clamp(1.0 + 6.0 * torch.randn(n, batch, generator=gen,
+                                            device=device), -20.0, 20.0)
+    y = torch.where(torch.rand(n, batch, generator=gen, device=device)
+                    < 0.01, -0.0, y)
+    y[:, :64] = -0.0
+    return c2v, y.to(cdt)
+
+
+def phase_b9(device, timer):
+    """Kernel B9 (the sum-product VN update) against its twin on the card,
+    bit for bit (int views: signed zeros, NaN, the clip), in every form of
+    :func:`b9_forms`, through the wrapper, with each form's time per launch
+    (behind a long sleep kernel), the twin's and the memory bound; then a
+    T=20 early-terminating ``decode_bp_qc`` (f16) whose B9 launches equal
+    its rounds, which never calls the twin, and whose results equal the
+    same decode with the twin in the kernel's place."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import bp_qc, qc_plan
+    from ldpcsimulation_tpu_torch.decoders.bp import MAXLLR
+    from ldpcsimulation_tpu_torch.kernels import bp as kbp
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels.minsum import vn_lane_width
+
+    gen = torch.Generator(device=device).manual_seed(47)
+    forms, lanes_seen = {}, set()
+    for name, qc, batch, pairs, offset in b9_forms():
+        plan = qc_plan(qc, device)
+        vn_rows = plan.vn_rows
+        n, dv = vn_rows.shape
+        edges = plan.num_planes * qc.z
+        for sdt, cdt in pairs:
+            c2v, y = b9_inputs(gen, plan, batch, cdt, offset, device)
+            want_v, want_t = kbp.bp_vn_update_plain(c2v, y, vn_rows, MAXLLR,
+                                                    sdt)
+            build.LAUNCHES.clear()
+            got_v, got_t = kbp.bp_vn_update(c2v, y, vn_rows, MAXLLR, sdt)
+            check(dict(build.LAUNCHES) == {"bp_vn_update": 1},
+                  f"B9 {name}: launches {dict(build.LAUNCHES)}")
+            label = (f"{name} B={batch} {str(sdt).split('.')[-1]}/"
+                     f"{str(cdt).split('.')[-1]}")
+            for what, got, want in (("v2c'", got_v, want_v),
+                                    ("total", got_t, want_t)):
+                check(same_bits(got, want), f"B9 {label} {what}: kernel != "
+                      f"plain")
+            check(float(got_v.float().nan_to_num().abs().max()) <= MAXLLR,
+                  f"B9 {label}: v2c' past the clip")
+            neg = int((got_t == 0).logical_and(torch.signbit(got_t)).sum())
+            nans = int(torch.isnan(got_v).sum())
+            check(neg > 0 and nans > 0, f"B9 {label}: {neg} -0.0 totals, "
+                  f"{nans} NaN messages")
+            lanes = min(vn_lane_width(c2v, y, got_t),
+                        vn_lane_width(got_v, got_v, got_v))
+            lanes_seen.add(lanes)
+            del got_v, got_t, want_v, want_t
+            ms = time_small_ms(
+                lambda: kbp.bp_vn_update(c2v, y, vn_rows, MAXLLR, sdt), 20)
+            plain_ms = timer(lambda: kbp.bp_vn_update_plain(
+                c2v, y, vn_rows, MAXLLR, sdt), 2)
+            nbytes = (batch * (edges * (4 + sdt.itemsize)
+                               + n * (cdt.itemsize + 4))
+                      + vn_rows.numel() * 4)
+            mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            forms[label] = dict(
+                shape=[edges, batch], n=n, dv_max=dv, lanes=lanes, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, bound_ms=mem_ms,
+                bound_by="bytes", share=mem_ms / ms, negative_zeros=neg,
+                nan_messages=nans)
+            print(f"  B9 {label} [{edges} x {batch}], {n} columns, dv_max "
+                  f"{dv} ({lanes} lanes): equal bit for bit ({neg} -0.0 "
+                  f"totals, {nans} NaN messages); {ms:.4f} ms per launch, "
+                  f"plain {plain_ms:.4f} ms; memory bound {mem_ms:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB), roofline share "
+                  f"{mem_ms / ms:.1%}", flush=True)
+            del c2v, y
+            torch.cuda.empty_cache()
+    check(lanes_seen == {1, 2, 4}, f"B9 instances {lanes_seen}")
+
+    # a decode: B9 once a round, never the twin, equal to the twin's decode
+    qc = load_named_qc(CODE)
+    llr = llr_from_channel(awgn_all_zero(
+        SEED, 0, BATCH, qc.n, snr_to_sigma(2.0, 0.5), device),
+        snr_to_n0(2.0, 0.5))
+    twin_calls = []
+    real_plain, real_vn = kbp.bp_vn_update_plain, bp_qc.bp_vn_update
+
+    def counted_plain(*args):
+        twin_calls.append(1)
+        return real_plain(*args)
+
+    def decode():
+        return bp_qc.decode_bp_qc(qc, llr, 20, early_termination=True,
+                                  storage_dtype=torch.float16)
+
+    kbp.bp_vn_update_plain = counted_plain
+    try:
+        build.LAUNCHES.clear()
+        res = decode()
+        torch.cuda.synchronize()
+        launched = dict(build.LAUNCHES)
+    finally:
+        kbp.bp_vn_update_plain = real_plain
+    rounds = int(res.iterations.max())
+    check(launched == {"bp_cn_pair": rounds, "bp_vn_update": rounds,
+                       "parity_check": rounds + 1} and not twin_calls,
+          f"decode_bp_qc: launches {launched} for {rounds} rounds, "
+          f"{len(twin_calls)} twin calls")
+    bp_qc.bp_vn_update = real_plain
+    try:
+        ref = decode()
+    finally:
+        bp_qc.bp_vn_update = real_vn
+    for f in ("hard", "iterations", "satisfied"):
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"decode_bp_qc {f}: B9 != twin")
     print(f"  decode_bp_qc {CODE} 2.0 dB T=20 ET f16, B={BATCH}: {rounds} "
           f"rounds, launches {launched}, the twin never called; decisions, "
           f"iterations and flags equal to the decode on the twin "
@@ -6911,6 +7092,10 @@ def main() -> int:
     header("[46] B8 vs plain: the sum-product check update in every form, "
            "and a T=20 decode")
     b8 = phase_b8(device, path, time_ms)
+    torch.cuda.empty_cache()
+    header("[47] B9 vs plain: the sum-product VN update in every form, and "
+           "a T=20 decode")
+    b9 = phase_b9(device, time_ms)
 
     summary = {
         "card": card,
@@ -7285,7 +7470,25 @@ def main() -> int:
                 "bp_cn_pair", 0),
             "decode_bp_qc [46]": b8["decode"]["launches"]["bp_cn_pair"]},
         "forms": b8["forms"]}
-    for row in (b6_row, b7_row, b8_row):
+    # B9: no Pallas original (the XLA fusion of the JAX QC BP step's VN
+    # side); its launches on the QC BP paths of this run
+    b9_main = b9["forms"][f"{CODE} B={BATCH} float16/float32"]
+    b9_row = {
+        "name": "bp_vn_update", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/bp_vn_update.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/bp_qc.py:98-101",
+        "pallas_original": None,
+        "launches": new_paths["bp_qc"]["launches"]["bp_vn_update"],
+        "max_abs_err": b9["max_abs_err"], "ms": b9_main["ms"],
+        "plain_ms": b9_main["plain_ms"], "bound_ms": b9_main["bound_ms"],
+        "bound_by": b9_main["bound_by"], "share": b9_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            "bp_qc [21]": new_paths["bp_qc"]["launches"]["bp_vn_update"],
+            "stream sweep [29]": stream_sweep.get("bp_vn_update", 0),
+            "decode_bp_qc [47]": b9["decode"]["launches"]["bp_vn_update"]},
+        "forms": b9["forms"]}
+    for row in (b6_row, b7_row, b8_row, b9_row):
         check(all(v >= 1 for v in row["launches_by_path"].values()),
               f"{row['name']} not launched on a path: "
               f"{row['launches_by_path']}")
@@ -7308,7 +7511,7 @@ def main() -> int:
          **({"ring_shapes": rings["shapes"]}
             if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
-    ] + [b5_row, b6_row, b7_row, b8_row]}))
+    ] + [b5_row, b6_row, b7_row, b8_row, b9_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -4,7 +4,8 @@ Port of ``ldpcsimulation_tpu.decoders.bp_qc``: the arithmetic of :mod:`.bp`
 (hyperbolic-pair check update with exact prefix/suffix exclusion, ±MAXLLR
 clamp on the outgoing messages) on the flat ``[P * z, B]`` message planes of
 :mod:`.minsum_qc`, the check update routed by ``QCPlan.cn_rows`` inside
-kernel B8 (one row gather per slot in its plain twin).  ``cn_rows`` is in
+kernel B8 (one row gather per slot in its plain twin), the VN side in
+kernel B9 on ``QCPlan.vn_rows``.  ``cn_rows`` is in
 the generic slot order (a pair's entries exchanged row by row), the order
 the JAX decoder folds in: the f32 fold is not associative, so the order is
 part of the result.  An absent slot is u = 0 with sign +1 — the fold's
@@ -15,15 +16,12 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..codes.qc import QCCode
-from .base import DecodeResult, run_flooding_soft, storage_cast
+from ..kernels.bp import bp_vn_update
+from .base import DecodeResult, run_flooding_soft
 from .bp import MAXLLR, _bp_check
-from .minsum_qc import (
-    qc_check_satisfied,
-    qc_fold,
-    qc_plan,
-    qc_ragged_init,
-)
+from .minsum_qc import qc_check_satisfied, qc_plan, qc_ragged_init
 
 __all__ = ["qc_cn_bp", "qc_bp_step", "decode_bp_qc"]
 
@@ -40,18 +38,19 @@ def qc_bp_step(qc: QCCode, max_llr: float = MAXLLR, storage_dtype=None):
     """The :func:`decode_bp_qc` iteration as a function of (messages,
     channel term): ``step(v2c, yb) -> (v2c', total)`` with ``v2c`` the
     ``[P*z, B]`` planes and ``yb``/``total`` the clamped ``[N, B]`` LLRs and
-    the posterior.  The VN side is :func:`.minsum_qc.qc_minsum_step`'s:
-    total = y + ((c₀ + c₁) + c₂ …) in the generic slot order, then
-    v2c' = storage_cast(clip(total − c_s, ±max_llr))."""
+    the posterior (f32).  The VN side is kernel B9
+    (:func:`..kernels.bp.bp_vn_update` on ``QCPlan.vn_rows``): total = y +
+    ((c₀ + c₁) + c₂ …) in the generic slot order, then v2c' =
+    storage_cast(clip(total − c_s, ±max_llr)) in a new plane; while a
+    profiler runs, the span ``ldpc.decode.bp_vn``."""
 
     def step(v2c, yb):
         plan = qc_plan(qc, v2c.device)
         sdt = storage_dtype if storage_dtype is not None else yb.dtype
         c2v = qc_cn_bp(qc, v2c)
-        total = yb + qc_fold(plan.fold, c2v)
-        v2c_new = storage_cast(
-            torch.clamp(total[plan.row_col] - c2v, -max_llr, max_llr), sdt)
-        return v2c_new, total
+        yb = yb.contiguous()
+        with spans.span(spans.BP_VN):
+            return bp_vn_update(c2v, yb, plan.vn_rows, max_llr, sdt)
 
     return step
 

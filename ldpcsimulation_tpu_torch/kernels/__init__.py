@@ -8,6 +8,9 @@
   * B8 :func:`.bp.bp_cn_pair` — sum-product check-node update, routing
     inside, the (s, d) pair folds in registers (no Pallas original: the
     JAX QC decoder's XLA fusion);
+  * B9 :func:`.bp.bp_vn_update` — sum-product variable-node update: fold,
+    posterior, extrinsic, ±max_llr clip and storage store in one pass, to
+    a new plane (no Pallas original: the JAX QC BP step's XLA fusion);
   * B6 :func:`.check.parity_check` — the parity check of every decoder's
     early exit and the bit-flip decoders' bipolar syndrome, one integer
     pass (no Pallas original: the JAX checks' XLA fusions);
@@ -31,7 +34,12 @@
 ``gdbf_lanes``).
 """
 
-from .bp import bp_cn_pair, bp_cn_pair_plain
+from .bp import (
+    bp_cn_pair,
+    bp_cn_pair_plain,
+    bp_vn_update,
+    bp_vn_update_plain,
+)
 from .build import LAUNCHES
 from .channel import (
     awgn_philox,
@@ -63,6 +71,8 @@ __all__ = [
     "LAUNCHES",
     "bp_cn_pair",
     "bp_cn_pair_plain",
+    "bp_vn_update",
+    "bp_vn_update_plain",
     "awgn_philox",
     "awgn_philox_plain",
     "philox4x32_10",

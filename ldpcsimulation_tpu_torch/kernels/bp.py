@@ -1,5 +1,6 @@
 """Kernel B8: the sum-product check-node update with the routing inside
-(``csrc/bp_cn_pair.cu``).
+(``csrc/bp_cn_pair.cu``); kernel B9: the sum-product variable-node update
+(``csrc/bp_vn_update.cu``).
 
 No Pallas original: the JAX package leaves the update to XLA, which fuses
 ``ldpcsimulation_tpu.decoders.bp_qc.qc_cn_bp_slots``.  The kernel reads
@@ -24,6 +25,19 @@ twin's operations in the twin's order with the same correctly rounded
 ``exp``, ``log`` and division.  :func:`bp_instance` picks the kernel's
 instance: the slot cap from ``dc_max``, the lanes per thread from the cap,
 the batch and the pointers' alignment.
+
+B9 (:func:`bp_vn_update`) has no Pallas original either: it is the XLA
+fusion of the JAX QC step's VN side.  From c2v ``[R, B]`` f32 (B8's
+output, +0.0 in the rows of absent edges) and the channel LLRs
+``y [N, B]`` (f16 or f32) it computes, through kernel B5's table
+``vn_rows`` (:mod:`.minsum`: a row, :data:`.minsum.NO_TERM`, or a
+:func:`.minsum.zero_term`), the posterior ``total = y + ((c₀ + c₁) + …)``
+in f32 and, in a fresh plane of the storage type (f16 or f32), ``v2c' =
+storage_cast(clamp(total − c, ±max_llr))``.  :func:`bp_vn_update` launches
+the kernel for CUDA tensors and runs :func:`bp_vn_update_plain` for CPU
+tensors; the two agree bit for bit on the card (``chip_smoke.py``): every
+operation is one correctly rounded f32 add, compare or cast, in the same
+order.
 """
 
 from __future__ import annotations
@@ -31,12 +45,12 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .minsum import _F16_MAX, NO_TERM, _check_vn, lane_width, vn_lane_width
 from .minsum import _check as _check_planes
-from .minsum import lane_width
 
 __all__ = ["CAP_LANES", "bp_instance", "bp_cn_pair", "bp_cn_pair_plain",
            "sgn_pos", "pair_excl_sums", "pair_excl_logmags",
-           "excl_sign_products"]
+           "excl_sign_products", "bp_vn_update", "bp_vn_update_plain"]
 
 #: slot cap of each kernel instance -> the most lanes a thread takes under
 #: it (its registers hold u, pre_s and pre_d: 3 × cap × lanes floats)
@@ -168,3 +182,68 @@ def bp_cn_pair(v2c, cn_rows):
     build.check(rc, "bp_cn_pair")
     build.LAUNCHES["bp_cn_pair"] += 1
     return c2v
+
+
+def _check_bp_vn(c2v, y, vn_rows, storage_dtype):
+    """B5's checks, then f32 c2v and an f16/f32 storage dtype."""
+    _check_vn(c2v, y, vn_rows)
+    if c2v.dtype != torch.float32:
+        raise ValueError(f"c2v must be f32, got {c2v.dtype}")
+    if storage_dtype not in (torch.float16, torch.float32):
+        raise ValueError(f"v2c' is stored in f16 or f32, not {storage_dtype}")
+
+
+def bp_vn_update_plain(c2v, y, vn_rows, max_llr, storage_dtype):
+    """Plain PyTorch twin of kernel B9: the QC step's VN expression on
+    B5's table (the same fold order, the same roundings).  Returns (v2c'
+    [R, B] in ``storage_dtype``, a new plane; total [N, B] f32)."""
+    _check_bp_vn(c2v, y, vn_rows, storage_dtype)
+    e = vn_rows.long()
+    has = e != NO_TERM
+    rows = torch.where(e >= 0, e, -e - 2)
+
+    def term(s):
+        t = c2v[e[:, s].clamp(min=0)]
+        return torch.where((e[:, s] >= 0)[:, None], t, 0.0)  # +0.0 terms
+
+    acc = torch.full(y.shape, -0.0, device=y.device)  # the identity of +
+    for s in range(e.shape[1]):
+        acc = torch.where(has[:, s, None], acc + term(s), acc)
+    total = y + acc  # an f16 channel widens to f32
+    v2c = torch.empty(c2v.shape, dtype=storage_dtype, device=c2v.device)
+    for s in range(e.shape[1]):
+        out = torch.clamp(total - term(s), -max_llr, max_llr)
+        if storage_dtype == torch.float16:  # the saturating storage cast
+            out = torch.clamp(out, -_F16_MAX, _F16_MAX)
+        v2c[rows[has[:, s], s]] = out[has[:, s]].to(storage_dtype)
+    return v2c, total
+
+
+def bp_vn_update(c2v, y, vn_rows, max_llr, storage_dtype):
+    """Sum-product VN update: (v2c' [R, B] in ``storage_dtype``, total
+    [N, B] f32) from c2v [R, B] f32 and the channel y [N, B] (f16 or f32)
+    through ``vn_rows``.  v2c' is a new plane: c2v is not written.
+
+    CPU tensors: the plain twin.  CUDA tensors: the kernel, or an
+    exception.
+    """
+    if c2v.device.type == "cpu":
+        return bp_vn_update_plain(c2v, y, vn_rows, max_llr, storage_dtype)
+    if c2v.device.type != "cuda":
+        raise ValueError(f"bp_vn_update: unsupported device {c2v.device}")
+    _check_bp_vn(c2v, y, vn_rows, storage_dtype)
+    n, dv = vn_rows.shape
+    total = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    v2c = torch.empty(c2v.shape, dtype=storage_dtype, device=c2v.device)
+    # B5's rule on the planes it shares with B9, then on v2c'
+    lanes = min(vn_lane_width(c2v, y, total), vn_lane_width(v2c, v2c, v2c))
+    rc = build.library().ldpc_bp_vn_update(
+        c2v.data_ptr(), y.data_ptr(), int(y.dtype == torch.float16),
+        vn_rows.data_ptr(), n, dv, c2v.shape[1], max_llr, lanes,
+        total.data_ptr(), v2c.data_ptr(),
+        int(storage_dtype == torch.float16), c2v.device.index,
+        build.stream_of(c2v.device),
+    )
+    build.check(rc, "bp_vn_update")
+    build.LAUNCHES["bp_vn_update"] += 1
+    return v2c, total

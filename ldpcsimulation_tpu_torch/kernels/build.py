@@ -33,9 +33,9 @@ __all__ = ["LAUNCHES", "PATHS", "BUILD_DIR", "build", "library", "check",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("awgn_philox.cu", "bp_cn_pair.cu", "gdbf_chunk.cu",
-           "gdbf_step.cu", "minsum_cn_scan.cu", "minsum_vn_update.cu",
-           "parity_check.cu", "uniform_philox.cu")
+SOURCES = ("awgn_philox.cu", "bp_cn_pair.cu", "bp_vn_update.cu",
+           "gdbf_chunk.cu", "gdbf_step.cu", "minsum_cn_scan.cu",
+           "minsum_vn_update.cu", "parity_check.cu", "uniform_philox.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -135,6 +135,12 @@ def library() -> ctypes.CDLL:
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
         ]
         lib.ldpc_bp_cn_pair.restype = ctypes.c_int
+        lib.ldpc_bp_vn_update.argtypes = [
+            _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_float, ctypes.c_int, _P, _P,
+            ctypes.c_int, ctypes.c_int, _P,
+        ]
+        lib.ldpc_bp_vn_update.restype = ctypes.c_int
         lib.ldpc_minsum_vn_update.argtypes = [
             _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
             ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int, _P,

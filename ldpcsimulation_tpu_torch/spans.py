@@ -38,6 +38,9 @@ EXIT_CHECK = "ldpc.decode.exit_check"
 #: one sum-product check-node update (every check, every lane; one layer's
 #: checks in layered BP)
 BP_CHECK = "ldpc.decode.bp_check"
+#: one sum-product variable-node update of the flooding QC decoder (every
+#: column, every lane)
+BP_VN = "ldpc.decode.bp_vn"
 #: one round of ``parallel.montecarlo.simulate_grid``, before its stop checks
 GRID_ROUND = "ldpc.grid.round"
 #: one slot of a grid step: its channel, decode and counters
@@ -51,7 +54,7 @@ GRID_TALLY = "ldpc.grid.tally"
 
 SPANS = (BATCH, CHANNEL, DECODE, COUNT, TO_HOST, TALLY, EXIT_CHECK,
          GRID_ROUND, GRID_SLOT, GRID_ALLREDUCE, GRID_TO_HOST, GRID_TALLY,
-         BP_CHECK)
+         BP_CHECK, BP_VN)
 
 _NULL = contextlib.nullcontext()
 

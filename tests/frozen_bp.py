@@ -1,11 +1,14 @@
 """Frozen copies of the sum-product check-update bodies as they were before
 each route took kernel B8 (``csrc/bp_cn_pair.cu``): the QC update's one
 row gather per slot, the slot array's CN-slot block, the stratified
-update between its two grid gathers and the layered step's inline fold.
+update between its two grid gathers and the layered step's inline fold;
+and of the QC step's variable-node side as it was before kernel B9
+(``csrc/bp_vn_update.cu``): the fold over ``QCPlan.fold``, the
+``total[row_col]`` gather, the clip and the saturating cast.
 
 Each new route must equal its body bit for bit: on CPU tensors in
-``tests/test_torch_bp_cn_pair.py`` (B8's twin) and on the card in
-``chip_smoke.py`` (B8 itself).  Plain PyTorch, nothing of JAX: the card's
+``tests/test_torch_bp_cn_pair.py`` and ``tests/test_torch_bp_vn.py`` (the
+twins) and on the card in ``chip_smoke.py`` (the kernels).  Plain PyTorch, nothing of JAX: the card's
 machine imports this module too.  The pair folds and the sign convention
 are copied here as they were, so that a change to the port's fold (slot
 order, neutral element, sign of zero) shows against these bodies.
@@ -20,6 +23,7 @@ from ldpcsimulation_tpu_torch.decoders.base import (
     storage_cast,
 )
 from ldpcsimulation_tpu_torch.decoders.bp import MAXLLR
+from ldpcsimulation_tpu_torch.decoders.bp_qc import qc_cn_bp as b8_qc_cn_bp
 from ldpcsimulation_tpu_torch.decoders.minsum_layered import layered_scatter
 from ldpcsimulation_tpu_torch.decoders.minsum_stratified import (
     stratified_to_cn,
@@ -163,3 +167,34 @@ def qc_bp_layered_step(qc, q, L):
         layered_scatter(q, lp, qv, qext, out)
         L_new.append(out)
     return q, tuple(L_new)
+
+
+def qc_bp_vn(qc, c2v, yb, max_llr=MAXLLR, storage_dtype=None):
+    """``decoders/bp_qc.py::qc_bp_step``'s VN side before kernel B9: the
+    left fold of ``QCPlan.fold`` (``qc_fold``), the channel added last,
+    then the extrinsic through ``total[row_col]``, the ±max_llr clip and
+    the saturating cast; returns (v2c', total)."""
+    plan = qc_plan(qc, c2v.device)
+    acc = None
+    for cols, rows in plan.fold:
+        if acc is None:  # position 0: every column has a term
+            acc = c2v[rows]
+        elif cols is None:
+            acc = acc + c2v[rows]
+        else:
+            acc[cols] = acc[cols] + c2v[rows]
+    total = yb + acc
+    sdt = storage_dtype if storage_dtype is not None else yb.dtype
+    v2c = storage_cast(
+        torch.clamp(total[plan.row_col] - c2v, -max_llr, max_llr), sdt)
+    return v2c, total
+
+
+def qc_bp_step(qc, max_llr=MAXLLR, storage_dtype=None):
+    """``decoders/bp_qc.py::qc_bp_step`` before kernel B9: the check update
+    (``decoders/bp_qc.py::qc_cn_bp``, B8's route) then :func:`qc_bp_vn`."""
+
+    def step(v2c, yb):
+        return qc_bp_vn(qc, b8_qc_cn_bp(qc, v2c), yb, max_llr, storage_dtype)
+
+    return step

@@ -1,12 +1,15 @@
-"""The sum-product check update's span, ``ldpc.decode.bp_check``.
+"""The sum-product check update's span, ``ldpc.decode.bp_check``, and the
+QC decoder's variable-node update's, ``ldpc.decode.bp_vn``.
 
 Under a CPU ``torch.profiler``: ``decode_bp_qc``, ``decode_bp``,
 ``decode_bp_stratified`` and ``decode_bp_layered_qc`` with early
-termination open the span once per executed update round (the layered
-decoder once per layer: Mb a round), each inside the batch's
-``ldpc.decode``; with no profiler the span is the
+termination open the check span once per executed update round (the
+layered decoder once per layer: Mb a round), each inside the batch's
+``ldpc.decode``; ``decode_bp_qc`` opens the VN span once a round too,
+after the round's check update and apart from it, and a min-sum decode
+opens neither; with no profiler the span is the
 shared null context and ``record_function`` is never reached; the
-statistics of a BP ``simulate`` do not depend on a profiler; the name is
+statistics of a BP ``simulate`` do not depend on a profiler; the names are
 in ``SPANS``, under ``ldpc.decode.``.
 """
 
@@ -32,6 +35,8 @@ from ldpcsimulation_tpu_torch.decoders import (
     decode_bp_layered_qc,
     decode_bp_qc,
     decode_bp_stratified,
+    decode_minsum,
+    decode_minsum_qc,
 )
 from ldpcsimulation_tpu_torch.harness import StopRule, simulate
 from tests.test_torch_spans import inside, traced
@@ -135,3 +140,44 @@ def test_the_name_is_listed_under_the_decoder():
     assert spans.BP_CHECK in spans.SPANS
     assert spans.BP_CHECK.startswith(spans.DECODE + ".")
     assert len(set(spans.SPANS)) == len(spans.SPANS)
+
+
+def test_one_vn_span_per_round_in_the_qc_decode():
+    """``decode_bp_qc`` opens ``ldpc.decode.bp_vn`` once per executed
+    round inside the batch's ``ldpc.decode``, each after its round's check
+    update and holding no other span."""
+    rounds = []
+    _, got, _ = traced(lambda: _simulate("qc", rounds))
+    decodes = [s for s in got if s[0] == spans.DECODE]
+    vns = [s for s in got if s[0] == spans.BP_VN]
+    checks = [s for s in got if s[0] == spans.BP_CHECK]
+    assert len(set(rounds)) > 1
+    assert [sum(s[0] == spans.BP_VN for s in inside(d, got))
+            for d in decodes] == rounds
+    assert len(vns) == len(checks) == sum(rounds)
+    for c, v in zip(checks, vns):
+        assert c[2] <= v[1] and inside(v, got) == []
+
+
+@pytest.mark.parametrize("kind", ["minsum_qc", "minsum_slots"])
+def test_min_sum_decodes_open_no_bp_span(kind):
+    """A min-sum decode opens neither BP span: its VN update is B5's."""
+    if kind == "minsum_qc":
+        code = QC.to_code("cpu")
+        dec = lambda y, key: decode_minsum_qc(  # noqa: E731
+            QC, y, T, early_termination=True, storage_dtype=torch.float16)
+    else:
+        code = CODE
+        dec = lambda y, key: decode_minsum(CODE, y, T)  # noqa: E731
+    stats, got, _ = traced(lambda: simulate(
+        code, dec, SNR, stop=StopRule.fixed_frames(32), batch_size=16,
+        seed=13, device="cpu"))
+    assert sum(s[0] == spans.DECODE for s in got) == 2
+    assert not [s for s in got if s[0] in (spans.BP_VN, spans.BP_CHECK)]
+    assert stats.total_words == 32
+
+
+def test_the_vn_name_is_listed_under_the_decoder():
+    assert spans.BP_VN in spans.SPANS
+    assert spans.BP_VN.startswith(spans.DECODE + ".")
+    assert spans.BP_VN != spans.BP_CHECK
