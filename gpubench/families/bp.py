@@ -8,11 +8,11 @@ code is built from the frozen table, which both sides take.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..reference import bp as ref_bp
 from ..reference import philox, precision
+from ._qc import qc_code
 
 
 def n0_of(sigma: float) -> float:
@@ -24,13 +24,11 @@ class Port:
     """The program's side of one configuration on one device."""
 
     def __init__(self, cfg: dict, table: dict, device):
-        from ldpcsimulation_tpu_torch.codes.qc import build_qc_code
-
         dec = cfg["decoder"]
         if not dec["early_termination"]:
             raise NotImplementedError("the BP cells terminate early")
         self.device = torch.device(device)
-        self.qc = build_qc_code(np.array(table["base"]), table["z"])
+        self.qc = qc_code(table)
         self.code = self.qc.to_code(self.device)
         self.T, self.max_llr = dec["iterations"], dec["max_llr"]
         self.sdt = precision(cfg["precision"]).storage

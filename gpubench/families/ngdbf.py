@@ -9,11 +9,11 @@ table, which both sides take.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..reference import ngdbf as ref_ngdbf
 from ..reference import philox
+from ._qc import qc_code
 
 #: the presets the plain reference writes out
 _REFERENCE_PRESETS = ("SMNGDBF",)
@@ -23,11 +23,10 @@ class Port:
     """The program's side of one configuration on one device."""
 
     def __init__(self, cfg: dict, table: dict, device):
-        from ldpcsimulation_tpu_torch.codes.qc import build_qc_code
         from ldpcsimulation_tpu_torch.decoders.gdbf import preset
 
         self.device = torch.device(device)
-        self.qc = build_qc_code(np.array(table["base"]), table["z"])
+        self.qc = qc_code(table)
         self.code = self.qc.to_code(self.device)
         dec = cfg["decoder"]
         self.gcfg = preset(dec["preset"], num_iterations=dec["iterations"],

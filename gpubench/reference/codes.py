@@ -3,8 +3,16 @@
 A table (``codes/<name>.json``) holds the base matrix of circulant shifts
 (−1 for a zero block) and the circulant size ``z``.  Check ``bi·z + r`` and
 column ``bj·z + (r + s) mod z`` share an edge for every block ``(bi, bj)``
-of shift ``s ≥ 0``.  Each column's edges are listed in the order of their
-checks, which is the order in which the decoders add a column's messages.
+of shift ``s ≥ 0``.  Two optional keys generalize it, as real standards
+need (DVB-S2 in its QC form):
+
+* ``extra``: further circulants ``[bi, bj, s]`` of a block pair that
+  ``base`` already gives one;
+* ``minus``: single absent edges ``[bi, bj, s, r]``: the edge at row
+  offset ``r`` of circulant ``(bi, bj, s)`` is not there.
+
+Each column's edges are listed in the order of their checks, which is the
+order in which the decoders add a column's messages.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import dataclasses
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 TABLES = Path(__file__).resolve().parent.parent / "codes"
@@ -51,21 +60,37 @@ def load_table(name: str) -> dict:
     return json.loads((TABLES / f"{name}.json").read_text())
 
 
+def circulants(table: dict) -> tuple:
+    """(the circulants ``(bi, bj, s)``: ``base``'s row by row, then
+    ``extra``'s in their order; the absent edges ``(bi, bj, s, r)``) of a
+    table, shifts taken mod z."""
+    z, base = table["z"], table["base"]
+    edges = [(bi, bj, s % z) for bi, row in enumerate(base)
+             for bj, s in enumerate(row) if s >= 0]
+    edges += [(bi, bj, s % z) for bi, bj, s in table.get("extra", [])]
+    minus = [(bi, bj, s % z, r % z)
+             for bi, bj, s, r in table.get("minus", [])]
+    return edges, minus
+
+
 def graph(table: dict) -> Graph:
     """The :class:`Graph` of a QC table (full rank assumed: k = n − m)."""
     z, base = table["z"], table["base"]
     mb, nb = len(base), len(base[0])
-    edges = []  # (column, check)
-    for bi in range(mb):
-        for bj in range(nb):
-            s = base[bi][bj]
-            if s >= 0:
-                edges += [(bj * z + (r + s) % z, bi * z + r)
-                          for r in range(z)]
-    edges.sort()  # by column, then by check
-    n, m, e = nb * z, mb * z, len(edges)
-    col = torch.tensor([c for c, _ in edges] + [n])
-    chk = torch.tensor([h for _, h in edges] + [m])
+    n, m = nb * z, mb * z
+    edges, minus = circulants(table)
+    r = np.arange(z)
+    col = np.concatenate([bj * z + (r + s) % z for _, bj, s in edges])
+    chk = np.concatenate([bi * z + r for bi, _, _ in edges])
+    if minus:
+        gone = [(bi * z + at) * n + bj * z + (at + s) % z
+                for bi, bj, s, at in minus]
+        keep = ~np.isin(chk * n + col, gone)
+        col, chk = col[keep], chk[keep]
+    order = np.lexsort((chk, col))  # by column, then by check
+    e = len(order)
+    col = torch.from_numpy(np.append(col[order], n).astype(np.int64))
+    chk = torch.from_numpy(np.append(chk[order], m).astype(np.int64))
     col_edges = _rows(col[:-1], n, e)
     check_edges = _rows(chk[:-1], m, e)
     return Graph(n=n, m=m, e=e, check_edges=check_edges,
