@@ -238,7 +238,9 @@ def run_flooding_soft(
     out or at T; only the int8 decision carry is masked (a satisfied
     frame's messages may keep evolving — its latched decision is what the
     decoder returns), and ``iterations`` counts the update rounds each frame
-    used.  The host reads the all-done flag once per iteration.
+    used.  The host reads the all-done flag once per iteration; each
+    executed round's decision merge runs under the span
+    ``ldpc.decode.et_merge``.
 
     Returns (d int32 in total's layout, iterations [B] int32, done [B] bool).
 
@@ -266,9 +268,10 @@ def run_flooding_soft(
     t = 0
     while t < num_iterations and not all_done(done):
         msgs, total = step(msgs)
-        act = ~done
-        d = torch.where(act, _decide(total, torch.int8), d)
-        iters = torch.where(act, t + 1, iters)
+        with spans.span(spans.ET_MERGE):
+            act = ~done
+            d = torch.where(act, _decide(total, torch.int8), d)
+            iters = torch.where(act, t + 1, iters)
         done = done | satisfied_of(d)
         t += 1
     return d.to(torch.int32), iters, done

@@ -7,7 +7,9 @@ termination open the check span once per executed update round (the
 layered decoder once per layer: Mb a round), each inside the batch's
 ``ldpc.decode``; ``decode_bp_qc`` opens the VN span once a round too,
 after the round's check update and apart from it, and a min-sum decode
-opens neither; with no profiler the span is the
+opens neither; the flooding three open the decision merge's span,
+``ldpc.decode.et_merge``, once per executed round too, and the layered one,
+with its own loop, none; with no profiler the span is the
 shared null context and ``record_function`` is never reached; the
 statistics of a BP ``simulate`` do not depend on a profiler; the names are
 in ``SPANS``, under ``ldpc.decode.``.
@@ -46,6 +48,9 @@ CODE = load_named_code("peg_96_48")
 STRAT = stratify(code_to_alist(CODE))
 QC = qc_peg(12, 6, 3, z=8, seed=1)
 KINDS = ["qc", "slots", "stratified", "layered"]
+#: decision merges a round: ``run_flooding_soft``'s one, none in the layered
+#: decoder's own loop
+MERGES = {"qc": 1, "slots": 1, "stratified": 1, "layered": 0}
 SNR = 3.5  # batches stop after different numbers of rounds; some frames fail
 T = 6
 
@@ -102,6 +107,10 @@ def test_one_check_span_per_round_inside_the_decode(kind):
     # a check update holds no other span: the exit checks lie between them
     for c in checks:
         assert inside(c, got) == []
+    assert [sum(s[0] == spans.ET_MERGE for s in inside(d, got))
+            for d in decodes] == [MERGES[kind] * r for r in rounds]
+    for m in (s for s in got if s[0] == spans.ET_MERGE):
+        assert inside(m, got) == []
     assert stats.total_words == 48
 
 
@@ -121,6 +130,7 @@ def test_stats_do_not_depend_on_the_profiler(kind):
     plain = _simulate(kind)
     with_prof, got, _ = traced(lambda: _simulate(kind))
     assert any(s[0] == spans.BP_CHECK for s in got)
+    assert any(s[0] == spans.ET_MERGE for s in got) == bool(MERGES[kind])
     for f in dataclasses.fields(plain):
         if f.name == "wall_seconds":
             continue

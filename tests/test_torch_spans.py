@@ -3,6 +3,8 @@
 Under a CPU ``torch.profiler``: ``simulate`` opens one ``ldpc.batch`` a
 batch holding its five phases, disjoint, on the calling thread; SM-NGDBF
 reads its all-done flag every 4 steps and a fixed-T flooding decode never;
+a flooding decode with early termination merges each executed round's
+decisions under ``ldpc.decode.et_merge``, after the round's exit check;
 the grid opens one round a round, its slots (each with one decode), the
 all-reduce, the host copy and the tally.  With no profiler, a span is the
 shared null context and ``record_function`` is never reached; the
@@ -22,7 +24,8 @@ from ldpcsimulation_tpu_torch import spans
 from ldpcsimulation_tpu_torch.channel import snr_to_sigma
 from ldpcsimulation_tpu_torch.channel.awgn import awgn_all_zero
 from ldpcsimulation_tpu_torch.codes import load_named_code
-from ldpcsimulation_tpu_torch.decoders import decode_minsum
+from ldpcsimulation_tpu_torch.codes.qc import qc_peg
+from ldpcsimulation_tpu_torch.decoders import decode_minsum, decode_minsum_qc
 from ldpcsimulation_tpu_torch.decoders.base import NoiseKey
 from ldpcsimulation_tpu_torch.decoders.gdbf import (
     DONE_CHECK_EVERY,
@@ -35,6 +38,7 @@ from ldpcsimulation_tpu_torch.parallel.montecarlo import simulate_grid
 from tests.torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 CODE = load_named_code("peg_96_48")
+QC = qc_peg(12, 6, 3, z=8, seed=1)
 PACKAGE = Path(spans.__file__).resolve().parent
 CALL = "test.call"  # the test's own range around the traced call
 PHASES = (spans.CHANNEL, spans.DECODE, spans.COUNT, spans.TO_HOST,
@@ -49,6 +53,18 @@ def _smngdbf(sigma, T=10):
     cfg = preset("SMNGDBF", num_iterations=T, theta=-0.9,
                  noise_scale=0.975, lam=0.988, alpha=0.75)
     return lambda y, key: decode_gdbf(CODE, y, sigma, cfg, key=key)
+
+
+def _minsum_qc_et(rounds):
+    """QC min-sum T=6 with early termination and f16 messages; each
+    decode's executed rounds (its largest count) go to ``rounds``."""
+    def decode(y, key):
+        res = decode_minsum_qc(QC, y, 6, early_termination=True,
+                               storage_dtype=torch.float16)
+        rounds.append(int(res.iterations.max()))
+        return res
+
+    return decode
 
 
 def traced(fn):
@@ -108,11 +124,12 @@ def test_exit_checks():
     assert len(checks) == math.ceil(total_steps / DONE_CHECK_EVERY)
     _, got, _ = traced(lambda: decode_minsum(CODE, y, T))
     assert got == []
-    # the flooding driver with early termination reads it once a round
+    # the flooding driver with early termination reads it once a round,
+    # each round's decision merge after it
     res, got, _ = traced(lambda: decode_minsum(CODE, y, T,
                                                early_termination=True))
     assert not res.satisfied.any()
-    assert [s[0] for s in got] == [spans.EXIT_CHECK] * T
+    assert [s[0] for s in got] == [spans.EXIT_CHECK, spans.ET_MERGE] * T
 
 
 def test_grid_spans_each_round():
@@ -155,16 +172,20 @@ def test_no_profiler_no_record_function(monkeypatch):
         spans.span(spans.BATCH)
 
 
-@pytest.mark.parametrize("family", ["minsum", "smngdbf"])
+@pytest.mark.parametrize("family", ["minsum", "smngdbf", "minsum_qc_et"])
 def test_stats_do_not_depend_on_the_profiler(family):
     sigma = snr_to_sigma(2.5, CODE.rate)
-    dec = _minsum if family == "minsum" else _smngdbf(sigma)
+    rounds = []
+    code = QC.to_code("cpu") if family == "minsum_qc_et" else CODE
+    dec = {"minsum": _minsum, "smngdbf": _smngdbf(sigma),
+           "minsum_qc_et": _minsum_qc_et(rounds)}[family]
 
     def run():
-        return simulate(CODE, dec, 2.5, stop=StopRule.fixed_frames(48),
+        return simulate(code, dec, 2.5, stop=StopRule.fixed_frames(48),
                         batch_size=16, seed=11, device="cpu")
 
     plain = run()
+    rounds.clear()
     with_prof, got, _ = traced(run)
     assert got
     for f in dataclasses.fields(plain):
@@ -181,6 +202,12 @@ def test_stats_do_not_depend_on_the_profiler(family):
             assert a == b, f.name
     if family == "smngdbf":
         assert "phase_hist" in plain.extra
+    # one decision merge per executed round, inside the batch's decode
+    decodes = [s for s in got if s[0] == spans.DECODE]
+    merges = [sum(s[0] == spans.ET_MERGE for s in inside(d, got))
+              for d in decodes]
+    assert merges == (rounds if family == "minsum_qc_et" else [0, 0, 0])
+    assert all(rounds)
 
 
 def _span_arguments():
