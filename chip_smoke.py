@@ -355,7 +355,18 @@ the exit code is non-zero):
      sleep kernel, its twin's and the memory bound; then a T=20
      early-terminating ``decode_bp_qc`` (f16, B=32768) with B9 launched
      once a round and the twin never, its results equal to the same
-     decode with the twin in the kernel's place.
+     decode with the twin in the kernel's place;
+ 48. kernel B10 (the early-termination decision merge, in place) against
+     its twin bit for bit, synchronized after each launch, on the
+     DVB-S2 posterior ([64800, 8192] f32), qc_1008_504's ([1008, 32768]
+     f32, f16 and bf16) and an odd batch ([1008, 32771] f32, the 1-lane
+     instance), each holding ±0.0, NaN and ±inf with half the frames done;
+     each form's time per launch, its least time by the byte count of
+     ``et_merge_roofline_pct`` and its twin's time; then one decode of
+     each early-terminating cell's configuration (DVB-S2 min-sum T=50 at
+     1.6 dB, B=8192; BP T=20 at 2.0 dB, B=32768; f16 messages) with B10
+     launched once per executed round, by its wide instance, and the twin
+     never, the results equal to the same decode on the twin.
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -6892,6 +6903,165 @@ def phase_b9(device, timer):
                 max_abs_err=0.0)
 
 
+def b10_posterior(gen, rows, batch, dtype, device):
+    """A posterior [rows, B] in ``dtype`` with the decision's hazards:
+    1 % +0.0, 1 % -0.0, 0.1 % NaN, 0.1 % +inf and 0.1 % -inf."""
+    total = 4.0 * torch.randn(rows, batch, generator=gen, device=device)
+    u = torch.rand(rows, batch, generator=gen, device=device)
+    for lo, hi, v in ((0.0, 0.01, 0.0), (0.01, 0.02, -0.0),
+                      (0.02, 0.021, float("nan")),
+                      (0.021, 0.022, float("inf")),
+                      (0.022, 0.023, -float("inf"))):
+        total.masked_fill_((u >= lo) & (u < hi), v)
+    del u
+    return total.to(dtype)
+
+
+def b10_bytes(rows, batch, arith) -> int:
+    """``et_merge_roofline_pct``'s least bytes of one merge: the posterior
+    read, the decisions written, done read and the counts written."""
+    return batch * (rows * (arith + 1) + 5)
+
+
+def phase_et_merge(device, timer):
+    """Kernel B10 (the early-termination decision merge) against its twin
+    on the card, bit for bit, in every form, synchronized after each
+    launch, with each form's time per launch, least time and twin's time;
+    then one decode of each early-terminating cell's configuration with
+    B10 once per executed round by its wide instance and the twin never,
+    equal to the same decode on the twin."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        llr_from_channel,
+        snr_to_n0,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import base, bp_qc, minsum_qc
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels import merge as kmerge
+
+    gen = torch.Generator(device=device).manual_seed(48)
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    forms = {}
+    for name, rows, batch, dtype, want_path in (
+            (f"{DVBS2_CODE} B={DVBS2_BATCH}", 64800, DVBS2_BATCH, f32,
+             "wide"),
+            (f"{CODE} B={BATCH}", 1008, BATCH, f32, "wide"),
+            (f"{CODE} B={BATCH} f16", 1008, BATCH, f16, "wide"),
+            (f"{CODE} B={BATCH} bf16", 1008, BATCH, bf16, "wide"),
+            (f"odd batch {CODE} B={ODD_BATCH}", 1008, ODD_BATCH, f32,
+             "tail")):
+        total = b10_posterior(gen, rows, batch, dtype, device)
+        done = torch.rand(batch, generator=gen, device=device) < 0.5
+        d0 = torch.where(torch.rand(rows, batch, generator=gen,
+                                    device=device) < 0.5, 1, -1
+                         ).to(torch.int8)
+        it0 = torch.randint(0, 50, (batch,), generator=gen, device=device,
+                            dtype=torch.int32)
+        want_d, want_it = d0.clone(), it0.clone()
+        kmerge.et_merge_plain(total, done, want_d, want_it, 7)
+        torch.cuda.synchronize()
+        got_d, got_it = d0.clone(), it0.clone()
+        build.LAUNCHES.clear()
+        build.PATHS.clear()
+        kmerge.et_merge(total, done, got_d, got_it, 7)
+        torch.cuda.synchronize()
+        check(dict(build.LAUNCHES) == {"et_merge": 1}
+              and dict(build.PATHS) == {("et_merge", want_path): 1},
+              f"B10 {name}: launches {dict(build.LAUNCHES)}, instances "
+              f"{dict(build.PATHS)}")
+        check(torch.equal(got_d, want_d) and torch.equal(got_it, want_it),
+              f"B10 {name}: kernel != plain")
+        check(torch.equal(got_d[:, done], d0[:, done])
+              and torch.equal(got_it[done], it0[done]),
+              f"B10 {name}: a done lane changed")
+        ms = timer(lambda: kmerge.et_merge(total, done, got_d, got_it, 7),
+                   20)
+        torch.cuda.synchronize()
+        plain_ms = timer(lambda: kmerge.et_merge_plain(
+            total, done, want_d, want_it, 7), 2)
+        check(torch.equal(got_d, want_d), f"B10 {name}: repeated calls")
+        nbytes = b10_bytes(rows, batch, dtype.itemsize)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        forms[name] = dict(
+            shape=[rows, batch], dtype=str(dtype).split(".")[-1],
+            instance=want_path, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+            bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms)
+        print(f"  B10 {name} [{rows} x {batch}] "
+              f"{forms[name]['dtype']} ({want_path}): equal bit for bit; "
+              f"{ms:.4f} ms per launch, least {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB), share {bound_ms / ms:.1%}; "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        del total, done, d0, it0, want_d, want_it, got_d, got_it
+        torch.cuda.empty_cache()
+
+    # one decode of each early-terminating cell's configuration
+    dvb = load_named_qc(DVBS2_CODE)
+    qc = load_named_qc(CODE)
+    y6 = awgn_all_zero(SEED, 0, DVBS2_BATCH, dvb.n,
+                       snr_to_sigma(1.6, 0.5), device)
+    llr5 = llr_from_channel(awgn_all_zero(
+        SEED, 0, BATCH, qc.n, snr_to_sigma(2.0, 0.5), device),
+        snr_to_n0(2.0, 0.5))
+    cells = {
+        "dvbs2-et50-1.6dB": lambda: minsum_qc.decode_minsum_qc(
+            dvb, y6, 50, early_termination=True,
+            storage_dtype=torch.float16),
+        "bp-et20-2.0dB": lambda: bp_qc.decode_bp_qc(
+            qc, llr5, 20, early_termination=True,
+            storage_dtype=torch.float16),
+    }
+    decodes = {}
+    twin_calls = []
+    real_plain, real_merge = kmerge.et_merge_plain, base.et_merge
+
+    def counted_plain(*args):
+        twin_calls.append(1)
+        return real_plain(*args)
+
+    for cell, decode in cells.items():
+        decode()  # warm
+        torch.cuda.synchronize()
+        kmerge.et_merge_plain = counted_plain
+        try:
+            build.LAUNCHES.clear()
+            build.PATHS.clear()
+            t0 = time.perf_counter()
+            res = decode()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched, paths = dict(build.LAUNCHES), dict(build.PATHS)
+        finally:
+            kmerge.et_merge_plain = real_plain
+        rounds = int(res.iterations.max())
+        check(launched.get("et_merge") == rounds
+              and paths.get(("et_merge", "wide")) == rounds
+              and ("et_merge", "tail") not in paths and not twin_calls,
+              f"{cell}: launches {launched}, instances {paths} for {rounds}"
+              f" rounds, {len(twin_calls)} twin calls")
+        base.et_merge = real_plain
+        try:
+            ref = decode()
+        finally:
+            base.et_merge = real_merge
+        for f in ("hard", "iterations", "satisfied"):
+            check(torch.equal(getattr(res, f), getattr(ref, f)),
+                  f"{cell} {f}: B10 != twin")
+        decodes[cell] = dict(rounds=rounds, launches=launched,
+                             paths={"/".join(k): v for k, v in paths.items()},
+                             seconds=secs,
+                             satisfied=int(res.satisfied.sum()))
+        print(f"  {cell}: {rounds} rounds in {secs:.4f} s, launches "
+              f"{launched}, instances {paths}, the twin never called; "
+              f"equal to the decode on the twin "
+              f"({int(res.satisfied.sum())} of {res.satisfied.numel()} "
+              f"satisfied)", flush=True)
+        del res, ref
+        torch.cuda.empty_cache()
+    return dict(forms=forms, decodes=decodes, max_abs_err=0.0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7096,6 +7266,10 @@ def main() -> int:
     header("[47] B9 vs plain: the sum-product VN update in every form, and "
            "a T=20 decode")
     b9 = phase_b9(device, time_ms)
+    torch.cuda.empty_cache()
+    header("[48] B10 vs plain: the early-termination decision merge in "
+           "every form, and one decode of each early-terminating cell")
+    b10 = phase_et_merge(device, time_ms)
 
     summary = {
         "card": card,
@@ -7488,7 +7662,25 @@ def main() -> int:
             "stream sweep [29]": stream_sweep.get("bp_vn_update", 0),
             "decode_bp_qc [47]": b9["decode"]["launches"]["bp_vn_update"]},
         "forms": b9["forms"]}
-    for row in (b6_row, b7_row, b8_row, b9_row):
+    # B10: no Pallas original (the XLA fusion of the JAX loop body's
+    # latch); its launches on the two early-terminating cells' decodes
+    b10_main = b10["forms"][f"{DVBS2_CODE} B={DVBS2_BATCH}"]
+    b10_row = {
+        "name": "et_merge", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/et_merge.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/base.py:293-295",
+        "pallas_original": None,
+        "launches": b10["decodes"]["dvbs2-et50-1.6dB"]["launches"][
+            "et_merge"],
+        "max_abs_err": b10["max_abs_err"], "ms": b10_main["ms"],
+        "plain_ms": b10_main["plain_ms"], "bound_ms": b10_main["bound_ms"],
+        "bound_by": b10_main["bound_by"], "share": b10_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            f"{cell} [48]": v["launches"]["et_merge"]
+            for cell, v in b10["decodes"].items()},
+        "forms": b10["forms"]}
+    for row in (b6_row, b7_row, b8_row, b9_row, b10_row):
         check(all(v >= 1 for v in row["launches_by_path"].values()),
               f"{row['name']} not launched on a path: "
               f"{row['launches_by_path']}")
@@ -7511,7 +7703,7 @@ def main() -> int:
          **({"ring_shapes": rings["shapes"]}
             if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
-    ] + [b5_row, b6_row, b7_row, b8_row, b9_row]}))
+    ] + [b5_row, b6_row, b7_row, b8_row, b9_row, b10_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

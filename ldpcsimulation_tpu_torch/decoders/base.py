@@ -19,6 +19,7 @@ import torch
 from .. import spans
 from ..kernels.bp import sgn_pos
 from ..kernels.check import parity_check
+from ..kernels.merge import et_merge
 from ..kernels.minsum import minsum_cn_scan, minsum_vn_update
 from .qc_ops import slot_graph, syndrome_bipolar
 
@@ -239,8 +240,9 @@ def run_flooding_soft(
     frame's messages may keep evolving — its latched decision is what the
     decoder returns), and ``iterations`` counts the update rounds each frame
     used.  The host reads the all-done flag once per iteration; each
-    executed round's decision merge runs under the span
-    ``ldpc.decode.et_merge``.
+    executed round's decision merge, kernel B10 (``kernels/merge.py::
+    et_merge``: the decisions and round counts latched in place), runs
+    under the span ``ldpc.decode.et_merge``.
 
     Returns (d int32 in total's layout, iterations [B] int32, done [B] bool).
 
@@ -269,9 +271,7 @@ def run_flooding_soft(
     while t < num_iterations and not all_done(done):
         msgs, total = step(msgs)
         with spans.span(spans.ET_MERGE):
-            act = ~done
-            d = torch.where(act, _decide(total, torch.int8), d)
-            iters = torch.where(act, t + 1, iters)
+            et_merge(total, done, d, iters, t + 1)
         done = done | satisfied_of(d)
         t += 1
     return d.to(torch.int32), iters, done

@@ -11,6 +11,9 @@
   * B9 :func:`.bp.bp_vn_update` — sum-product variable-node update: fold,
     posterior, extrinsic, ±max_llr clip and storage store in one pass, to
     a new plane (no Pallas original: the JAX QC BP step's XLA fusion);
+  * B10 :func:`.merge.et_merge` — the early-termination decision merge:
+    sign, latch and round count in one pass over a round's posterior, in
+    place (no Pallas original: the JAX loop body's XLA fusion);
   * B6 :func:`.check.parity_check` — the parity check of every decoder's
     early exit and the bit-flip decoders' bipolar syndrome, one integer
     pass (no Pallas original: the JAX checks' XLA fusions);
@@ -59,6 +62,7 @@ from .gdbf import (
     gdbf_parallel_step,
     gdbf_parallel_step_plain,
 )
+from .merge import et_merge, et_merge_plain
 from .minsum import (
     VARIANTS,
     minsum_cn_scan,
@@ -88,6 +92,8 @@ __all__ = [
     "minsum_vn_update_plain",
     "parity_check",
     "parity_check_plain",
+    "et_merge",
+    "et_merge_plain",
     "gdbf_parallel_step",
     "gdbf_parallel_step_plain",
     "gdbf_lanes_plain",

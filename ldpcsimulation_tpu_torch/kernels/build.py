@@ -12,9 +12,10 @@ Every C entry returns the ``cudaGetLastError()`` of its launch (0 when
 clean); :func:`check` raises on anything else.  ``LAUNCHES`` counts each
 kernel's launches, so a run can show that its main path went through them;
 ``PATHS`` counts the Philox kernels' launches by ``(name, "fast" | "tail")``,
-the instance their C entry chose (wide stores, or the scalar tail), and the
-bit-flip decoder's steps by ``("gdbf_step", "chunk" | "loop")``, the path
-that issued them (on every device: the CPU's chunks are plain twins).
+the instance their C entry chose (wide stores, or the scalar tail), the
+decision merge's by ``("et_merge", "wide" | "tail")``, and the bit-flip
+decoder's steps by ``("gdbf_step", "chunk" | "loop")``, the path that
+issued them (on every device: the CPU's chunks are plain twins).
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ __all__ = ["LAUNCHES", "PATHS", "BUILD_DIR", "build", "library", "check",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("awgn_philox.cu", "bp_cn_pair.cu", "bp_vn_update.cu",
-           "gdbf_chunk.cu", "gdbf_step.cu", "minsum_cn_scan.cu",
-           "minsum_vn_update.cu", "parity_check.cu", "uniform_philox.cu")
+           "et_merge.cu", "gdbf_chunk.cu", "gdbf_step.cu",
+           "minsum_cn_scan.cu", "minsum_vn_update.cu", "parity_check.cu",
+           "uniform_philox.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,7 +45,8 @@ NVCC_FLAGS = (
 
 #: launches per kernel name, counted by each wrapper where it launches
 LAUNCHES: collections.Counter = collections.Counter()
-#: launches per (kernel name, "fast" or "tail")
+#: launches per (kernel name, instance: "fast" or "tail"; B10 "wide" or
+#: "tail")
 PATHS: collections.Counter = collections.Counter()
 
 _LIB = None
@@ -152,6 +155,11 @@ def library() -> ctypes.CDLL:
             _P,
         ]
         lib.ldpc_parity_check.restype = ctypes.c_int
+        lib.ldpc_et_merge.argtypes = [
+            _P, ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ]
+        lib.ldpc_et_merge.restype = ctypes.c_int
         lib.ldpc_gdbf_parallel_step.argtypes = [
             _P, ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int, _P, _P, _P, ctypes.c_float, _P, _P, ctypes.c_float,
