@@ -188,7 +188,9 @@ def run_flooding(
     when every frame checks out or at T, only the decision carry is masked
     (a satisfied frame's state may keep evolving — its latched decision is
     what the decoder returns), and ``iterations`` counts the update rounds
-    each frame used.  The host reads the all-done flag once per iteration.
+    each frame used.  The host reads the all-done flag once per iteration;
+    each executed round's decisions and their latch (plain torch) run under
+    the span ``ldpc.decode.et_merge``.
 
     Returns (d, iterations [B] int32, satisfied [B] bool).
     """
@@ -208,9 +210,10 @@ def run_flooding(
     t = 0
     while t < num_iterations and not all_done(done):
         state = step(state)
-        act = ~done
-        d = torch.where(act, decide(state), d)
-        iters = torch.where(act, t + 1, iters)
+        with spans.span(spans.ET_MERGE):
+            act = ~done
+            d = torch.where(act, decide(state), d)
+            iters = torch.where(act, t + 1, iters)
         done = done | satisfied_of(d)
         t += 1
     return d, iters, done

@@ -21,7 +21,8 @@ Semantics (standard row-layered min-sum):
 The check update is kernel B1 (:func:`..kernels.minsum.minsum_cn_scan`):
 the step writes the layer's ``qext`` rows into an f32 buffer and B1 scans it
 through the layer's routing table (:class:`.minsum_qc.LayerPlan`), Mb
-launches per iteration.  The buffer is f32 whatever the storage type, so
+launches per iteration, each layer's work under the span
+``ldpc.decode.layer``.  The buffer is f32 whatever the storage type, so
 the variant post-op is an f32 operation here (the JAX layered scan runs in
 the posterior's type with weakly typed ``alpha``/``delta``), unlike the
 flooding decoder's storage-precision one; only ``L'`` is cast.
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..codes.qc import QCCode
 from ..kernels.minsum import VARIANTS, minsum_cn_scan
 from .base import DecodeResult, run_flooding, storage_cast
@@ -98,13 +100,15 @@ def qc_minsum_layered_step(qc: QCCode, variant: str = "plain",
         q = q.clone()
         L_new = []
         for lp, l_old in zip(plan.layers, L):
-            qv = q[lp.cols]
-            qext = qv - l_old.to(q.dtype)
-            out = minsum_cn_scan(qext, lp.scan_rows, variant, alpha, delta)
-            if lp.absent is not None:  # rows B1 does not write
-                out.index_fill_(0, lp.absent, 0.0)
-            layered_scatter(q, lp, qv, qext, out)
-            L_new.append(storage_cast(out, sdt))
+            with spans.span(spans.LAYER_STEP):
+                qv = q[lp.cols]
+                qext = qv - l_old.to(q.dtype)
+                out = minsum_cn_scan(qext, lp.scan_rows, variant, alpha,
+                                     delta)
+                if lp.absent is not None:  # rows B1 does not write
+                    out.index_fill_(0, lp.absent, 0.0)
+                layered_scatter(q, lp, qv, qext, out)
+                L_new.append(storage_cast(out, sdt))
         return (q, tuple(L_new)), q
 
     return step

@@ -41,11 +41,17 @@ BP_CHECK = "ldpc.decode.bp_check"
 #: one sum-product variable-node update of the flooding QC decoder (every
 #: column, every lane)
 BP_VN = "ldpc.decode.bp_vn"
-#: one round's decision merge of ``decoders/base.py::run_flooding_soft``
-#: with early termination: the posterior's signs, the latch of the
-#: decisions of frames not yet done and their round counts (every column,
-#: every lane); not the step, the parity check or the exit check
+#: one round's decision merge of the loops in ``decoders/base.py`` with
+#: early termination, ``run_flooding_soft`` (kernel B10) and
+#: ``run_flooding`` (the layered decoders, NB min-sum): the decisions, the
+#: latch of those of frames not yet done and their round counts (every
+#: column, every lane); not the step, the parity check or the exit check
 ET_MERGE = "ldpc.decode.et_merge"
+#: one layer of the row-layered min-sum step
+#: (``decoders/minsum_layered.py::qc_minsum_layered_step``): the posterior's
+#: gather, the extrinsic, the check update, the posterior's scatter and the
+#: messages' store (Mb a round; not the step's copy of the posterior)
+LAYER_STEP = "ldpc.decode.layer"
 #: one round of ``parallel.montecarlo.simulate_grid``, before its stop checks
 GRID_ROUND = "ldpc.grid.round"
 #: one slot of a grid step: its channel, decode and counters
@@ -59,7 +65,7 @@ GRID_TALLY = "ldpc.grid.tally"
 
 SPANS = (BATCH, CHANNEL, DECODE, COUNT, TO_HOST, TALLY, EXIT_CHECK,
          GRID_ROUND, GRID_SLOT, GRID_ALLREDUCE, GRID_TO_HOST, GRID_TALLY,
-         BP_CHECK, BP_VN, ET_MERGE)
+         BP_CHECK, BP_VN, ET_MERGE, LAYER_STEP)
 
 _NULL = contextlib.nullcontext()
 

@@ -7,9 +7,9 @@ termination open the check span once per executed update round (the
 layered decoder once per layer: Mb a round), each inside the batch's
 ``ldpc.decode``; ``decode_bp_qc`` opens the VN span once a round too,
 after the round's check update and apart from it, and a min-sum decode
-opens neither; the flooding three open the decision merge's span,
-``ldpc.decode.et_merge``, once per executed round too, and the layered one,
-with its own loop, none; with no profiler the span is the
+opens neither; all four open the decision merge's span,
+``ldpc.decode.et_merge``, once per executed round too (the layered one in
+``run_flooding``'s loop); with no profiler the span is the
 shared null context and ``record_function`` is never reached; the
 statistics of a BP ``simulate`` do not depend on a profiler; the names are
 in ``SPANS``, under ``ldpc.decode.``.
@@ -48,9 +48,9 @@ CODE = load_named_code("peg_96_48")
 STRAT = stratify(code_to_alist(CODE))
 QC = qc_peg(12, 6, 3, z=8, seed=1)
 KINDS = ["qc", "slots", "stratified", "layered"]
-#: decision merges a round: ``run_flooding_soft``'s one, none in the layered
-#: decoder's own loop
-MERGES = {"qc": 1, "slots": 1, "stratified": 1, "layered": 0}
+#: decision merges a round: ``run_flooding_soft``'s one, and the layered
+#: decoder's in ``run_flooding``'s loop
+MERGES = {"qc": 1, "slots": 1, "stratified": 1, "layered": 1}
 SNR = 3.5  # batches stop after different numbers of rounds; some frames fail
 T = 6
 
