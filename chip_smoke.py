@@ -99,8 +99,9 @@ the exit code is non-zero):
      plain path under ``torch.equal`` on hard decisions, iterations and
      flags: layered min-sum on qc_1008_504 (plain, f16; 256 frames),
      wifi_1944_972 (normalized; 256) and dvbs2_1_2_qc (offset, on
-     ``quantize_no_zero`` samples; 32), with B1 counted Mb times per executed
-     iteration and never its twin; DD-BMP on qc_1008_504 (QC form; 256) and
+     ``quantize_no_zero`` samples; 32), with B11 counted once per pair-free
+     layer and B1 once per pair layer of each executed iteration, and never
+     their twins; DD-BMP on qc_1008_504 (QC form; 256) and
      reg4_4000_2000 (generic, T=100; 64);
  19. sum-product BP on the card against the CPU plain path, by tolerance
      (CUDA's ``exp``/``log`` differ from the CPU's by ulps): one check update
@@ -126,7 +127,7 @@ the exit code is non-zero):
      ``decode_bp_qc`` on qc_1008_504 at 2.0 dB, T=20, early termination, f16;
      (c) ``decode_minsum_layered_qc`` on wifi_1944_972 at 2.0 dB, T=10, early
      termination, with flooding min-sum beside it (both BERs and average
-     iterations), B1 launched Mb per executed iteration; (d) ``decode_ddbmp``
+     iterations), B11 launched Mb per executed iteration; (d) ``decode_ddbmp``
      on reg4_4000_2000 at 3.9 dB, Ymax 1.6, 8 levels, T=100; decoded info
      bits/s, ms per iteration, peak memory and a breakdown for each;
  22. the sweep CLI's ``bp``, ``bp --schedule layered``, ``minsum --schedule
@@ -366,7 +367,22 @@ the exit code is non-zero):
      each early-terminating cell's configuration (DVB-S2 min-sum T=50 at
      1.6 dB, B=8192; BP T=20 at 2.0 dB, B=32768; f16 messages) with B10
      launched once per executed round, by its wide instance, and the twin
-     never, the results equal to the same decode on the twin.
+     never, the results equal to the same decode on the twin;
+ 49. kernel B11 (one layer of row-layered min-sum: the posterior in place,
+     new messages) against its twin bit for bit (int views: signed zeros,
+     NaN, ±inf, the f16 clamp), layer by layer, synchronized after each
+     launch: wifi_1944_972 at B=32768 (f16 and f32 storage; normalized
+     α=1.25, offset δ=0.15, plain), an odd batch (B=32771, the 1-lane
+     instance), dvbs2_1_2_qc's pair-free layers (an absent edge among them;
+     B=8192) and a qc_peg base of dc_max 10 and two-row bases of dc_max 24
+     and 48 (the 16-, 32- and 64-slot caps); each form's time per launch
+     of its first layer, its least time by the byte count of
+     ``layer_step_roofline_pct`` and its twin's time; then the layered
+     cell's decode (B=32768, normalized α=1.25, T=30 with early
+     termination, f16 messages, 2.2 dB quantized to 8 levels) with B11
+     launched Mb times per executed round by its 4-lane instance and B1
+     never, its results equal to the decode on the step from before B11
+     (``tests/frozen_layered.py``).
 
 The last three lines are the card, one JSON object describing the kernels
 (each with the launches of the path that runs it and its bounds) and one
@@ -1826,10 +1842,11 @@ def equal_results(res, ref, what):
 
 def phase_layered_ddbmp_card_vs_cpu(device):
     """Layered min-sum and DD-BMP on the card against the CPU plain path,
-    bit for bit, on the card's channel samples; layered min-sum launches B1
-    once per layer and executed iteration.  The two cases whose CPU side is
+    bit for bit, on the card's channel samples; layered min-sum launches
+    B11 once per pair-free layer and executed iteration, and B1 once per
+    pair layer (DVB-S2's tied blocks).  The two cases whose CPU side is
     slow run fewer frames (dvbs2_1_2_qc 32, reg4_4000_2000 at T=100 64), the
-    others 256.  Returns B1's counted launches per layered decode."""
+    others 256.  Returns the counted launches per layered decode."""
     from ldpcsimulation_tpu_torch.channel import (
         awgn_all_zero,
         quantize_no_zero,
@@ -1840,6 +1857,7 @@ def phase_layered_ddbmp_card_vs_cpu(device):
         decode_ddbmp,
         decode_ddbmp_qc,
         decode_minsum_layered_qc,
+        qc_plan,
     )
     from ldpcsimulation_tpu_torch.kernels import build
 
@@ -1863,24 +1881,30 @@ def phase_layered_ddbmp_card_vs_cpu(device):
         res = decode_minsum_layered_qc(qc, y, T, **kw)
         launched = dict(build.LAUNCHES)
         ref = decode_minsum_layered_qc(qc, y.cpu(), T, **kw)
-        check(dict(build.LAUNCHES) == launched, "the CPU decode launched B1")
+        check(dict(build.LAUNCHES) == launched, "the CPU decode launched")
         equal_results(res, ref, f"layered min-sum {name} {kw}")
         rounds = int(res.iterations.max())
         et = " ET" if kw.get("early_termination") else ""
-        # B6: once at the end, or (ET) once before and after every round
+        # B6: once at the end, or (ET) once before and after every round;
+        # B11 a pair-free layer, B1 a pair layer
         checks = 1 + (rounds if et else 0)
-        check(launched == {"minsum_cn_scan": qc.mb * rounds,
-                           "parity_check": checks},
-              f"layered {name}: launches {launched}, {qc.mb} layers x "
-              f"{rounds} iterations, {checks} checks")
-        counted[f"{name}{et}, one decode of {frames} frames"] = launched[
-            "minsum_cn_scan"]
+        pairs = sum(lp.pair_first is not None
+                    for lp in qc_plan(qc, device).layers)
+        want = {"minsum_layer_step": (qc.mb - pairs) * rounds,
+                "parity_check": checks}
+        if pairs:
+            want["minsum_cn_scan"] = pairs * rounds
+        check(launched == want,
+              f"layered {name}: launches {launched}, {qc.mb} layers "
+              f"({pairs} with a pair) x {rounds} iterations, {checks} checks")
+        counted[f"{name}{et}, one decode of {frames} frames"] = launched
         checks_seen[f"{name}{et}, one decode of {frames} frames"] = checks
         print(f"  layered min-sum {name} {kw}: card == CPU for {frames} "
               f"frames, T={T}; satisfied "
               f"{float(res.satisfied.float().mean()):.3g}, mean iterations "
-              f"{float(res.iterations.float().mean()):.3g}; B1 launches "
-              f"{qc.mb * rounds} = {qc.mb} layers x {rounds}, B6 {checks}")
+              f"{float(res.iterations.float().mean()):.3g}; B11 launches "
+              f"{(qc.mb - pairs) * rounds}, B1 {pairs * rounds} = "
+              f"{qc.mb - pairs} and {pairs} layers x {rounds}, B6 {checks}")
     for name, is_qc, frames, snr, ymax, t_max in (
             (CODE, True, 256, 3.5, 1.5, 50),
             (REG4_CODE, False, 64, 3.9, 1.6, 100)):
@@ -2285,7 +2309,7 @@ def phase_new_paths(device, timer):
     lay = out["minsum_layered_wifi"]
     # B6: before the first round and after every round of each batch
     check(lay["launches"] == {
-        "minsum_cn_scan": wifi.mb * sum(lay["rounds"]), "awgn_philox": 4,
+        "minsum_layer_step": wifi.mb * sum(lay["rounds"]), "awgn_philox": 4,
         "parity_check": sum(lay["rounds"]) + len(lay["rounds"])},
         f"layered path launches {lay['launches']}, rounds {lay['rounds']}")
     out["minsum_flooding_wifi"] = gated_simulate(
@@ -2335,19 +2359,21 @@ def phase_new_sweep(device, batch):
               str(device)]
     # per route, the launches besides B2 and B6 as a function of B6's
     # (the BP decoders check once before their first round and after each:
-    # B8 once a round, the layered decoder once a layer)
+    # B8 once a round, and the QC decoder's B9 and B10 merge too; the
+    # layered decoders once a layer: BP on B8, min-sum on B11)
     mb = load_named_qc(WIFI_CODE).mb
     runs = (
         (["bp", "--code", CODE, "--snr", "2.0", "-T", "20",
           "--early-termination", "--msg-dtype", "f16"], 6, "20", CODE,
          lambda checks: {"bp_cn_pair": checks - 1,
-                         "bp_vn_update": checks - 1}),
+                         "bp_vn_update": checks - 1,
+                         "et_merge": checks - 1}),
         (["bp", "--code", WIFI_CODE, "--schedule", "layered", "--snr", "2.0",
           "-T", "10", "--early-termination"], 6, "10", WIFI_CODE,
          lambda checks: {"bp_cn_pair": mb * (checks - 1)}),
         (["minsum", "--code", WIFI_CODE, "--schedule", "layered", "--snr",
           "2.0", "-T", "10", "--msg-dtype", "f16"], 6, "10", WIFI_CODE,
-         lambda checks: {"minsum_cn_scan": mb * 10}),
+         lambda checks: {"minsum_layer_step": mb * 10}),
         (["ddbmp", "--code", REG4_CODE, "--snr", "3.9", "-T", "100",
           "--ymax", "1.6", "--nq", "8"], 7, "100", REG4_CODE,
          lambda checks: {}),
@@ -7062,6 +7088,196 @@ def phase_et_merge(device, timer):
     return dict(forms=forms, decodes=decodes, max_abs_err=0.0)
 
 
+def b11_state(gen, plan, n, batch, sdt, device):
+    """A posterior [N, B] f32 and the layers' stored messages in ``sdt``
+    with the step's hazards: 1 % +0.0, 1 % -0.0, 0.1 % NaN, 0.1 % +-inf,
+    0.5 % +-1e5 (outputs past f16's range); +0.0 in absent rows."""
+    def hazards(rows, scale):
+        x = scale * torch.randn(rows, batch, generator=gen, device=device)
+        u = torch.rand(rows, batch, generator=gen, device=device)
+        for lo, hi, v in ((0.0, 0.01, 0.0), (0.01, 0.02, -0.0),
+                          (0.02, 0.021, float("nan")),
+                          (0.021, 0.022, float("inf")),
+                          (0.022, 0.023, -float("inf")),
+                          (0.023, 0.0255, 1e5), (0.0255, 0.028, -1e5)):
+            x.masked_fill_((u >= lo) & (u < hi), v)
+        return x
+
+    q = hazards(n, 6.0)
+    L = []
+    for lp in plan.layers:
+        m = hazards(lp.dc * plan.z, 3.0)
+        if lp.absent is not None:
+            m.index_fill_(0, lp.absent, 0.0)
+        L.append(m.to(sdt))
+    return q, L
+
+
+def b11_bytes(lp, batch, storage) -> int:
+    """``layer_step_roofline_pct``'s least bytes of one layer: its distinct
+    columns read and written in f32, its messages read and written in the
+    storage type."""
+    cols = int(lp.slot_cols[lp.slot_cols >= 0].unique().numel())
+    edges = int((lp.slot_cols >= 0).sum())
+    return batch * (cols * 2 * 4 + edges * 2 * storage)
+
+
+def b11_forms():
+    """(name, QC code, batch, [(storage, variant, kw)], expected (cap,
+    lanes)) of B11's forms: the cell's code in both storage types and the
+    two post-ops, an odd batch (the 1-lane instance), DVB-S2's pair-free
+    layers (an absent edge among them) and the 16-, 32- and 64-slot caps."""
+    from ldpcsimulation_tpu_torch.codes import load_named_qc, qc_peg
+
+    f16, f32 = torch.float16, torch.float32
+    norm = ("normalized", dict(alpha=1.25))
+    off = ("offset", dict(delta=0.15))
+    wifi = load_named_qc(WIFI_CODE)
+    return (
+        (WIFI_CODE, wifi, BATCH, [(f16, *norm), (f32, *norm), (f16, *off),
+                                  (f32, *off), (f16, "plain", {})], (8, 4)),
+        (f"odd batch {WIFI_CODE}", wifi, ODD_BATCH, [(f16, *norm),
+                                                     (f32, *off)], (8, 1)),
+        (f"generalized {DVBS2_CODE}", load_named_qc(DVBS2_CODE),
+         DVBS2_BATCH, [(f16, *off)], (8, 4)),
+        ("qc_peg(20, 6, 3, z=16), dc_max 10", qc_peg(20, 6, 3, z=16, seed=1),
+         BATCH, [(f16, *norm)], (16, 2)),
+        ("2 x 24 base, z=32, dc_max 24", b8_wide_qc(24, 32, 24), BATCH,
+         [(f16, *norm)], (32, 1)),
+        ("2 x 48 base, z=32, dc_max 48", b8_wide_qc(48, 32, 48), BATCH,
+         [(f16, *norm), (f32, *off)], (64, 1)),
+    )
+
+
+def phase_b11(device, timer):
+    """Kernel B11 (one layer of row-layered min-sum) against its twin on
+    the card, bit for bit (int views: signed zeros, NaN, the f16 clamp),
+    in every form of :func:`b11_forms`, layer by layer, the posterior
+    updated in place and the new messages, synchronized after each launch;
+    each form's time per launch of its first layer beside the least time
+    and the twin's; then the cell wifi-layered-et30-2.2dB's decode (B=32768,
+    normalized 1.25, T=30 with early termination, f16 messages, quantized
+    2.2 dB samples) with B11 Mb times per executed round and B1 never,
+    equal to the decode on the step from before B11
+    (``tests/frozen_layered.py``)."""
+    from ldpcsimulation_tpu_torch.channel import (
+        awgn_all_zero,
+        quantize_no_zero,
+        snr_to_sigma,
+    )
+    from ldpcsimulation_tpu_torch.codes import load_named_qc
+    from ldpcsimulation_tpu_torch.decoders import minsum_layered, qc_plan
+    from ldpcsimulation_tpu_torch.kernels import build
+    from ldpcsimulation_tpu_torch.kernels import layered as klayered
+    from tests import frozen_layered
+
+    gen = torch.Generator(device=device).manual_seed(49)
+    forms = {}
+    for name, qc, batch, runs, want_inst in b11_forms():
+        plan = qc_plan(qc, device)
+        singles = [i for i, lp in enumerate(plan.layers)
+                   if lp.pair_first is None]
+        for sdt, variant, kw in runs:
+            q, L = b11_state(gen, plan, qc.n, batch, sdt, device)
+            build.LAUNCHES.clear()
+            build.PATHS.clear()
+            for i in singles:
+                lp, l_old = plan.layers[i], L[i]
+                q_want = q.clone()
+                want = klayered.minsum_layer_step_plain(
+                    q_want, l_old, lp, variant, sdt=sdt, **kw)
+                torch.cuda.synchronize()
+                got = klayered.minsum_layer_step(q, l_old, lp, variant,
+                                                 sdt=sdt, **kw)
+                torch.cuda.synchronize()
+                label = (f"B11 {name} {variant} {str(sdt).split('.')[-1]} "
+                         f"layer {i}")
+                check(same_bits(got, want), f"{label}: messages != twin")
+                check(same_bits(q, q_want), f"{label}: posterior != twin")
+                del q_want, want, got
+            lanes = want_inst[1]
+            check(dict(build.LAUNCHES) == {"minsum_layer_step": len(singles)}
+                  and dict(build.PATHS) == {("minsum_layer_step", lanes):
+                                            len(singles)},
+                  f"B11 {name}: launches {dict(build.LAUNCHES)}, instances "
+                  f"{dict(build.PATHS)}, {len(singles)} pair-free layers")
+            check(klayered.layer_instance(
+                plan.layers[singles[0]].dc, q, L[singles[0]],
+                L[singles[0]]) == want_inst, f"B11 {name}: instance")
+            lp, l_old = plan.layers[singles[0]], L[singles[0]]
+            ms = timer(lambda: klayered.minsum_layer_step(
+                q, l_old, lp, variant, sdt=sdt, **kw), 20)
+            plain_ms = timer(lambda: klayered.minsum_layer_step_plain(
+                q, l_old, lp, variant, sdt=sdt, **kw), 2)
+            nbytes = b11_bytes(lp, batch, sdt.itemsize)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            key = f"{name} B={batch} {variant} {str(sdt).split('.')[-1]}"
+            forms[key] = dict(
+                layers=len(singles), pair_layers=qc.mb - len(singles),
+                dc=lp.dc, cap=want_inst[0], lanes=lanes, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                bound_by="bytes", share=bound_ms / ms)
+            print(f"  B11 {key}: {len(singles)} pair-free layers equal bit "
+                  f"for bit (cap {want_inst[0]}, {lanes} lanes); layer "
+                  f"{singles[0]} (dc {lp.dc}) {ms:.4f} ms per launch, least "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), share "
+                  f"{bound_ms / ms:.1%}; twin {plain_ms:.4f} ms", flush=True)
+            del q, L
+            torch.cuda.empty_cache()
+
+    # the cell's decode: B11 Mb times a round, B1 never, equal to the
+    # decode on the step from before B11
+    wifi = load_named_qc(WIFI_CODE)
+    y = quantize_no_zero(awgn_all_zero(
+        SEED, 0, BATCH, wifi.n, snr_to_sigma(2.2, 0.5), device), 2.0, 8.0)
+
+    def decode():
+        return minsum_layered.decode_minsum_layered_qc(
+            wifi, y, 30, variant="normalized", alpha=1.25,
+            early_termination=True, storage_dtype=torch.float16)
+
+    decode()  # warm
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    build.PATHS.clear()
+    t0 = time.perf_counter()
+    res = decode()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched, paths = dict(build.LAUNCHES), dict(build.PATHS)
+    rounds = int(res.iterations.max())
+    check(launched.get("minsum_layer_step") == wifi.mb * rounds
+          and "minsum_cn_scan" not in launched
+          and paths.get(("minsum_layer_step", 4)) == wifi.mb * rounds,
+          f"the cell's decode: launches {launched}, instances {paths} for "
+          f"{rounds} rounds of {wifi.mb} layers")
+    real = minsum_layered.qc_minsum_layered_step
+    minsum_layered.qc_minsum_layered_step = (
+        frozen_layered.qc_minsum_layered_step)
+    try:
+        decode()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = decode()
+        torch.cuda.synchronize()
+        frozen_secs = time.perf_counter() - t0
+    finally:
+        minsum_layered.qc_minsum_layered_step = real
+    for f in ("hard", "iterations", "satisfied"):
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"the cell's decode {f}: B11 != the step before it")
+    print(f"  wifi-layered-et30-2.2dB's decode (B={BATCH}): {rounds} rounds "
+          f"in {secs:.4f} s (the step before B11: {frozen_secs:.4f} s), "
+          f"launches {launched}, instances {paths}; equal to the decode on "
+          f"the step before B11 ({int(res.satisfied.sum())} of {BATCH} "
+          f"satisfied)", flush=True)
+    return dict(forms=forms, decode=dict(
+        rounds=rounds, launches=launched, seconds=secs,
+        frozen_seconds=frozen_secs,
+        paths={f"{k[0]}/{k[1]}": v for k, v in paths.items()}),
+        max_abs_err=0.0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7270,6 +7486,10 @@ def main() -> int:
     header("[48] B10 vs plain: the early-termination decision merge in "
            "every form, and one decode of each early-terminating cell")
     b10 = phase_et_merge(device, time_ms)
+    torch.cuda.empty_cache()
+    header("[49] B11 vs plain: the row-layered min-sum layer step in every "
+           "form, and the layered cell's decode")
+    b11 = phase_b11(device, time_ms)
 
     summary = {
         "card": card,
@@ -7360,10 +7580,10 @@ def main() -> int:
                              "slot-array [16]": p_launches["minsum_cn_scan"],
                              "dvbs2 [16]": d_launches["minsum_cn_scan"],
                              "sweep [17]": ms_launches["minsum_cn_scan"],
-                             "layered [21]": new_paths["minsum_layered_wifi"][
-                                 "launches"]["minsum_cn_scan"],
-                             **{f"layered [18] {k}": v
-                                for k, v in layered_counted.items()}},
+                             # the pair layers (DVB-S2); B11 takes the rest
+                             **{f"layered [18] {k}": v["minsum_cn_scan"]
+                                for k, v in layered_counted.items()
+                                if "minsum_cn_scan" in v}},
         "forms": forms, "layer_forms": layer_forms},
         # B4's launches on each bit-flip path of this run, and its draws at
         # the hardware-model paths' shapes
@@ -7420,9 +7640,8 @@ def main() -> int:
     # B1's and B4's launches on the stream paths [27]-[29]
     extra["minsum_cn_scan"]["launches_by_path"].update({
         **{f"stream card vs cpu [27] {k}": v.get("minsum_cn_scan", 0)
-           for k, v in stream_counted.items() if "minsum" in k},
-        "layered stream [28]": stream_paths["minsum_layered_wifi"][
-            "launches"]["minsum_cn_scan"],
+           for k, v in stream_counted.items()
+           if "minsum" in k and not k.startswith("minsum layered")},
         "stream sweep [29]": stream_sweep["minsum_cn_scan"]})
     # The per-lane instances of B3/B4 (uniform_philox.cu's entries for the
     # stream's lanes): the same TPU kernels, a key per lane.  B4's runs on
@@ -7680,7 +7899,33 @@ def main() -> int:
             f"{cell} [48]": v["launches"]["et_merge"]
             for cell, v in b10["decodes"].items()},
         "forms": b10["forms"]}
-    for row in (b6_row, b7_row, b8_row, b9_row, b10_row):
+    # B11: no Pallas original (the XLA fusion of the JAX layered step); its
+    # launches on the layered min-sum paths of this run
+    b11_main = b11["forms"][f"{WIFI_CODE} B={BATCH} normalized float16"]
+    b11_row = {
+        "name": "minsum_layer_step", "route": "cuda",
+        "source": "ldpcsimulation_tpu_torch/csrc/minsum_layer_step.cu",
+        "replaces": "ldpcsimulation_tpu/decoders/minsum_layered.py:96-175",
+        "pallas_original": None,
+        "launches": b11["decode"]["launches"]["minsum_layer_step"],
+        "max_abs_err": b11["max_abs_err"], "ms": b11_main["ms"],
+        "plain_ms": b11_main["plain_ms"], "bound_ms": b11_main["bound_ms"],
+        "bound_by": b11_main["bound_by"], "share": b11_main["share"],
+        "library_ms": None,
+        "launches_by_path": {
+            **{f"layered [18] {k}": v["minsum_layer_step"]
+               for k, v in layered_counted.items()},
+            "layered [21]": new_paths["minsum_layered_wifi"]["launches"][
+                "minsum_layer_step"],
+            **{f"stream card vs cpu [27] {k}": v.get("minsum_layer_step", 0)
+               for k, v in stream_counted.items()
+               if k.startswith("minsum layered")},
+            "layered stream [28]": stream_paths["minsum_layered_wifi"][
+                "launches"]["minsum_layer_step"],
+            "wifi-layered-et30-2.2dB [49]": b11["decode"]["launches"][
+                "minsum_layer_step"]},
+        "forms": b11["forms"]}
+    for row in (b6_row, b7_row, b8_row, b9_row, b10_row, b11_row):
         check(all(v >= 1 for v in row["launches_by_path"].values()),
               f"{row['name']} not launched on a path: "
               f"{row['launches_by_path']}")
@@ -7703,7 +7948,7 @@ def main() -> int:
          **({"ring_shapes": rings["shapes"]}
             if name == "gauss_philox_lanes" else {})}
         for name, tpu, count, by_path in lane_rows
-    ] + [b5_row, b6_row, b7_row, b8_row, b9_row, b10_row]}))
+    ] + [b5_row, b6_row, b7_row, b8_row, b9_row, b10_row, b11_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -18,21 +18,26 @@ Semantics (standard row-layered min-sum):
   * One iteration is one pass over the Mb layers in base-row order;
     decisions are ``q > 0 ? +1 : −1``.
 
-The check update is kernel B1 (:func:`..kernels.minsum.minsum_cn_scan`):
-the step writes the layer's ``qext`` rows into an f32 buffer and B1 scans it
-through the layer's routing table (:class:`.minsum_qc.LayerPlan`), Mb
-launches per iteration, each layer's work under the span
-``ldpc.decode.layer``.  The buffer is f32 whatever the storage type, so
-the variant post-op is an f32 operation here (the JAX layered scan runs in
-the posterior's type with weakly typed ``alpha``/``delta``), unlike the
-flooding decoder's storage-precision one; only ``L'`` is cast.
+A layer without a two-circulant pair is kernel B11
+(:func:`..kernels.layered.minsum_layer_step`): one pass reads each named
+slot's posterior and stored message, scans the extrinsics in registers,
+writes ``q[col]`` in place and ``L'`` to a fresh buffer, Mb launches per
+iteration, each layer's work under the span ``ldpc.decode.layer``.  The
+extrinsic and the variant post-op are f32 operations here whatever the
+storage type (the JAX layered scan runs in the posterior's type with weakly
+typed ``alpha``/``delta``), unlike the flooding decoder's storage-precision
+post-op; only ``L'`` is cast.
 
 Generalized structures: a two-circulant PAIR meets every column of its
 block twice within the layer; all z checks read the pre-layer posterior and
 their updates accumulate, ``q' = (a1 − q) + a2`` in exactly that grouping.
-An absent edge is a −1 slot of the routing table (the JAX scan reads +inf
-there), stores a zero and leaves its column's posterior untouched.  B1 does
-not write an absent slot's row; the step zeroes it.
+Such a layer keeps the body from before B11
+(:func:`..kernels.layered.layer_body`): the layer's ``qext`` rows in an f32
+buffer, kernel B1 (:func:`..kernels.minsum.minsum_cn_scan`) through the
+layer's routing table (:class:`.minsum_qc.LayerPlan`), then
+:func:`layered_scatter`.  An absent edge is a −1 slot of the routing table
+(the JAX scan reads +inf there), stores a zero and leaves its column's
+posterior untouched.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ import torch
 
 from .. import spans
 from ..codes.qc import QCCode
+from ..kernels.layered import layer_body, minsum_layer_step
 from ..kernels.minsum import VARIANTS, minsum_cn_scan
-from .base import DecodeResult, run_flooding, storage_cast
+from .base import DecodeResult, run_flooding
 from .minsum_qc import (
     assert_layered_compatible,
     qc_check_satisfied,
@@ -88,7 +94,10 @@ def qc_minsum_layered_step(qc: QCCode, variant: str = "plain",
     layered state: ``step((q, L)) -> ((q', L'), total)`` with ``q`` the
     ``[N, B]`` posterior, ``L`` the per-layer stored check messages and
     ``total`` the new posterior (decisions are its sign).  One call is one
-    pass over all Mb layers; the state given is left unchanged."""
+    pass over all Mb layers; the state given is left unchanged (the step
+    updates a copy of ``q`` in place and writes fresh ``L'`` buffers).  A
+    layer without a pair is kernel B11; a pair layer keeps the gather, B1
+    and :func:`layered_scatter`."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown min-sum variant {variant!r}")
     assert_layered_compatible(qc)
@@ -101,14 +110,12 @@ def qc_minsum_layered_step(qc: QCCode, variant: str = "plain",
         L_new = []
         for lp, l_old in zip(plan.layers, L):
             with spans.span(spans.LAYER_STEP):
-                qv = q[lp.cols]
-                qext = qv - l_old.to(q.dtype)
-                out = minsum_cn_scan(qext, lp.scan_rows, variant, alpha,
-                                     delta)
-                if lp.absent is not None:  # rows B1 does not write
-                    out.index_fill_(0, lp.absent, 0.0)
-                layered_scatter(q, lp, qv, qext, out)
-                L_new.append(storage_cast(out, sdt))
+                if lp.pair_first is None:
+                    L_new.append(minsum_layer_step(q, l_old, lp, variant,
+                                                   alpha, delta, sdt))
+                else:
+                    L_new.append(layer_body(q, l_old, lp, variant, alpha,
+                                            delta, sdt, minsum_cn_scan))
         return (q, tuple(L_new)), q
 
     return step

@@ -87,6 +87,9 @@ class LayerPlan:
     cols:        [dc*z] int64 — the column of each local row.
     scan_rows:   [z, dc] int32 — kernels B1's and B8's routing table over
                  the local rows, −1 where the edge is absent.
+    slot_cols:   [z, dc] int32 — kernel B11's table: the column of check
+                 r's edge in circulant t (``cols[scan_rows[r, t]]``), −1
+                 where the edge is absent.
     absent:      int64 local rows of absent edges (None if there are none).
     single_rows: int64 local rows of the circulants that are alone on their
                  block pair (None when every circulant is: all rows).
@@ -98,6 +101,7 @@ class LayerPlan:
     dc: int
     cols: torch.Tensor
     scan_rows: torch.Tensor
+    slot_cols: torch.Tensor
     absent: Optional[torch.Tensor]
     single_rows: Optional[torch.Tensor]
     pair_first: Optional[torch.Tensor]
@@ -302,6 +306,8 @@ def _layer_plan(z, ents, gone, firsts, dev) -> LayerPlan:
         dc=dc,
         cols=dev(cols),
         scan_rows=dev(scan).to(torch.int32).contiguous(),
+        slot_cols=dev(np.where(scan >= 0, cols[np.maximum(scan, 0)], -1)
+                      ).to(torch.int32).contiguous(),
         absent=dev(absent) if len(absent) else None,
         single_rows=(None if not paired else
                      dev(np.concatenate(single)) if single else dev([])),

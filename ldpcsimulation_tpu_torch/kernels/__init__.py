@@ -14,6 +14,10 @@
   * B10 :func:`.merge.et_merge` — the early-termination decision merge:
     sign, latch and round count in one pass over a round's posterior, in
     place (no Pallas original: the JAX loop body's XLA fusion);
+  * B11 :func:`.layered.minsum_layer_step` — one layer of row-layered
+    min-sum: extrinsic, two-min scan, post-op, posterior update in place
+    and storage store in one pass (no Pallas original: the JAX layered
+    step's XLA fusion);
   * B6 :func:`.check.parity_check` — the parity check of every decoder's
     early exit and the bit-flip decoders' bipolar syndrome, one integer
     pass (no Pallas original: the JAX checks' XLA fusions);
@@ -62,6 +66,7 @@ from .gdbf import (
     gdbf_parallel_step,
     gdbf_parallel_step_plain,
 )
+from .layered import minsum_layer_step, minsum_layer_step_plain
 from .merge import et_merge, et_merge_plain
 from .minsum import (
     VARIANTS,
@@ -94,6 +99,8 @@ __all__ = [
     "parity_check_plain",
     "et_merge",
     "et_merge_plain",
+    "minsum_layer_step",
+    "minsum_layer_step_plain",
     "gdbf_parallel_step",
     "gdbf_parallel_step_plain",
     "gdbf_lanes_plain",

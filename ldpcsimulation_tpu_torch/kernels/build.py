@@ -13,7 +13,8 @@ clean); :func:`check` raises on anything else.  ``LAUNCHES`` counts each
 kernel's launches, so a run can show that its main path went through them;
 ``PATHS`` counts the Philox kernels' launches by ``(name, "fast" | "tail")``,
 the instance their C entry chose (wide stores, or the scalar tail), the
-decision merge's by ``("et_merge", "wide" | "tail")``, and the bit-flip
+decision merge's by ``("et_merge", "wide" | "tail")``, the layer step's by
+``("minsum_layer_step", lanes)``, and the bit-flip
 decoder's steps by ``("gdbf_step", "chunk" | "loop")``, the path that
 issued them (on every device: the CPU's chunks are plain twins).
 """
@@ -36,8 +37,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("awgn_philox.cu", "bp_cn_pair.cu", "bp_vn_update.cu",
            "et_merge.cu", "gdbf_chunk.cu", "gdbf_step.cu",
-           "minsum_cn_scan.cu", "minsum_vn_update.cu", "parity_check.cu",
-           "uniform_philox.cu")
+           "minsum_cn_scan.cu", "minsum_layer_step.cu", "minsum_vn_update.cu",
+           "parity_check.cu", "uniform_philox.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,7 +47,7 @@ NVCC_FLAGS = (
 #: launches per kernel name, counted by each wrapper where it launches
 LAUNCHES: collections.Counter = collections.Counter()
 #: launches per (kernel name, instance: "fast" or "tail"; B10 "wide" or
-#: "tail")
+#: "tail"; B11 its lanes a thread)
 PATHS: collections.Counter = collections.Counter()
 
 _LIB = None
@@ -133,6 +134,12 @@ def library() -> ctypes.CDLL:
             ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P,
         ]
         lib.ldpc_minsum_cn_scan.restype = ctypes.c_int
+        lib.ldpc_minsum_layer_step.argtypes = [
+            _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P,
+        ]
+        lib.ldpc_minsum_layer_step.restype = ctypes.c_int
         lib.ldpc_bp_cn_pair.argtypes = [
             _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
